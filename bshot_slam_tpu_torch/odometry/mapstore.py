@@ -1,0 +1,200 @@
+"""Device-resident global keypoint map with voxel-block dedup.
+
+Port of `bshot_slam_tpu.odometry.mapstore` (the main-path part; eviction at
+the hard capacity is not ported yet).  Fixed-capacity tensors with a valid
+mask and an append cursor: valid rows are exactly [0, cursor).  A new
+keypoint is rejected when an existing same-block keypoint lies within the
+dedup radius and has a seg_ratio >= its own (kernel E against the map, a
+lower-triangular test within the batch), then survivors are appended.
+
+Functions return new states and never modify their inputs in place.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from bshot_slam_tpu_torch.config import MapConfig
+from bshot_slam_tpu_torch.kernels.mapops import dedup_blocked_bounded
+from bshot_slam_tpu_torch.ops.keypoints import _pair_d2
+
+
+class MapState(NamedTuple):
+    positions: torch.Tensor  # (C, 3) float32, snapped to cfg.snap_mm
+    descriptors: torch.Tensor  # (C, 11) int32 packed B-SHOT (uint32 bits)
+    seg_ratios: torch.Tensor  # (C,) float32
+    blocks: torch.Tensor  # (C, 3) int32 voxel-block coords
+    valid: torch.Tensor  # (C,) bool
+    cursor: torch.Tensor  # () int32 next free slot
+    frame_born: torch.Tensor  # (C,) int32 inserting frame, -1 for empty rows
+    n_dropped: torch.Tensor  # () int32 insertions lost at capacity
+
+
+def init_map(cfg: MapConfig, capacity: int | None = None,
+             device=None) -> MapState:
+    C = capacity if capacity is not None else cfg.capacity
+    return MapState(
+        positions=torch.zeros((C, 3), dtype=torch.float32, device=device),
+        descriptors=torch.zeros((C, 11), dtype=torch.int32, device=device),
+        seg_ratios=torch.zeros((C,), dtype=torch.float32, device=device),
+        blocks=torch.zeros((C, 3), dtype=torch.int32, device=device),
+        valid=torch.zeros((C,), dtype=torch.bool, device=device),
+        cursor=torch.zeros((), dtype=torch.int32, device=device),
+        frame_born=torch.full((C,), -1, dtype=torch.int32, device=device),
+        n_dropped=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def grow_map(state: MapState, new_capacity: int) -> MapState:
+    """Zero-pad every map array to a larger capacity."""
+    C = state.positions.shape[0]
+    if new_capacity <= C:
+        return state
+    p = new_capacity - C
+
+    def pad(x, fill=0):
+        return torch.cat([x, torch.full((p,) + x.shape[1:], fill, dtype=x.dtype,
+                                        device=x.device)], dim=0)
+
+    return MapState(
+        positions=pad(state.positions),
+        descriptors=pad(state.descriptors),
+        seg_ratios=pad(state.seg_ratios),
+        blocks=pad(state.blocks),
+        valid=pad(state.valid),
+        cursor=state.cursor,
+        frame_born=pad(state.frame_born, -1),
+        n_dropped=state.n_dropped,
+    )
+
+
+def compact_indices(mask: torch.Tensor, W: int) -> torch.Tensor:
+    """Indices of the first (ascending) `W` True rows of `mask`, then the
+    False rows ascending as padding (callers mask the tail by count)."""
+    return torch.argsort((~mask).to(torch.uint8), stable=True)[:W]
+
+
+def snap_positions(pos: torch.Tensor, snap_mm: float) -> torch.Tensor:
+    """Grid snap, truncating toward zero."""
+    return torch.trunc(pos / snap_mm) * snap_mm
+
+
+def block_coords(pos: torch.Tensor, block_mm: float) -> torch.Tensor:
+    """Voxel-block integer coords by rounding (half to even)."""
+    return torch.round(pos / block_mm).to(torch.int32)
+
+
+def _dedup_against(pos, blk, seg, m_pos, m_blk, m_seg, m_valid, n_valid,
+                   cfg: MapConfig) -> torch.Tensor:
+    """(K,) True where an existing same-block candidate within the dedup
+    radius has seg_ratio >= the newcomer's (kernel E)."""
+    return dedup_blocked_bounded(pos, blk, seg, m_pos, m_blk, m_seg, m_valid,
+                                 n_valid, dedup_radius=cfg.dedup_radius_mm)
+
+
+def _set_rows(x: torch.Tensor, tgt: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Copy of x with x[tgt[i]] = rows[i]; targets == len(x) are dropped."""
+    ext = torch.cat([x, x[:1]], dim=0)
+    return ext.index_copy(0, tgt, rows.to(x.dtype))[: x.shape[0]]
+
+
+def insert_keypoints(
+    state: MapState,
+    pos: torch.Tensor,  # (K, 3) world-frame keypoint positions
+    desc: torch.Tensor,  # (K, 11) packed descriptors
+    seg: torch.Tensor,  # (K,)
+    kmask: torch.Tensor,  # (K,)
+    cfg: MapConfig,
+    frame_idx=-1,  # () int32 provenance for frame_born
+    window_cap: int | None = None,
+) -> MapState:
+    """Batched equivalent of K sequential `Map::addKeypoint` calls."""
+    dev = pos.device
+    pos = snap_positions(pos, cfg.snap_mm)
+    blk = block_coords(pos, cfg.block_size_mm)
+    r2 = cfg.dedup_radius_mm * cfg.dedup_radius_mm
+
+    # Dedup against the map: either every row up to the cursor, or (with
+    # `window_cap`) the rows whose block lies in the batch's block box —
+    # an exact superset of the possible blockers — unless they overflow it.
+    C = state.positions.shape[0]
+    if window_cap is not None and C > window_cap:
+        W = window_cap
+        big = 2**30
+        lo = torch.min(torch.where(kmask[:, None], blk, big), dim=0).values
+        hi = torch.max(torch.where(kmask[:, None], blk, -big), dim=0).values
+        inwin = state.valid & torch.all(
+            (state.blocks >= lo[None, :]) & (state.blocks <= hi[None, :]), dim=-1
+        )
+        n_win = torch.sum(inwin.to(torch.int32))
+        if int(n_win) > W:
+            rejected_by_map = _dedup_against(
+                pos, blk, seg, state.positions, state.blocks, state.seg_ratios,
+                state.valid, state.cursor, cfg,
+            )
+        else:
+            widx = compact_indices(inwin, W)
+            wmask = torch.arange(W, dtype=torch.int32, device=dev) < n_win
+            rejected_by_map = _dedup_against(
+                pos, blk, seg, state.positions[widx], state.blocks[widx],
+                state.seg_ratios[widx], wmask, n_win, cfg,
+            )
+    else:
+        rejected_by_map = _dedup_against(
+            pos, blk, seg, state.positions, state.blocks, state.seg_ratios,
+            state.valid, state.cursor, cfg,
+        )
+
+    # Sequential-shadow dedup within the batch (i sees j < i).
+    d2b = _pair_d2(pos, pos)
+    same_blk_b = torch.all(blk[:, None, :] == blk[None, :, :], dim=-1)
+    K = pos.shape[0]
+    earlier = torch.tril(torch.ones((K, K), dtype=torch.bool, device=dev),
+                         diagonal=-1)
+    blocker_b = (
+        earlier
+        & kmask[None, :]
+        & same_blk_b
+        & (d2b < r2)
+        & (seg[None, :] >= seg[:, None])
+    )
+    rejected_in_batch = torch.any(blocker_b, dim=1)
+    accept = kmask & ~rejected_by_map & ~rejected_in_batch
+
+    # Cumsum scatter append; rows past the capacity are dropped and counted.
+    offs = torch.cumsum(accept.to(torch.int32), dim=0) - 1
+    slot = state.cursor + offs
+    ok = accept & (slot < C)
+    tgt = torch.where(ok, slot, C).long()
+    n_ok = torch.sum(ok.to(torch.int32))
+    fidx = torch.as_tensor(frame_idx, dtype=torch.int32, device=dev)
+    return MapState(
+        positions=_set_rows(state.positions, tgt, pos),
+        descriptors=_set_rows(state.descriptors, tgt, desc),
+        seg_ratios=_set_rows(state.seg_ratios, tgt, seg),
+        blocks=_set_rows(state.blocks, tgt, blk),
+        valid=_set_rows(state.valid, tgt, torch.ones_like(accept)),
+        cursor=torch.clamp(state.cursor + n_ok, max=C).to(torch.int32),
+        frame_born=_set_rows(state.frame_born, tgt, fidx.expand(K)),
+        n_dropped=(state.n_dropped + torch.sum(accept.to(torch.int32))
+                   - n_ok).to(torch.int32),
+    )
+
+
+def query_mask(state: MapState, center: torch.Tensor, range_mm: float,
+               cfg: MapConfig) -> torch.Tensor:
+    """(C,) mask of keypoints whose block intersects the +-range AABB
+    (block granularity, as the reference's window scan)."""
+    lo = torch.round((center - range_mm) / cfg.block_size_mm).to(torch.int32)
+    hi = torch.round((center + range_mm) / cfg.block_size_mm).to(torch.int32)
+    inside = torch.all(
+        (state.blocks >= lo[None, :]) & (state.blocks <= hi[None, :]), dim=-1
+    )
+    return state.valid & inside
+
+
+def map_size(state: MapState) -> torch.Tensor:
+    """Number of stored keypoints."""
+    return torch.sum(state.valid.to(torch.int32))

@@ -1,0 +1,303 @@
+"""Scan-to-map LiDAR odometry: the per-frame step.
+
+Port of `bshot_slam_tpu.odometry.pipeline` (the host-preprocess path):
+
+    OdometryState = (global map, previous-frame features, pose)
+    odometry_step(state, points, mask, rng) -> (state', StepDiagnostics)
+
+Stage order: keypoints + descriptors (one shared-moments sweep, kernels A
+and B), map-window matching (kernel C), RANSAC, pose gate, ICP (kernel D,
+10 launches), map insert (kernel E), and the packed diagnostics row.
+
+Where the reference branches on device values with `lax.cond` (window
+overflow), the port fetches the scalar and branches in Python: one host
+sync per branch in the synchronous engine.  `rng` takes the place of the
+reference's PRNG key: a `torch.Generator`, or the (H, 3) RANSAC draws.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from bshot_slam_tpu_torch.config import SlamConfig
+from bshot_slam_tpu_torch.geometry import se3
+from bshot_slam_tpu_torch.odometry import mapstore
+from bshot_slam_tpu_torch.ops import bshot, hamming
+from bshot_slam_tpu_torch.ops.icp import icp_point_to_point
+from bshot_slam_tpu_torch.ops.keypoints import (
+    extract_keypoints, keypoints_from_scores, neighborhood_moments,
+    seg_ratio_scores,
+)
+from bshot_slam_tpu_torch.ops.normals import normals_from_moments, surface_normals
+from bshot_slam_tpu_torch.ops.ransac import ransac_rigid
+from bshot_slam_tpu_torch.ops.shot import chunked_top_k, shot_descriptors
+
+# Packed-diagnostics layout (StepDiagnostics.packed), identical to the
+# reference's.
+PACKED_LEN = 28  # [pose(16), n_mutual, n_inliers, gated, h_diff, t_diff,
+#                  map_size, icp_rmse, corr_stats(3), n_dropped, frame_idx]
+IDX_N_MUTUAL = 16
+IDX_N_INLIERS = 17
+IDX_GATED = 18
+IDX_MAP_SIZE = 21
+IDX_ICP_RMSE = 22
+IDX_CORR_STATS = 23  # ..IDX_CORR_STATS+3
+IDX_N_DROPPED = 26
+IDX_FRAME = 27
+# Tail present when the step receives n_valid:
+IDX_N_VALID = 28
+IDX_BUCKET = 29
+IDX_COMMITTED = 30
+
+
+class FrameFeatures(NamedTuple):
+    keypoints: torch.Tensor  # (K, 3) sensor frame
+    scores: torch.Tensor  # (K,) seg ratios
+    descriptors: torch.Tensor  # (K, 11) packed B-SHOT, int32
+    mask: torch.Tensor  # (K,) keypoint and descriptor valid
+
+
+class OdometryState(NamedTuple):
+    map: mapstore.MapState
+    ref: FrameFeatures  # previous frame's features (sensor frame)
+    ref_pose: torch.Tensor  # (4, 4) previous frame's world pose
+    frame_idx: torch.Tensor  # () int32
+
+
+class StepDiagnostics(NamedTuple):
+    pose: torch.Tensor  # (4, 4) estimated pose of this frame
+    n_mutual: torch.Tensor
+    n_inliers: torch.Tensor
+    gated: torch.Tensor
+    heading_diff_rad: torch.Tensor
+    translation_diff_mm: torch.Tensor
+    map_size: torch.Tensor
+    icp_rmse: torch.Tensor
+    corr_stats: torch.Tensor  # (3,) [mean, SD, median] inlier distance, mm
+    corr_index: torch.Tensor  # (K,) int32 into [map capacity | prev keypoints]
+    corr_inlier: torch.Tensor  # (K,) bool
+    features: FrameFeatures
+    n_dropped: torch.Tensor
+    packed: torch.Tensor  # (28,) or (31,) float32, see PACKED_LEN
+
+
+def init_state(cfg: SlamConfig, device=None) -> OdometryState:
+    K = cfg.keypoints.top_k
+    return OdometryState(
+        map=mapstore.init_map(cfg.map, device=device),
+        ref=FrameFeatures(
+            keypoints=torch.zeros((K, 3), dtype=torch.float32, device=device),
+            scores=torch.zeros((K,), dtype=torch.float32, device=device),
+            descriptors=torch.zeros((K, cfg.descriptor.n_words),
+                                    dtype=torch.int32, device=device),
+            mask=torch.zeros((K,), dtype=torch.bool, device=device),
+        ),
+        ref_pose=torch.eye(4, dtype=torch.float32, device=device),
+        frame_idx=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def compute_features(points: torch.Tensor, pmask: torch.Tensor,
+                     cfg: SlamConfig, tile: int) -> FrameFeatures:
+    """extractKeypoints + computeDescriptors.  Saliency and normals need
+    the same neighbourhood moments at the same radius, so one sweep of
+    kernel A feeds both."""
+    cap_mode = cfg.keypoints.neighbor_cap_mode
+    share = (
+        cfg.descriptor.use_surface_normals
+        and cfg.descriptor.normal_radius_mm == cfg.keypoints.radius_mm
+        and not cap_mode
+    )
+    if share:
+        cnt, psum, outer = neighborhood_moments(
+            points, pmask, cfg.keypoints.radius_mm, tile
+        )
+        scores = seg_ratio_scores(points, pmask, cfg.keypoints, tile,
+                                  moments=(cnt, psum))
+        top_scores, top_idx = chunked_top_k(scores, cfg.keypoints.top_k,
+                                            cfg.runtime.topk_chunks)
+        kps = keypoints_from_scores(points, top_scores, top_idx)
+        normals, _, _ = normals_from_moments(points, pmask, cnt, psum, outer)
+    else:
+        kps = extract_keypoints(points, pmask, cfg.keypoints, tile)
+        if cfg.descriptor.use_surface_normals:
+            normals, _, _ = surface_normals(
+                points, pmask, cfg.descriptor.normal_radius_mm, tile,
+                cap=cfg.keypoints.neighbor_cap if cap_mode else None,
+            )
+        else:  # reference-mimic mode: zero surface normals
+            normals = torch.zeros_like(points)
+    desc_f, desc_valid = shot_descriptors(
+        kps.positions, kps.mask, points, pmask, normals, cfg.descriptor,
+        topk_chunks=cfg.runtime.topk_chunks,
+    )
+    words = bshot.bshot_from_shot(desc_f, cfg.descriptor)
+    return FrameFeatures(keypoints=kps.positions, scores=kps.scores,
+                         descriptors=words, mask=kps.mask & desc_valid)
+
+
+def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
+                        cfg: SlamConfig):
+    """featureMatching + evaluateEstimation."""
+    mcfg = cfg.match
+    ref_pose = state.ref_pose
+    center = se3.translation(ref_pose)
+    dev = ref_pose.device
+
+    # Candidates: the map window, then the previous frame's keypoints in
+    # the world frame (map wins ties, as in the reference's build order).
+    win = mapstore.query_mask(state.map, center, mcfg.map_query_range_mm,
+                              cfg.map)
+    ref_world = se3.apply(ref_pose, state.ref.keypoints)
+    capacity = state.map.positions.shape[0]
+
+    # Window compaction: gather the in-window rows (ascending) into a
+    # (window_cap, ...) buffer so matching and ICP scale with the local map;
+    # on overflow the dense full-capacity scan runs instead (lossless).
+    W = cfg.runtime.window_cap
+    use_compact = cfg.runtime.window_compact and capacity > W
+    if use_compact:
+        n_win = torch.sum(win.to(torch.int32))
+        use_compact = int(n_win) <= W
+    if use_compact:
+        widx = mapstore.compact_indices(win, W)
+        wmask = torch.arange(W, dtype=torch.int32, device=dev) < n_win
+        cand_pos = torch.cat(
+            [torch.where(wmask[:, None], state.map.positions[widx], 0.0),
+             ref_world], dim=0)
+        cand_desc = torch.cat(
+            [torch.where(wmask[:, None], state.map.descriptors[widx], 0),
+             state.ref.descriptors])
+        cand_mask = torch.cat([wmask, state.ref.mask])
+        n_live, tail = n_win, W
+    else:
+        cand_pos = torch.cat([state.map.positions, ref_world], dim=0)
+        cand_desc = torch.cat([state.map.descriptors, state.ref.descriptors])
+        cand_mask = torch.cat([win, state.ref.mask])
+        n_live, tail = state.map.cursor, capacity
+
+    m = hamming.mutual_nn_bounded(src.descriptors, src.mask, cand_desc,
+                                  cand_mask, n_live, tail_start=tail)
+    s2r = m.src_to_ref.long()
+    corr_dst, cmask = cand_pos[s2r], m.mutual
+    if use_compact:
+        # Compact indices back to the full-map index space [0, capacity + K).
+        corr_index = torch.where(s2r < W, widx[torch.clamp(s2r, max=W - 1)],
+                                 capacity + (s2r - W))
+    else:
+        corr_index = s2r
+
+    rr = ransac_rigid(rng, src.keypoints, corr_dst, cmask,
+                      inlier_threshold=mcfg.ransac_inlier_th_mm,
+                      iterations=mcfg.ransac_iterations)
+    T_j = rr.transform
+
+    # Pose gate.
+    T_ij = se3.compose(se3.inverse(ref_pose), T_j)
+    h_diff = se3.heading_angle(T_ij)
+    t_diff = torch.linalg.norm(se3.translation(T_ij))
+    gate = (
+        (h_diff > math.radians(mcfg.gate_heading_deg))
+        | (t_diff > mcfg.gate_translation_mm)
+        | (rr.n_inliers < mcfg.gate_min_inliers)
+    )
+    T_est = torch.where(gate, ref_pose, T_j)
+
+    # ICP refinement against the candidate set.  It runs (and its rmse is
+    # reported) even with run_icp off, as in the reference.
+    src_est = se3.apply(T_est, src.keypoints)
+    icp = icp_point_to_point(
+        src_est, src.mask, cand_pos, cand_mask,
+        iterations=mcfg.icp_iterations, max_corr_dist=mcfg.icp_max_corr_dist_mm,
+        n_valid_dst=n_live, tail_start=tail,
+    )
+    T_best = se3.compose(icp.transform, T_est) if mcfg.run_icp else T_j
+    n_mutual = torch.sum(cmask.to(torch.int32))
+
+    # Inlier correspondence stats after the final transform; the median is
+    # the lower middle element of the sorted inlier distances.
+    d = torch.linalg.norm(se3.apply(T_best, src.keypoints) - corr_dst, dim=-1)
+    w = rr.inliers
+    n_in = torch.sum(w.to(torch.int32))
+    safe_n = torch.clamp(n_in, min=1).to(torch.float32)
+    c_mean = torch.sum(torch.where(w, d, 0.0)) / safe_n
+    c_std = torch.sqrt(torch.sum(torch.where(w, (d - c_mean) ** 2, 0.0)) / safe_n)
+    d_sorted = torch.sort(torch.where(w, d, float("inf"))).values
+    mid = (torch.clamp(n_in - 1, min=0) // 2).reshape(1).long()
+    c_median = d_sorted.index_select(0, mid)[0]
+    corr_stats = torch.where(n_in > 0, torch.stack([c_mean, c_std, c_median]),
+                             torch.zeros(3, dtype=torch.float32, device=dev))
+    return (T_best, rr, corr_index, n_mutual, gate, h_diff, t_diff, icp.rmse,
+            corr_stats)
+
+
+def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
+                        pmask: torch.Tensor, rng, cfg: SlamConfig,
+                        tile: int = 2048, n_valid=None):
+    """One full SLAM frame; `n_valid` (the cloud count) optionally rides in
+    `packed` with the [n_valid, bucket, committed] tail."""
+    dev = points.device
+    src = compute_features(points, pmask, cfg, tile)
+    (T_best, rr, corr_index, n_mutual, gate, h_diff, t_diff, icp_rmse,
+     corr_stats) = _match_and_estimate(rng, src, state, cfg)
+
+    # INITIAL frame: identity pose, no gating.
+    is_initial = state.frame_idx == 0
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    T_best = torch.where(is_initial, eye, T_best)
+    gate = gate & ~is_initial
+
+    # updateMap: insert the keypoints transformed by the accepted pose.
+    world_kp = se3.apply(T_best, src.keypoints)
+    new_map = mapstore.insert_keypoints(
+        state.map, world_kp, src.descriptors, src.scores, src.mask, cfg.map,
+        frame_idx=state.frame_idx,
+        window_cap=(cfg.runtime.window_cap if cfg.runtime.window_compact
+                    else None),
+    )
+    new_state = OdometryState(map=new_map, ref=src, ref_pose=T_best,
+                              frame_idx=state.frame_idx + 1)
+    msize = mapstore.map_size(new_map)
+    f32 = torch.float32
+    parts = [
+        T_best.reshape(16),
+        torch.stack([n_mutual.to(f32), rr.n_inliers.to(f32), gate.to(f32),
+                     h_diff, t_diff, msize.to(f32), icp_rmse]),
+        corr_stats,
+        new_map.n_dropped.to(f32)[None],
+        state.frame_idx.to(f32)[None],
+    ]
+    if n_valid is not None:
+        parts.append(torch.tensor([float(n_valid), float(points.shape[0]), 1.0],
+                                  dtype=f32, device=dev))
+    diag = StepDiagnostics(
+        pose=T_best, n_mutual=n_mutual, n_inliers=rr.n_inliers, gated=gate,
+        heading_diff_rad=h_diff, translation_diff_mm=t_diff, map_size=msize,
+        icp_rmse=icp_rmse, corr_stats=corr_stats,
+        corr_index=corr_index.to(torch.int32),
+        corr_inlier=rr.inliers & ~is_initial, features=src,
+        n_dropped=new_map.n_dropped, packed=torch.cat(parts),
+    )
+    return new_state, diag
+
+
+def odometry_step(state: OdometryState, points: torch.Tensor,
+                  pmask: torch.Tensor, rng, cfg: SlamConfig, tile: int = 2048,
+                  n_valid=None):
+    return _odometry_step_impl(state, points, pmask, rng, cfg, tile, n_valid)
+
+
+odometry_step.__doc__ = _odometry_step_impl.__doc__
+
+
+def odometry_step_compact(state: OdometryState, points: torch.Tensor,
+                          n_valid: int, rng, cfg: SlamConfig, tile: int = 2048):
+    """Odometry step over a host-preprocessed compact cloud: points
+    (bucket, 3) front-compacted, `n_valid` exact; the validity mask is
+    `iota < n_valid`."""
+    pmask = torch.arange(points.shape[0], device=points.device) < n_valid
+    return _odometry_step_impl(state, points, pmask, rng, cfg, tile,
+                               n_valid=n_valid)

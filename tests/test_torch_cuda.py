@@ -1,0 +1,104 @@
+"""The port's CUDA kernels on the card against their plain versions.
+
+Needs an NVIDIA GPU with nvcc (marker `cuda`); skips elsewhere.  Run on the
+card with `python -m pytest tests/test_torch_cuda.py -q -m cuda`.  Integer
+outputs must equal the plain version run on CPU copies exactly (the kernels
+reproduce its rounding); float sums agree to summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bshot_slam_tpu_torch import tiny_config
+from bshot_slam_tpu_torch.io import synthetic
+from bshot_slam_tpu_torch.kernels import mapops as M
+from bshot_slam_tpu_torch.kernels import neighborhood as K
+from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _cloud(n=3000, nv=2421, seed=1):
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(0, 6000, (n, 3)).astype(np.float32)
+    pts[nv:] = 0.0
+    return torch.tensor(pts), torch.arange(n) < nv
+
+
+def test_neighborhood_kernels(dev):
+    pts, mask = _cloud()
+    x, y, z = pts.unbind(-1)
+    feat = torch.stack([torch.ones_like(x), x, y, z, x * x, y * z], -1)
+    r2_row = torch.full((pts.shape[0],), 2500.0**2)
+    r2_row[::3] = 1800.0**2
+    for r2 in (None, r2_row):
+        want = K.neighborhood_accumulate(pts, mask, feat, 3000.0, r2_row=r2)
+        got = K.neighborhood_accumulate(
+            pts.to(dev), mask.to(dev), feat.to(dev), 3000.0,
+            r2_row=None if r2 is None else r2.to(dev)).cpu()
+        torch.testing.assert_close(got[:, 0], want[:, 0], rtol=0, atol=0)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e3)
+    ctvec = (pts - want[:, 1:4] / want[:, :1].clamp(min=1)).contiguous()
+    for normalized in (False, True):
+        want = K.segratio_accumulate(pts, mask, ctvec, 3000.0, normalized)
+        got = K.segratio_accumulate(pts.to(dev), mask.to(dev), ctvec.to(dev),
+                                    3000.0, normalized).cpu()
+        torch.testing.assert_close(got[:, :2], want[:, :2], rtol=0, atol=0)
+        torch.testing.assert_close(got[:, 2], want[:, 2], rtol=1e-4, atol=1.0)
+
+
+@pytest.mark.parametrize("tail", [-1, 1500])
+def test_map_kernels(dev, tail):
+    rng = np.random.default_rng(2)
+    ka, cb, nv = 300, 1700, 1203
+    a = torch.tensor(rng.integers(0, 2**32, (ka, 11), dtype=np.uint64)
+                     .astype(np.uint32).view(np.int32))
+    b = torch.tensor(rng.integers(0, 2**32, (cb, 11), dtype=np.uint64)
+                     .astype(np.uint32).view(np.int32))
+    b[[5, 9]] = a[0]
+    am = torch.tensor(rng.random(ka) > 0.1)
+    bm = torch.tensor(rng.random(cb) > 0.1) & (torch.arange(cb) < nv)
+    if tail >= 0:
+        bm[tail:] = True
+    want = M.hamming_nn_bounded(a, am, b, bm, nv, tail)
+    got = M.hamming_nn_bounded(a.to(dev), am.to(dev), b.to(dev), bm.to(dev), nv, tail)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    q = torch.tensor(rng.uniform(-4e4, 4e4, (ka, 3)).astype(np.float32))
+    r = torch.tensor(rng.uniform(-1e5, 1e5, (cb, 3)).astype(np.float32))
+    want = M.euclid_nn_bounded(q, am, r, bm, nv, tail)
+    got = M.euclid_nn_bounded(q.to(dev), am.to(dev), r.to(dev), bm.to(dev), nv, tail)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    pos = torch.trunc(q / 10) * 10
+    mpos = r.clone()
+    mpos[:ka] = pos + torch.tensor(rng.normal(0, 500, (ka, 3)).astype(np.float32))
+    args = (pos, torch.round(pos / 1e4).int(), torch.rand(ka), mpos,
+            torch.round(mpos / 1e4).int(), torch.rand(cb), torch.arange(cb) < nv, nv)
+    want = M.dedup_blocked_bounded(*args)
+    got = M.dedup_blocked_bounded(*[t.to(dev) if isinstance(t, torch.Tensor) else t
+                                    for t in args])
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    assert 0 < int(want.sum()) < ka
+
+
+def test_engine_step_on_card(dev):
+    cfg = tiny_config()
+    sweeps, _ = synthetic.render_sequence(3, cfg.sensor, seed=3,
+                                          n_firings=cfg.sensor.n_azimuth)
+    draws = [np.random.default_rng(i).random((cfg.match.ransac_iterations, 3))
+             for i in range(3)]
+    on_card = SlamEngine(cfg, tile=256, draws=draws)
+    on_cpu = SlamEngine(cfg, tile=256, device="cpu", draws=draws)
+    for sw in sweeps:
+        a, b = on_card.process_sweep(sw), on_cpu.process_sweep(sw)
+        assert abs(a.map_size - b.map_size) <= 3
+        assert np.abs(a.pose[:3, 3] - b.pose[:3, 3]).max() <= 5.0
