@@ -6,10 +6,43 @@
 // in-radius points j, the counts of sign(v_i.p_j - v_i.q_i) and the CVS dot
 // sum or the CVSN cosine sum.
 //
-// Design: one thread per query, 128 queries per block.  The block walks the
-// cloud in tiles of 128 candidates staged in shared memory (coordinates,
-// |p|^2, mask and, for A, up to 16 feature columns) and accumulates in f32
-// registers: no atomics, so results are deterministic.
+// What bounds them.  Both are bound by f32 instructions, not bytes: the
+// cloud and its features (under 1 MB) sit in L2, while a frame makes ~2e7
+// radius tests of ~10 instructions and, for A, one add per feature column
+// for the more than half of them that pass.  The K=3 cross term must round
+// like common.cuh's FMA chain, so it cannot go to the tensor cores (wgmma
+// has no IEEE f32 input mode, and TF32 moves points across the shell); what
+// the card offers these kernels is shared memory, 16-byte loads,
+// asynchronous copies and many resident warps.
+//
+// Kernel A is two launches.
+//   1. pack_cloud_kernel, one block per tile of 128 rows, once per call:
+//      candidates become float4 (x, y, z, |p|^2) with masked rows inert
+//      ((0, 0, 0, +inf): their d2 is +inf, so neither a masked candidate nor
+//      a masked query ever passes d2 <= r2 and the main kernel reads no
+//      mask); feature rows are padded to a multiple of 4 floats, so a row is
+//      16-byte loads, and zeroed for masked rows; every tile's box and
+//      largest |p|^2 are computed once.
+//   2. accumulate_kernel, grid (query blocks of 128) x (splits).  A block
+//      tests its query box against every tile box (one tile per thread, a
+//      ballot compacts the kept ones in ascending order) and takes every
+//      nsplit-th kept tile; rejected tiles cost no load and no barrier.
+//      Kept tiles arrive through a ring of three shared-memory stages filled
+//      by 16-byte cp.async copies (a packed tile is contiguous), so the next
+//      tiles load while this one is tested, with one barrier per tile.  Each
+//      thread keeps one query and its sums in registers and reads every
+//      candidate as one broadcast float4; a warp adds a candidate's features
+//      only when one of its 32 queries is in radius, and then without a
+//      divergent branch: acc = fma(w, feat, acc) with w in {0, 1} rounds
+//      exactly like acc + feat.  The splits put several blocks on every one
+//      of the 132 SMs.  Each block writes its partial sums to scratch; the
+//      last block of a query block to finish (a counter behind
+//      __threadfence) adds the partials in ascending split order and writes
+//      the result.  No float atomics: the same inputs give the same bits.
+//
+// Kernel B: one thread per query, 128 queries per block; the block walks
+// the cloud in tiles of 128 candidates staged in shared memory and
+// accumulates in f32 registers.
 //
 // Work, counted in f32 instructions (kernels/neighborhood.py holds the same
 // counts for the bound): a radius test is 8 (dot3: a multiply and 2 FMAs;
@@ -17,8 +50,8 @@
 // then costs A one add per feature column and B 10 (dot3, the subtraction,
 // two sign tests, two count adds, the d2 > 0 test and the sum's add).  The
 // bound counts the radius tests the skips below leave (the pairs of valid
-// rows in block-tile pairs that are not separated) at 128 f32 lanes per SM
-// per clock.  Two skips cut that work without changing any result:
+// rows in pairs of 128-row tiles that are not separated) at 128 f32 lanes
+// per SM per clock.  Two skips cut that work without changing any result:
 //   * a tile with no valid row (the dead tail past the cursor among them)
 //     has an empty box and is skipped;
 //   * a tile whose box lies farther than the radius from the block's query
@@ -124,54 +157,183 @@ __device__ __forceinline__ bool stage_tile(const float* pts, const uint8_t* mask
   return separated(qbox, rbox, r2);
 }
 
+// ---- Kernel A -------------------------------------------------------------
+
+constexpr int kStages = 3;      // shared-memory ring of candidate tiles
+constexpr int kMaxTiles = 1024;  // tiles a block can list: n <= 131072 rows
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// A, pre-pass: pack tile blockIdx.x (see the header note).  `cand` holds
+// gridDim.x * kTile rows, `featp` as many rows of nfp floats, `boxes` 8
+// floats per tile: lo[3], hi[3], max |p|^2, 0.
 __global__ void __launch_bounds__(kThreads)
-accumulate_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
-                  const float* __restrict__ feat, const float* __restrict__ r2row,
-                  float* __restrict__ out, int n, int nf, float r2) {
-  __shared__ float sx[kTile], sy[kTile], sz[kTile], spp[kTile];
-  __shared__ uint8_t sok[kTile];
-  __shared__ float sfeat[kMaxFeat * kTile];
-  __shared__ float red[7 * kWarps], qbox[7], rbox[7];
+pack_cloud_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
+                  const float* __restrict__ feat, float4* __restrict__ cand,
+                  float* __restrict__ featp, float* __restrict__ boxes, int n,
+                  int nf, int nfp) {
+  __shared__ float red[7 * kWarps], box[7];
+  const int t0 = blockIdx.x * kTile;
+  const int j = t0 + threadIdx.x;
+  const bool ok = j < n && mask[j];
+  const float x = ok ? pts[3 * j] : 0.0f;
+  const float y = ok ? pts[3 * j + 1] : 0.0f;
+  const float z = ok ? pts[3 * j + 2] : 0.0f;
+  const float pp = norm2(x, y, z);
+  cand[j] = make_float4(x, y, z, ok ? pp : INFINITY);
+  for (int k = threadIdx.x; k < kTile * nfp; k += kThreads) {
+    const int row = t0 + k / nfp, col = k % nfp;
+    const bool live = row < n && col < nf && mask[row];
+    featp[(size_t)t0 * nfp + k] = live ? feat[(size_t)row * nf + col] : 0.0f;
+  }
+  block_box(ok, x, y, z, pp, red, box);
+  if (threadIdx.x < 8)
+    boxes[blockIdx.x * 8 + threadIdx.x] = threadIdx.x < 7 ? box[threadIdx.x] : 0.0f;
+}
 
-  const Query q = load_query(pts, mask, r2row, r2, n, red, qbox);
-  float acc[kMaxFeat];
-#pragma unroll
-  for (int f = 0; f < kMaxFeat; ++f) acc[f] = 0.0f;
+// A, main kernel: query block blockIdx.x, split blockIdx.y of gridDim.y.
+template <int NFP>
+__global__ void __launch_bounds__(kThreads)
+accumulate_kernel(const float4* __restrict__ cand, const float* __restrict__ featp,
+                  const float* __restrict__ boxes, const float* __restrict__ r2row,
+                  float4* __restrict__ part, int* __restrict__ counters,
+                  float* __restrict__ out, int n, int nf, int ntiles, float r2) {
+  constexpr int kF4 = NFP / 4;  // float4 chunks of a feature row
+  __shared__ __align__(16) float4 sc[kStages][kTile];
+  __shared__ __align__(16) float4 sf[kStages][kTile * kF4];
+  __shared__ uint16_t list[kMaxTiles];
+  __shared__ int wcount[kWarps];
+  __shared__ int last;
 
-  if (qbox[0] <= qbox[3]) {  // the block holds a valid query
-    for (int t0 = 0; t0 < n; t0 += kTile) {
-      // The feature loads are issued before the box test so that their
-      // latency overlaps it; a masked row (the dead tail among them) loads
-      // nothing.  Staging them only for kept tiles, after the test, measured
-      // slower: the loads then wait behind the test's barriers.
-      const int j = t0 + threadIdx.x;
-      const bool live = j < n && mask[j];
-      for (int f = 0; f < nf; ++f)
-        sfeat[f * kTile + threadIdx.x] = live ? feat[(size_t)j * nf + f] : 0.0f;
-      const bool skip = stage_tile(pts, mask, n, t0, r2, sx, sy, sz, spp, sok,
-                                   red, qbox, rbox);
-      if (!skip && q.ok) {
-        const int tn = min(kTile, n - t0);
-        for (int t = 0; t < tn; ++t) {
-          if (!sok[t]) continue;
-          const float d2 =
-              pair_d2(q.qq, spp[t], dot3(q.x, q.y, q.z, sx[t], sy[t], sz[t]));
-          if (d2 <= q.r2) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int qb = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int i = qb * kTile + tid;
+
+  float qbox[8];
+  *reinterpret_cast<float4*>(qbox) = *reinterpret_cast<const float4*>(boxes + qb * 8);
+  *reinterpret_cast<float4*>(qbox + 4) =
+      *reinterpret_cast<const float4*>(boxes + qb * 8 + 4);
+  if (!(qbox[0] <= qbox[3])) {  // no valid query in this block: zeros
+    if (split == 0 && i < n)
+      for (int f = 0; f < nf; ++f) out[(size_t)i * nf + f] = 0.0f;
+    return;
+  }
+
+  // The kept tiles in ascending order; this block takes every nsplit-th.
+  int total = 0;
+  for (int g0 = 0; g0 < ntiles; g0 += kThreads) {
+    const int tile = g0 + tid;
+    bool keep = false;
+    if (tile < ntiles) {
+      float rbox[8];
+      *reinterpret_cast<float4*>(rbox) =
+          *reinterpret_cast<const float4*>(boxes + tile * 8);
+      *reinterpret_cast<float4*>(rbox + 4) =
+          *reinterpret_cast<const float4*>(boxes + tile * 8 + 4);
+      keep = !separated(qbox, rbox, r2);
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) wcount[warp] = __popc(b);
+    __syncthreads();
+    int pos = total + __popc(b & ((1u << lane) - 1u));
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) pos += wcount[w];
+      total += wcount[w];
+    }
+    if (keep && pos % nsplit == split) list[pos / nsplit] = (uint16_t)tile;
+    __syncthreads();
+  }
+  const int mine = total > split ? (total - split + nsplit - 1) / nsplit : 0;
+
+  const float4 q = cand[i];  // a masked query is inert too
+  const float r2q = (r2row != nullptr && i < n) ? r2row[i] : r2;
+  float acc[NFP];
 #pragma unroll
-            for (int f = 0; f < kMaxFeat; ++f)
-              if (f < nf) acc[f] += sfeat[f * kTile + t];
-          }
+  for (int f = 0; f < NFP; ++f) acc[f] = 0.0f;
+
+  auto fetch = [&](int k) {  // start the copy of my k-th tile into its stage
+    if (k < mine) {
+      const size_t row0 = (size_t)list[k] * kTile;
+      const int buf = k % kStages;
+      cp_async16(&sc[buf][tid], cand + row0 + tid);
+      const float4* src = reinterpret_cast<const float4*>(featp) + row0 * kF4;
+#pragma unroll
+      for (int c = 0; c < kF4; ++c)
+        cp_async16(&sf[buf][c * kThreads + tid], src + c * kThreads + tid);
+    }
+    cp_async_commit();  // an empty group keeps the count of groups uniform
+  };
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) fetch(k);
+  for (int k = 0; k < mine; ++k) {
+    cp_async_wait<kStages - 2>();  // my copies of tile k have landed
+    __syncthreads();  // everyone's have, and tile k - 1 is done with
+    fetch(k + kStages - 1);
+    const float4* c4 = sc[k % kStages];
+    const float4* f4 = sf[k % kStages];
+#pragma unroll 4
+    for (int t = 0; t < kTile; ++t) {
+      const float4 p = c4[t];
+      const float d2 = pair_d2(q.w, p.w, dot3(q.x, q.y, q.z, p.x, p.y, p.z));
+      const bool in = d2 <= r2q;
+      if (__any_sync(0xffffffffu, in)) {
+        const float w = in ? 1.0f : 0.0f;
+#pragma unroll
+        for (int c = 0; c < kF4; ++c) {
+          const float4 v = f4[t * kF4 + c];
+          acc[4 * c] = __fmaf_rn(w, v.x, acc[4 * c]);
+          acc[4 * c + 1] = __fmaf_rn(w, v.y, acc[4 * c + 1]);
+          acc[4 * c + 2] = __fmaf_rn(w, v.z, acc[4 * c + 2]);
+          acc[4 * c + 3] = __fmaf_rn(w, v.w, acc[4 * c + 3]);
         }
       }
-      __syncthreads();
     }
   }
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+
+  // Partial sums to scratch; the last block of this query block adds them
+  // in ascending split order.
+  const size_t stride = (size_t)gridDim.x * kTile * kF4;  // float4 per split
+  float4* mypart = part + split * stride + (size_t)i * kF4;
+#pragma unroll
+  for (int c = 0; c < kF4; ++c)
+    mypart[c] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&counters[qb], 1) == nsplit - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+#pragma unroll
+  for (int f = 0; f < NFP; ++f) acc[f] = 0.0f;
+  for (int s = 0; s < nsplit; ++s) {
+#pragma unroll
+    for (int c = 0; c < kF4; ++c) {
+      const float4 v = __ldcg(part + s * stride + (size_t)i * kF4 + c);
+      acc[4 * c] += v.x;
+      acc[4 * c + 1] += v.y;
+      acc[4 * c + 2] += v.z;
+      acc[4 * c + 3] += v.w;
+    }
+  }
   if (i < n) {
 #pragma unroll
-    for (int f = 0; f < kMaxFeat; ++f)
-      if (f < nf) out[(size_t)i * nf + f] = q.ok ? acc[f] : 0.0f;
+    for (int f = 0; f < NFP; ++f)
+      if (f < nf) out[(size_t)i * nf + f] = acc[f];
   }
+  if (tid == 0) counters[qb] = 0;  // ready for the next call on this stream
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -227,15 +389,37 @@ segratio_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
 
 extern "C" {
 
+// Scratch, allocated by the caller for ntiles = ceil(n / 128) tiles and
+// nfp = nf rounded up to a multiple of 4: cand ntiles * 128 float4, featp
+// ntiles * 128 * nfp floats, boxes ntiles * 8 floats, part nsplit * ntiles *
+// 128 * nfp floats, counters ntiles ints, zero before the first call.
 int bshot_neighborhood_accumulate(const float* pts, const uint8_t* mask,
                                   const float* feat, const float* r2row,
-                                  float* out, int n, int nf, float r2,
+                                  float* out, float* cand, float* featp,
+                                  float* boxes, float* part, int* counters,
+                                  int n, int nf, int nsplit, float r2,
                                   void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    accumulate_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        pts, mask, feat, r2row, out, n, nf, r2);
+  if (n <= 0) return 0;
+  const int ntiles = (n + kTile - 1) / kTile;
+  const int nfp = (nf + 3) / 4 * 4;
+  if (nf < 1 || nfp > kMaxFeat || ntiles > kMaxTiles || nsplit < 1 || nsplit > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  float4* cand4 = reinterpret_cast<float4*>(cand);
+  float4* part4 = reinterpret_cast<float4*>(part);
+  pack_cloud_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, feat, cand4, featp,
+                                                 boxes, n, nf, nfp);
+  const dim3 grid(ntiles, nsplit);
+#define BSHOT_ACCUMULATE(NFP)                                                  \
+  accumulate_kernel<NFP><<<grid, kThreads, 0, st>>>(                          \
+      cand4, featp, boxes, r2row, part4, counters, out, n, nf, ntiles, r2)
+  switch (nfp) {
+    case 4: BSHOT_ACCUMULATE(4); break;
+    case 8: BSHOT_ACCUMULATE(8); break;
+    case 12: BSHOT_ACCUMULATE(12); break;
+    default: BSHOT_ACCUMULATE(16); break;
   }
+#undef BSHOT_ACCUMULATE
   return (int)cudaGetLastError();
 }
 

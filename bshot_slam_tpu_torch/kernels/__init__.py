@@ -62,15 +62,32 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
 
 
 def device_count_arg(n, device: torch.device) -> torch.Tensor:
-    """A row bound (int or 0-d tensor) as a (1,) int32 tensor on `device`,
-    which the kernels read, so a device-side bound costs no host sync."""
+    """A row bound (int or 0-d tensor) as a one-element int32 tensor on
+    `device`, which the kernels read, so a device-side bound costs no host
+    sync."""
     if isinstance(n, torch.Tensor):
+        if n.dtype == torch.int32 and n.device == device and n.numel() == 1:
+            return n
         return n.to(device=device, dtype=torch.int32).reshape(1).contiguous()
     return torch.tensor([int(n)], dtype=torch.int32, device=device)
 
 
 def stream_arg(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+_SCRATCH: dict[tuple, object] = {}
+
+
+def scratch(device: torch.device, stream: int, shape_key: tuple, make):
+    """Scratch buffers of a kernel, made by `make()` once per device, stream
+    and shape and kept: calls on one stream run in order, so they can share
+    them, and a counter a kernel leaves at zero stays usable."""
+    key = (device.index, stream, shape_key)
+    bufs = _SCRATCH.get(key)
+    if bufs is None:
+        bufs = _SCRATCH[key] = make()
+    return bufs
 
 
 def ptr(t: torch.Tensor | None):

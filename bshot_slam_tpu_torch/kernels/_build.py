@@ -112,9 +112,17 @@ I = ctypes.c_int
 F = ctypes.c_float
 
 
-def bind(lib: ctypes.CDLL, fn: str, argtypes) -> object:
-    f = getattr(lib, fn)
-    if f.argtypes is None:
+_FUNCS: dict[tuple[str, str], object] = {}
+
+
+def bind(name: str, fn: str, argtypes) -> object:
+    """The C entry point `fn` of csrc/<name>.cu with its argument types set
+    (every entry point returns the CUDA status as an int).  The library is
+    built and the function bound on the first call only."""
+    f = _FUNCS.get((name, fn))
+    if f is None:
+        f = getattr(library(name), fn)
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
+        _FUNCS[(name, fn)] = f
     return f

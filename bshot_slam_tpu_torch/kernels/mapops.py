@@ -14,10 +14,15 @@ pairs count as distance 3e38; a row with no candidate reports (3e38, 0);
 ties go to the lowest index.  Descriptors are packed (., 11) int32 words
 holding the uint32 bit patterns.
 
-The CUDA side (csrc/mapops.cu) gives one thread per query and splits the
-candidates over blocks in chunks of 128 rows, merging chunk minima with a
-64-bit atomicMin on (distance bits << 32 | index); dead chunks exit at
-once, so the work follows the live rows.  The work per pair of valid live
+The CUDA side (csrc/mapops.cu): C and E give one thread per query and
+split the candidates over blocks in chunks of 128 rows, merging chunk
+minima with a 64-bit atomicMin on (distance bits << 32 | index); dead
+chunks exit at once, so the work follows the live rows.  D is one launch
+per call: a grid of (split of the live rows, block of 64 queries), two
+queries per lane in registers, per-block (distance bits << 32 | index) keys
+in scratch and the last block of a query block writing the minimum over the
+splits; the wrapper keeps D's scratch per device, stream and shape.  The
+work per pair of valid live
 rows, by instruction class, is in `HAMMING_PAIR_OPS`, `EUCLID_PAIR_OPS`,
 `DEDUP_PAIR_OPS` and `DEDUP_SAME_BLOCK_OPS` (csrc/mapops.cu says how they
 are counted); `chip_smoke.py` turns them into the bound at the main path's
@@ -29,7 +34,8 @@ from __future__ import annotations
 import torch
 
 from bshot_slam_tpu_torch.kernels import (
-    BIG, _build, device_count_arg, on_cpu, pair_d2, ptr, require, stream_arg,
+    BIG, _build, device_count_arg, on_cpu, pair_d2, ptr, require, scratch,
+    stream_arg,
 )
 
 N_WORDS = 11
@@ -41,6 +47,11 @@ HAMMING_PAIR_OPS = {"int": 23, "popc": 11}
 EUCLID_PAIR_OPS = {"f32": 8}
 DEDUP_PAIR_OPS = {"int": 3, "f32": 1}
 DEDUP_SAME_BLOCK_OPS = {"f32": 8}
+# Kernel D: queries per block, most rows a block stages, and the blocks it
+# aims to have in flight (two on each of the 132 SMs).
+EUCLID_QUERIES = 64
+EUCLID_ROWS = 2048
+EUCLID_BLOCKS = 264
 
 
 def popcount_distances(a_words: torch.Tensor, b_words: torch.Tensor) -> torch.Tensor:
@@ -104,7 +115,7 @@ def hamming_nn_bounded(a_words: torch.Tensor, a_mask: torch.Tensor,
     b_min = torch.empty((cb,), dtype=torch.float32, device=dev)
     b_arg = torch.empty((cb,), dtype=torch.int32, device=dev)
     P, I = _build.P, _build.I
-    fn = _build.bind(_build.library("mapops"), "bshot_hamming_nn_bounded",
+    fn = _build.bind("mapops", "bshot_hamming_nn_bounded",
                      [P] * 5 + [I, I, I] + [P] * 6)
     _build.check(fn(ptr(a_words), ptr(a_mask), ptr(b_words), ptr(b_mask),
                     ptr(nv), ka, cb, int(tail_start), ptr(key), ptr(a_min),
@@ -140,21 +151,37 @@ def euclid_nn_bounded(q: torch.Tensor, q_mask: torch.Tensor, ref: torch.Tensor,
     require(ref, "ref", torch.float32, (cr, 3))
     require(ref_mask, "ref_mask", torch.bool, (cr,))
     nv = device_count_arg(n_valid_ref, dev)
-    key = torch.empty((kq,), dtype=torch.int64, device=dev)
     dmin = torch.empty((kq,), dtype=torch.float32, device=dev)
     darg = torch.empty((kq,), dtype=torch.int32, device=dev)
+    stream = stream_arg(dev)
+    nsplit, part, counters = _euclid_scratch(dev, stream, kq, cr)
     P, I = _build.P, _build.I
-    fn = _build.bind(_build.library("mapops"), "bshot_euclid_nn_bounded",
-                     [P] * 5 + [I, I, I] + [P] * 4)
-    _build.check(fn(ptr(q), ptr(q_mask), ptr(ref), ptr(ref_mask), ptr(nv), kq,
-                    cr, int(tail_start), ptr(key), ptr(dmin), ptr(darg),
-                    stream_arg(dev)),
+    fn = _build.bind("mapops", "bshot_euclid_nn_bounded",
+                     [P] * 5 + [I] * 4 + [P] * 5)
+    _build.check(fn(ptr(q), ptr(q_mask), ptr(ref), ptr(ref_mask), ptr(nv),
+                    kq, cr, int(tail_start), nsplit, part, counters,
+                    ptr(dmin), ptr(darg), stream),
                  "euclid_nn_bounded")
     euclid_nn_bounded.launches += 1
     return dmin, darg
 
 
 euclid_nn_bounded.launches = 0
+
+
+def _euclid_scratch(dev, stream: int, kq: int, cr: int):
+    """(nsplit, pointer of the splits' keys, pointer of the query blocks'
+    arrival counters) of kernel D; the counters are zero between calls."""
+    groups = max(1, -(-kq // EUCLID_QUERIES))
+    nsplit = max(1, -(-cr // EUCLID_ROWS),
+                 min(-(-EUCLID_BLOCKS // groups), -(-cr // 256)))
+
+    def make():
+        bufs = (torch.empty((nsplit, max(kq, 1)), dtype=torch.int64, device=dev),
+                torch.zeros((groups,), dtype=torch.int32, device=dev))
+        return bufs, tuple(ptr(b) for b in bufs)
+
+    return (nsplit, *scratch(dev, stream, ("euclid", kq, cr), make)[1])
 
 
 def dedup_blocked_bounded_plain(pos, blk, seg, map_pos, map_blk, map_seg,
@@ -195,7 +222,7 @@ def dedup_blocked_bounded(pos: torch.Tensor, blk: torch.Tensor,
     nv = device_count_arg(n_valid, dev)
     out = torch.empty((k,), dtype=torch.int32, device=dev)
     P, I = _build.P, _build.I
-    fn = _build.bind(_build.library("mapops"), "bshot_dedup_blocked_bounded",
+    fn = _build.bind("mapops", "bshot_dedup_blocked_bounded",
                      [P] * 8 + [I, I, _build.F, P, P])
     _build.check(fn(ptr(pos), ptr(blk), ptr(seg), ptr(map_pos), ptr(map_blk),
                     ptr(map_seg), ptr(map_valid), ptr(nv), k, c,

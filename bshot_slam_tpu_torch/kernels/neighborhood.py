@@ -11,13 +11,20 @@ in-radius points, the counts of sign(v_i.p_j - v_i.q_i) and the CVS dot sum
 (or the CVSN cosine sum when `normalized`).
 
 The CUDA side (csrc/neighborhood.cu) runs one thread per query over
-candidate tiles in shared memory; it skips tiles that are empty or out of
-reach of the block's query box, with a margin that keeps every result
-equal to the unpruned one.  Its work, in f32 instructions, is
-`RADIUS_TEST_F32` per radius test the skips leave plus, per in-radius pair,
-one add per feature column (A) or `SEGRATIO_IN_RADIUS_F32` (B);
-`chip_smoke.py` turns these counts into the bound at the main path's
-shapes.
+candidate tiles of 128 rows in shared memory; it skips tiles that are empty
+or out of reach of the block's query box, with a margin that keeps every
+result equal to the unpruned one.  Kernel A is two launches: a pre-pass
+packs the cloud once (float4 candidates with masked rows inert, feature
+rows padded to 16-byte loads, every tile's box), then a grid of (query
+block, split) blocks walks only the tiles it keeps through a cp.async ring
+and the last block of a query block adds the splits' partial sums in a
+fixed order, so the result is deterministic.  The wrapper keeps A's scratch
+(`_accumulate_scratch`: ~0.8 MB of packed cloud and `nsplit` partial
+buffers at the main path's 12288 x 10) per device, stream and shape.  The
+work, in f32 instructions, is `RADIUS_TEST_F32` per radius test the skips
+leave plus, per in-radius pair, one add per feature column (A) or
+`SEGRATIO_IN_RADIUS_F32` (B); `chip_smoke.py` turns these counts into the
+bound at the main path's shapes.
 
 The plain versions mirror the reference's `lax.scan` path tile by tile.
 Counts are exact between the two: the kernel reproduces the rounding of
@@ -27,14 +34,21 @@ by summation order only.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from bshot_slam_tpu_torch.kernels import (
-    _build, fma_dot3, on_cpu, pair_d2, ptr, require, stream_arg,
+    _build, fma_dot3, on_cpu, pair_d2, ptr, require, scratch, stream_arg,
 )
 
 MAX_FEAT = 16  # feature columns the CUDA kernel accumulates in registers
+MAX_ROWS = 131072  # rows kernel A takes: a block lists at most 1024 tiles
 TILE = 128  # queries per block and candidates per tile of the CUDA kernels
+# Kernel A spreads a query block's kept tiles over this many blocks, so that
+# about ACCUMULATE_BLOCKS blocks of 4 warps are in flight on the 132 SMs.
+ACCUMULATE_BLOCKS = 768
+MAX_SPLIT = 16  # ... but no more than this many per query block
 # f32 instructions per pair (csrc/neighborhood.cu says how they are counted)
 RADIUS_TEST_F32 = 8
 SEGRATIO_IN_RADIUS_F32 = 10
@@ -67,25 +81,52 @@ def neighborhood_accumulate(points: torch.Tensor, mask: torch.Tensor,
         return neighborhood_accumulate_plain(points, mask, feat, radius,
                                              r2_row, tile)
     n, nf = feat.shape
-    if nf > MAX_FEAT:
-        raise ValueError(f"kernel A takes at most {MAX_FEAT} feature columns")
+    if not 1 <= nf <= MAX_FEAT:
+        raise ValueError(f"kernel A takes 1 to {MAX_FEAT} feature columns")
+    if n > MAX_ROWS:
+        raise ValueError(f"kernel A takes at most {MAX_ROWS} rows")
+    if not math.isfinite(radius):
+        raise ValueError("kernel A needs a finite radius")
     require(points, "points", torch.float32, (n, 3))
     require(mask, "mask", torch.bool, (n,))
     require(feat, "feat", torch.float32, (n, nf))
     if r2_row is not None:
         require(r2_row, "r2_row", torch.float32, (n,))
-    out = torch.empty((n, nf), dtype=torch.float32, device=points.device)
-    fn = _build.bind(_build.library("neighborhood"),
-                     "bshot_neighborhood_accumulate",
-                     [_build.P] * 5 + [_build.I, _build.I, _build.F, _build.P])
+    dev = points.device
+    out = torch.empty((n, nf), dtype=torch.float32, device=dev)
+    stream = stream_arg(dev)
+    nsplit, bufs = _accumulate_scratch(dev, stream, n, nf)
+    P, I = _build.P, _build.I
+    fn = _build.bind("neighborhood", "bshot_neighborhood_accumulate",
+                     [P] * 10 + [I, I, I, _build.F, P])
     _build.check(fn(ptr(points), ptr(mask), ptr(feat), ptr(r2_row), ptr(out),
-                    n, nf, radius * radius, stream_arg(points.device)),
+                    *bufs, n, nf, nsplit, radius * radius, stream),
                  "neighborhood_accumulate")
     neighborhood_accumulate.launches += 1
     return out
 
 
 neighborhood_accumulate.launches = 0
+
+
+def _accumulate_scratch(dev, stream: int, n: int, nf: int):
+    """(nsplit, pointers of kernel A's scratch): the packed candidates,
+    padded features, tile boxes, the splits' partial sums and the query
+    blocks' arrival counters (zero between calls)."""
+    ntiles = max(1, -(-n // TILE))
+    nfp = -(-nf // 4) * 4
+    nsplit = min(MAX_SPLIT, max(1, -(-ACCUMULATE_BLOCKS // ntiles)))
+    rows = ntiles * TILE
+
+    def make():
+        f32 = dict(dtype=torch.float32, device=dev)
+        bufs = (torch.empty((rows, 4), **f32), torch.empty((rows, nfp), **f32),
+                torch.empty((ntiles, 8), **f32),
+                torch.empty((nsplit, rows, nfp), **f32),
+                torch.zeros((ntiles,), dtype=torch.int32, device=dev))
+        return bufs, tuple(ptr(b) for b in bufs)
+
+    return nsplit, scratch(dev, stream, ("accumulate", n, nf), make)[1]
 
 
 def segratio_accumulate_plain(points, mask, ctvec, radius: float,
@@ -133,7 +174,7 @@ def segratio_accumulate(points: torch.Tensor, mask: torch.Tensor,
     if r2_row is not None:
         require(r2_row, "r2_row", torch.float32, (n,))
     out = torch.empty((n, 3), dtype=torch.float32, device=points.device)
-    fn = _build.bind(_build.library("neighborhood"), "bshot_segratio_accumulate",
+    fn = _build.bind("neighborhood", "bshot_segratio_accumulate",
                      [_build.P] * 5 + [_build.I, _build.I, _build.F, _build.P])
     _build.check(fn(ptr(points), ptr(mask), ptr(ctvec), ptr(r2_row), ptr(out),
                     n, int(normalized), radius * radius,

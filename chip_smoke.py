@@ -9,8 +9,11 @@ Phases, one line each:
   3. each CUDA kernel A-E at the main path's shapes against its plain
      PyTorch version: integer outputs exactly equal to the plain version
      run on CPU copies of the inputs, float outputs within the stated
-     tolerance; kernel and plain times on the card (CUDA events, median of
-     25); rows that differ from the plain version run on the card;
+     tolerance, no row differing from the plain version run on the card,
+     A and D bit-identical over two runs on the same inputs; kernel and
+     plain times on the card (CUDA events, median of 25), the kernel's
+     device-only time and device launches per call (`torch.profiler`) and
+     the host's time per wrapper call;
   4. `SlamEngine.process_sweep` end to end over the 24 frames, with the
      map prefilled to 65,536 far-away landmarks: frames/s, ATE against
      ground truth, the quality guard (ATE < 10% of path, >= 15 inliers on
@@ -18,6 +21,8 @@ Phases, one line each:
      then where a frame's time goes: the host preprocess alone, and a
      `torch.profiler` pass over 6 frames of a second engine (device busy
      time per frame, the device kernels that take the most of it);
+     the port's own kernels per frame (kernel D: one device launch per
+     ICP iteration);
   5. one JSON line of per-kernel results (`launches` counts the whole
      engine run of `frames` frames, `launches_per_frame` divides it), the
      card line again, and the result line {"ok": true, "device": {...}}.
@@ -51,6 +56,10 @@ H100_BYTES_PER_S = 3.35e12
 N_FRAMES = 24
 PREFILL = 65536
 REPEATS = 25
+# The bound of A and B counts the radius tests that a box prune at this
+# grain (query rows x candidate rows) leaves: a property of the cloud, fixed
+# here so that a kernel's own tiling cannot move its own bound.
+PRUNE_GRAIN = 128
 
 
 class SmokeError(RuntimeError):
@@ -83,6 +92,66 @@ def time_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds per call of fn(), made back to back without a
+    synchronise, starting on an idle device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def profiled(warm_up, work):
+    """`torch.profiler` events of work() on the card.  warm_up() runs as the
+    profiler's warm-up step: the first launches after tracing starts can go
+    unrecorded."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        warm_up()
+        torch.cuda.synchronize()
+        prof.step()
+        work()
+        torch.cuda.synchronize()
+        prof.step()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]  # the step's own span
+
+
+def device_profile(fn, calls: int = 20):
+    """(device ms per call, device launches per call) of fn(): the summed
+    durations and the count of what `torch.profiler` saw run on the card."""
+    for _ in range(3):  # a trace that lost records shows in the count: again
+        on_card = profiled(fn, lambda: [fn() for _ in range(calls)])
+        launches = sum(e.count for e in on_card)
+        if launches and launches % calls == 0:
+            break
+    return sum(e.self_device_time_total for e in on_card) / calls / 1e3, launches / calls
+
+
+def measure(fn, plain_fn) -> dict:
+    """The timing columns of one kernel's row."""
+    device_ms, launches = device_profile(fn)
+    return dict(ms=time_ms(fn), plain_ms=time_ms(plain_fn), device_ms=device_ms,
+                device_launches_per_call=launches, host_us_per_call=host_us(fn))
+
+
+def same_bits(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
 def bound(nbytes: float, ops: dict):
     """Least time in ms for the work and what sets it.  `ops` counts
     instructions (one per lane) by class; the time for them is the longest
@@ -97,10 +166,12 @@ def scaled(ops: dict, n: float) -> dict:
     return {c: k * n for c, k in ops.items()}
 
 
-def radius_tests(points: np.ndarray, mask: np.ndarray, r2: float, tile: int) -> float:
-    """Radius tests kernels A and B make: pairs of valid rows in the
-    (query block, candidate tile) pairs that their box test keeps (the same
-    test as `separated` in csrc/neighborhood.cu, in float64)."""
+def radius_tests(points: np.ndarray, mask: np.ndarray, r2: float,
+                 tile: int = PRUNE_GRAIN) -> float:
+    """Radius tests a box prune at `tile` x `tile` rows leaves kernels A and
+    B: pairs of valid rows in the (query block, candidate tile) pairs that
+    are not separated (the same test as `separated` in
+    csrc/neighborhood.cu, in float64)."""
     n = points.shape[0]
     nb = -(-n // tile)
     lo = np.full((nb, 3), np.inf)
@@ -217,19 +288,24 @@ def check_neighborhood(cfg, points_np, nv, dev):
     float_bad = int((err > 1e-5 * scale + atol).any(dim=1).sum())
     on_card = K.neighborhood_accumulate_plain(pts, mask, feat, r)
     card_rows = int_mismatch(out[:, 0], on_card[:, 0])
-    tests = radius_tests(points_np, np.arange(N) < nv, r * r, K.TILE)
+    again = K.neighborhood_accumulate(pts, mask, feat, r)
+    tests = radius_tests(points_np, np.arange(N) < nv, r * r)
     within = float(cnt.sum())
     nf = feat.shape[1]
     b_ms, b_by = bound(N * (12 + 1 + 4 * nf + 4 * nf),
                        {"f32": tests * K.RADIUS_TEST_F32 + within * nf})
     rows.append(dict(
-        name="neighborhood_accumulate", shapes=f"points ({N},3) n_valid {nv}, feat ({N},10)",
+        name="neighborhood_accumulate",
+        shapes=f"points ({N},3) n_valid {nv}, feat ({N},10); a box prune at "
+               f"{PRUNE_GRAIN} rows leaves {tests:.0f} radius tests, {within:.0f} "
+               f"pairs are in radius",
         source="bshot_slam_tpu_torch/csrc/neighborhood.cu",
         replaces="bshot_slam_tpu/kernels/neighborhood.py:124",
         int_mismatch=cnt_bad, float_out_of_tol=float_bad,
         max_abs_err=float(err[:, 1:].max()), card_plain_rows_differ=card_rows,
-        ms=time_ms(lambda: K.neighborhood_accumulate(pts, mask, feat, r)),
-        plain_ms=time_ms(lambda: K.neighborhood_accumulate_plain(pts, mask, feat, r)),
+        deterministic=same_bits([out], [again]),
+        **measure(lambda: K.neighborhood_accumulate(pts, mask, feat, r),
+                  lambda: K.neighborhood_accumulate_plain(pts, mask, feat, r)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         tolerance="counts exact; sums |err| <= 1e-5 * count * max|feat| + atol "
                   "(1e-2 for p, 100 for products): summation order only",
@@ -256,8 +332,8 @@ def check_neighborhood(cfg, points_np, nv, dev):
         replaces="bshot_slam_tpu/kernels/neighborhood.py:245",
         int_mismatch=bad_b, float_out_of_tol=float_bad_b,
         max_abs_err=float(errb.max()), card_plain_rows_differ=card_rows_b,
-        ms=time_ms(lambda: K.segratio_accumulate(pts, mask, ctvec_d, r)),
-        plain_ms=time_ms(lambda: K.segratio_accumulate_plain(pts, mask, ctvec_d, r)),
+        **measure(lambda: K.segratio_accumulate(pts, mask, ctvec_d, r),
+                  lambda: K.segratio_accumulate_plain(pts, mask, ctvec_d, r)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         tolerance="pos/neg counts exact; CVS sum |err| <= 1e-5 * count * |ctvec| * r "
                   "+ 1e-2: summation order only",
@@ -340,8 +416,8 @@ def check_mapops(cfg, dev):
         max_abs_err=float(max((g.cpu() - w).abs().max() for g, w in
                               ((got[0], want[0]), (got[2], want[2])))),
         card_plain_rows_differ=card_rows,
-        ms=time_ms(lambda: M.hamming_nn_bounded(*args, tail_start=tail)),
-        plain_ms=time_ms(lambda: M.hamming_nn_bounded_plain(*args, tail_start=tail)),
+        **measure(lambda: M.hamming_nn_bounded(*args, tail_start=tail),
+                  lambda: M.hamming_nn_bounded_plain(*args, tail_start=tail)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         tolerance="minima and argminima exact",
     ))
@@ -353,6 +429,7 @@ def check_mapops(cfg, dev):
     want = M.euclid_nn_bounded_plain(*cargs, tail_start=tail)
     bad = int_mismatch(got[1], want[1]) + int_mismatch(got[0], want[0])
     card = M.euclid_nn_bounded_plain(*args, tail_start=tail)
+    again = M.euclid_nn_bounded(*args, tail_start=tail)
     b_ms, b_by = bound(K * 13 + live * 13 + K * 8, scaled(M.EUCLID_PAIR_OPS, pairs))
     rows.append(dict(
         name="euclid_nn_bounded", shapes=f"q ({K},3), ref ({Cb},3), n_valid {nv}, tail {tail}",
@@ -361,8 +438,9 @@ def check_mapops(cfg, dev):
         int_mismatch=bad, float_out_of_tol=0,
         max_abs_err=float((got[0].cpu() - want[0]).abs().max()),
         card_plain_rows_differ=int_mismatch(got[1], card[1]),
-        ms=time_ms(lambda: M.euclid_nn_bounded(*args, tail_start=tail)),
-        plain_ms=time_ms(lambda: M.euclid_nn_bounded_plain(*args, tail_start=tail)),
+        deterministic=same_bits(got, again),
+        **measure(lambda: M.euclid_nn_bounded(*args, tail_start=tail),
+                  lambda: M.euclid_nn_bounded_plain(*args, tail_start=tail)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         tolerance="d2 and argmin exact (identical rounding)",
     ))
@@ -388,8 +466,8 @@ def check_mapops(cfg, dev):
         replaces="bshot_slam_tpu/kernels/mapops.py:328",
         int_mismatch=int_mismatch(got, want), float_out_of_tol=0, max_abs_err=0.0,
         card_plain_rows_differ=int_mismatch(got, card),
-        ms=time_ms(lambda: M.dedup_blocked_bounded(*args, dedup_radius=r)),
-        plain_ms=time_ms(lambda: M.dedup_blocked_bounded_plain(*args, dedup_radius=r)),
+        **measure(lambda: M.dedup_blocked_bounded(*args, dedup_radius=r),
+                  lambda: M.dedup_blocked_bounded_plain(*args, dedup_radius=r)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         tolerance=f"flags exact ({int(want.sum())} of {K} blocked)",
     ))
@@ -444,12 +522,18 @@ def host_preprocess_ms(cfg, sweeps) -> float:
     return (time.perf_counter() - t0) / len(sweeps) * 1e3
 
 
+# The __global__ functions of csrc/*.cu, as the profiler names them.
+PORT_KERNELS = ("pack_cloud_kernel", "accumulate_kernel", "segratio_kernel",
+                "hamming_source_kernel", "hamming_candidate_kernel",
+                "euclid_kernel", "dedup_kernel", "init_keys", "unpack_keys",
+                "zero_flags")
+
+
 def profile_engine(cfg, sweeps, dev, n: int = 6):
-    """Device kernel time per frame and the heaviest device kernels, over
-    frames 1..n of a fresh engine (frame 0 runs before the window)."""
+    """Device kernel time per frame, the heaviest device kernels and the
+    port's own kernels (ms and launches per frame), over n frames of a
+    fresh engine (frames 0 and 1 run before the window)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 
@@ -457,15 +541,17 @@ def profile_engine(cfg, sweeps, dev, n: int = 6):
     eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
     eng.process_sweep(sweeps[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for sw in sweeps[1:n + 1]:
-            eng.process_sweep(sw)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = profiled(lambda: eng.process_sweep(sweeps[1]),
+                       lambda: [eng.process_sweep(sw) for sw in sweeps[2:n + 2]])
     total_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    return total_us / n / 1e3, sum(e.count for e in kernels) / n, [
-        (e.key[:48], e.self_device_time_total / n / 1e3, e.count / n) for e in top]
+
+    def per_frame(e, name):
+        return name, e.self_device_time_total / n / 1e3, e.count / n
+
+    own = [per_frame(e, k) for e in kernels for k in PORT_KERNELS if k in e.key]
+    return (total_us / n / 1e3, sum(e.count for e in kernels) / n,
+            [per_frame(e, e.key[:48]) for e in top], own)
 
 
 def main() -> int:
@@ -507,14 +593,20 @@ def main() -> int:
         print(f"[3] {r['name']}: {r['shapes']}; int mismatches vs CPU plain "
               f"{r['int_mismatch']}, float out of tolerance {r['float_out_of_tol']}, "
               f"max abs err {r['max_abs_err']:.6g}, rows differing from the plain "
-              f"version on the card {r['card_plain_rows_differ']}; kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); {r['tolerance']}",
-              flush=True)
-        if r["int_mismatch"] or r["float_out_of_tol"]:
+              f"version on the card {r['card_plain_rows_differ']}"
+              + ("" if "deterministic" not in r else
+                 f", two runs bit-identical: {r['deterministic']}")
+              + f"; kernel {r['ms']:.4f} ms (device only {r['device_ms']:.4f} ms in "
+              f"{r['device_launches_per_call']:.0f} launches, host "
+              f"{r['host_us_per_call']:.1f} us per call), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); {r['tolerance']}", flush=True)
+        if (r["int_mismatch"] or r["float_out_of_tol"]
+                or r["card_plain_rows_differ"] or not r.get("deterministic", True)):
             failed.append(r["name"])
     if failed:
-        raise SmokeError(f"kernels disagree with their plain versions: {failed}")
+        raise SmokeError("kernels disagree with their plain versions, or with "
+                         f"themselves over two runs: {failed}")
 
     res, _ = run_engine(cfg, sweeps, gt, dev)
     print(f"[4] engine: {N_FRAMES} frames, {res['fps']:.3f} frames/s after the "
@@ -528,15 +620,22 @@ def main() -> int:
     idle = [k for k, n in res["launches"].items() if n == 0]
     if idle:
         raise SmokeError(f"kernels never launched on the main path: {idle}")
-    dev_ms, n_kernels, top = profile_engine(cfg, sweeps, dev)
+    dev_ms, n_kernels, top, own = profile_engine(cfg, sweeps, dev)
     frame_ms = 1e3 / res["fps"]
     print(f"[4] breakdown: frame {frame_ms:.2f} ms unprofiled; device kernels "
           f"{dev_ms:.2f} ms/frame in {n_kernels:.0f} launches (busy "
           f"{100 * dev_ms / frame_ms:.1f}%); heaviest: "
           + "; ".join(f"{k} {ms:.3f} ms x{c:.0f}" for k, ms, c in top), flush=True)
+    print("[4] the port's kernels per frame: "
+          + "; ".join(f"{k} {ms:.4f} ms x{c:.0f}" for k, ms, c in own), flush=True)
+    icp = sum(c for k, _, c in own if k == "euclid_kernel")
+    if icp > cfg.match.icp_iterations:  # a trace can lose records, not add them
+        raise SmokeError(f"kernel D made {icp} device launches per frame, more than "
+                         f"one per ICP iteration ({cfg.match.icp_iterations})")
 
     keys = ("name", "source", "replaces", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "max_abs_err")
+            "bound_by", "library_ms", "max_abs_err", "device_ms",
+            "device_launches_per_call", "host_us_per_call")
     kernels = []
     for r in rows:
         k = {key: r[key] for key in keys}

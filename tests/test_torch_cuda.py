@@ -3,7 +3,9 @@
 Needs an NVIDIA GPU with nvcc (marker `cuda`); skips elsewhere.  Run on the
 card with `python -m pytest tests/test_torch_cuda.py -q -m cuda`.  Integer
 outputs must equal the plain version run on CPU copies exactly (the kernels
-reproduce its rounding); float sums agree to summation order.
+reproduce its rounding); float sums agree to summation order.  Kernels A
+and D also run every edge case of `tests/torch_kernel_cases.py`, twice: the
+two runs must be bit-identical.
 """
 
 import numpy as np
@@ -15,6 +17,9 @@ from bshot_slam_tpu_torch.io import synthetic
 from bshot_slam_tpu_torch.kernels import mapops as M
 from bshot_slam_tpu_torch.kernels import neighborhood as K
 from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+from tests.torch_kernel_cases import (
+    A_CASES, D_CASES, accumulate_case, euclid_case,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +36,46 @@ def _cloud(n=3000, nv=2421, seed=1):
     pts = rng.normal(0, 6000, (n, 3)).astype(np.float32)
     pts[nv:] = 0.0
     return torch.tensor(pts), torch.arange(n) < nv
+
+
+def _to(x, dev):
+    return None if x is None else torch.tensor(x).to(dev)
+
+
+@pytest.mark.parametrize("name", A_CASES)
+def test_accumulate_case_on_card(dev, name):
+    c = accumulate_case(name)
+    want = K.neighborhood_accumulate_plain(
+        torch.tensor(c["points"]), torch.tensor(c["mask"]), torch.tensor(c["feat"]),
+        c["radius"], None if c["r2_row"] is None else torch.tensor(c["r2_row"]))
+    args = (_to(c["points"], dev), _to(c["mask"], dev), _to(c["feat"], dev),
+            c["radius"], _to(c["r2_row"], dev))
+    got, again = K.neighborhood_accumulate(*args), K.neighborhood_accumulate(*args)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    ones = torch.ones((len(c["mask"]), 1), device=dev)
+    cnt = K.neighborhood_accumulate(args[0], args[1], ones, c["radius"], args[4])
+    want_cnt = K.neighborhood_accumulate_plain(
+        torch.tensor(c["points"]), torch.tensor(c["mask"]), ones.cpu(), c["radius"],
+        None if c["r2_row"] is None else torch.tensor(c["r2_row"]))
+    torch.testing.assert_close(cnt.cpu(), want_cnt, rtol=0, atol=0)
+    live = torch.tensor(c["feat"][c["mask"]])
+    top = live.abs().max(dim=0).values if len(live) else torch.zeros(want.shape[1])
+    assert ((got.cpu() - want).abs() <= 1e-5 * want_cnt * top[None, :]).all()
+
+
+@pytest.mark.parametrize("name", D_CASES)
+def test_euclid_case_on_card(dev, name):
+    c = euclid_case(name)
+    want = M.euclid_nn_bounded_plain(
+        torch.tensor(c["q"]), torch.tensor(c["q_mask"]), torch.tensor(c["ref"]),
+        torch.tensor(c["ref_mask"]), c["n_valid"], c["tail_start"])
+    args = [_to(c[k], dev) for k in ("q", "q_mask", "ref", "ref_mask")]
+    for nv in (c["n_valid"], torch.tensor(c["n_valid"], dtype=torch.int32, device=dev)):
+        got = M.euclid_nn_bounded(*args, nv, c["tail_start"])
+        again = M.euclid_nn_bounded(*args, nv, c["tail_start"])
+        for g, a, w in zip(got, again, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+            assert torch.equal(g, a)
 
 
 def test_neighborhood_kernels(dev):

@@ -1,0 +1,124 @@
+"""Seeded edge cases for the port's kernels A and D (numpy only).
+
+`tests/test_torch_kernel_cases.py` runs them through the port's plain
+versions against the reference on the CPU; `tests/test_torch_cuda.py` runs
+the CUDA kernels against the plain versions on the card.  A case is a dict
+of numpy arrays and scalars, made from a fixed seed by name.
+"""
+
+import numpy as np
+
+RADIUS = 3000.0
+
+A_CASES = (
+    "n1", "n127", "n128", "n129", "n3000", "all_masked", "one_valid", "cap",
+    "nf1", "nf10", "nf16", "far_clusters", "shell",
+)
+D_CASES = (
+    "kq1", "kq600", "kq601", "nv0", "nv0_tail", "nv_odd", "nv_odd_tail",
+    "nv_full", "nv_full_tail", "all_masked", "duplicates", "live_by_index",
+)
+
+
+def moment_features(pts: np.ndarray) -> np.ndarray:
+    """The ten columns the pipeline sums: 1, p, and the upper outer product."""
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    return np.stack([np.ones_like(x), x, y, z, x * x, x * y, x * z, y * y,
+                     y * z, z * z], axis=-1).astype(np.float32)
+
+
+def _cloud(rng, n, sigma=4000.0, valid=0.9):
+    pts = rng.normal(0, sigma, (n, 3)).astype(np.float32)
+    mask = rng.random(n) < valid
+    return pts, mask
+
+
+def _shell(rng):
+    """40 base points 8 m apart near 1e5 mm, each with six partners whose
+    true distance is the radius to within one grid step of float32 there
+    (2^-7 mm): the rounding of the expanded d2, whose terms are ~3e10 with
+    an ulp of 2048 mm^2, decides each membership."""
+    offsets = np.array([[3000, 0, 0], [0, 3000, 0], [1800, 2400, 0],
+                        [0, 1800, 2400], [2000, 2000, 1000], [2000, 1000, 2000]],
+                       np.float64)
+    grid = np.stack(np.meshgrid(np.arange(4), np.arange(4), np.arange(3),
+                                indexing="ij"), -1).reshape(-1, 3)[:40]
+    base = 9.0e4 + 8000.0 * grid + np.round(rng.uniform(0, 500, (40, 3)))
+    rows = [base]
+    for k, off in enumerate(offsets):
+        step = (k % 3 - 1) * 2.0 ** -7  # one grid step inside, on, outside
+        rows.append(base + off * (1.0 + step / 3000.0))
+    pts = np.concatenate(rows).astype(np.float32)
+    return pts, np.ones(len(pts), bool)
+
+
+def accumulate_case(name: str) -> dict:
+    """Inputs of `neighborhood_accumulate`: points, mask, feat, radius,
+    r2_row (or None)."""
+    rng = np.random.default_rng(1000 + A_CASES.index(name))
+    radius, r2_row, feat = RADIUS, None, None
+    if name.startswith("n") and name[1:].isdigit():
+        n = int(name[1:])
+        pts, mask = _cloud(rng, n, sigma=6000.0 if n > 1000 else 2500.0)
+        mask[0] = True
+    elif name == "all_masked":
+        pts, _ = _cloud(rng, 300)
+        mask = np.zeros(300, bool)
+    elif name == "one_valid":
+        pts, _ = _cloud(rng, 300)
+        mask = np.zeros(300, bool)
+        mask[137] = True
+    elif name == "cap":
+        pts, mask = _cloud(rng, 700)
+        r2_row = (rng.uniform(0.3, 1.0, 700) * radius * radius).astype(np.float32)
+    elif name in ("nf1", "nf10", "nf16"):
+        pts, mask = _cloud(rng, 500)
+        feat = rng.normal(0, 100.0, (500, int(name[2:]))).astype(np.float32)
+    elif name == "far_clusters":
+        n, radius = 1536, 800.0
+        pts = np.zeros((n, 3), np.float32)
+        pts[: n // 2] = rng.uniform(0, 2000, (n // 2, 3))
+        pts[n // 2:] = rng.uniform(50000, 52000, (n // 2, 3))
+        mask = np.ones(n, bool)
+        mask[rng.integers(0, n, 100)] = False
+    elif name == "shell":
+        pts, mask = _shell(rng)
+    else:
+        raise KeyError(name)
+    pts[~mask] = 0.0
+    if feat is None:
+        feat = moment_features(pts)
+    return dict(points=pts, mask=mask, feat=feat, radius=radius, r2_row=r2_row)
+
+
+def euclid_case(name: str) -> dict:
+    """Inputs of `euclid_nn_bounded`: q, q_mask, ref, ref_mask, n_valid,
+    tail_start.  The window holds W = 2048 rows, then a live tail."""
+    rng = np.random.default_rng(2000 + D_CASES.index(name))
+    W, cr = 2048, 2100
+    kq = {"kq1": 1, "kq600": 600, "kq601": 601}.get(name, 29)
+    nv = {"nv0": 0, "nv0_tail": 0, "nv_full": cr, "nv_full_tail": cr}.get(name, 1031)
+    tail = -1 if name in ("nv0", "nv_odd", "nv_full", "duplicates") else W
+    q = rng.normal(0, 5000, (kq, 3)).astype(np.float32)
+    ref = rng.normal(0, 5000, (cr, 3)).astype(np.float32)
+    qm = rng.random(kq) > 0.1
+    qm[0] = True
+    rm = np.zeros(cr, bool)
+    rm[:nv] = rng.random(nv) > 0.1
+    if tail >= 0:
+        rm[tail:] = rng.random(cr - tail) > 0.1
+    if name == "all_masked":
+        rm[:] = False
+    if name == "live_by_index":  # set flags on dead rows must not count
+        rm[:] = rng.random(cr) > 0.1
+    if name == "duplicates":
+        # The nearest row of query k appears again 128 * (k + 1) rows later:
+        # a tie across chunks and blocks, which goes to the lowest index.
+        nv = 1700
+        rm[:nv] = True
+        for k in range(8):
+            j = 5 + 17 * k
+            ref[j] = q[k] + np.float32(30.0)
+            ref[j + 128 * (k + 1)] = ref[j]
+            qm[k] = True
+    return dict(q=q, q_mask=qm, ref=ref, ref_mask=rm, n_valid=nv, tail_start=tail)
