@@ -40,8 +40,4 @@ __device__ __forceinline__ unsigned long long pack_key(float d, int idx) {
          static_cast<unsigned int>(idx);
 }
 
-__device__ __forceinline__ bool live_row(int j, int n_valid, int tail_start) {
-  return j < n_valid || (tail_start >= 0 && j >= tail_start);
-}
-
 }  // namespace bshot

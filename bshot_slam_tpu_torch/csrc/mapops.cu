@@ -12,15 +12,35 @@
 // region); other rows are dead.  A row with no live valid candidate reports
 // (3e38, index 0), ties go to the lowest index: the reference's semantics.
 //
-// C and E: the per-query side is one thread per query and a grid over
-// candidate chunks of 128 rows staged in shared memory; chunks wholly dead
-// exit at once, so work follows the live map, not the buffer.  Each thread
-// keeps its running (distance, lowest index) for its chunk and merges it with
-// one 64-bit atomicMin on (distance bits << 32 | index): distances are >= 0,
-// so the bits order like the values and the lowest index wins ties across
-// blocks.  C's per-candidate side is one thread per candidate walking the
-// sources in shared-memory tiles.  B-SHOTs stay packed: 11 XOR + __popc per
-// pair.
+// C is one launch per call and is bound by integer instructions, not bytes
+// (~2e7 pairs of 11 words against under 2 MB of input); descriptors stay
+// packed.  Done plainly a pair is 11 XOR and 11 __popc, and popc, at 16
+// lanes per SM per clock against 64 for logic, would set the pace: the
+// kernel trades 7 of the 11 for logic (see `hamming`).  The design computes
+// every distance once and feeds both sides from it.
+//   * The grid is (splits of the live rows) x (blocks of 64 sources).  The
+//     live rows are numbered as one run and shared evenly, as in D, so the
+//     work follows n_valid (read on the device) and no block is dead.
+//   * A lane keeps two sources (22 words) in registers; a block stages its
+//     rows once in shared memory as 12 words, the twelfth a bias of 1024 for
+//     a masked row, and its 8 warps take the rows in turn, one broadcast row
+//     feeding 64 pairs per warp.  A masked or absent source carries the same
+//     bias, so a distance of 1024 or more means "not a pair" and the inner
+//     loop reads no mask: d = bias + bias + the differing bits <= 2400.
+//   * Both minima are 32-bit keys (d << 20 | index), so an unsigned min
+//     picks the smallest distance and the lowest index among equals.  Per
+//     source the key stays in a register over the warp's rows; per row the
+//     lane's two keys meet the other lanes' in one __reduce_min_sync.
+//   * Across blocks: per source, the splits' keys go to scratch and the last
+//     block of a source block to finish takes their minimum; per row, the
+//     source blocks' keys go to scratch and the last block of a split does
+//     the same.  Both write minimum and index directly, (3e38, 0) for a key
+//     of 2^30 or more; every block also writes (3e38, 0) to its share of the
+//     dead rows, which no block visits.  Integer minima: no order matters.
+//
+// E: one thread per query and a grid over candidate chunks of 128 rows
+// staged in shared memory; chunks wholly dead exit at once, so work follows
+// the live map, not the buffer.
 //
 // D is one launch per call and is bound by f32 instructions (~1.6e7 pairs of
 // ~10 instructions against 0.4 MB of input); the K=3 cross term must round
@@ -46,10 +66,9 @@
 //     the results.
 //
 // Work per pair of valid live rows (kernels/mapops.py holds the same counts
-// for the bound): C, 11 XOR, 11 adds and a compare (32-bit integer, 64
-// lanes per SM per clock) and 11 __popc (16 lanes per SM per clock), so
-// popc sets C's bound; the distance of a pair is counted once although the
-// two sides each compute it.  D, 8 f32 instructions (dot3: a multiply and 2
+// for the bound): C, in its plain form, 11 XOR, 11 adds and a compare
+// (32-bit integer, 64 lanes per SM per clock) and 11 __popc (16 lanes per SM
+// per clock), so popc sets C's bound.  D, 8 f32 instructions (dot3: a multiply and 2
 // FMAs; d2: add, multiply, subtract; the clamp; the compare).  E, 3 integer
 // compares of the block keys and one f32 compare of the seg ratios, plus the
 // 8 of a distance test for pairs in the same block.  At a small live map a
@@ -69,100 +88,180 @@ __device__ __forceinline__ bool chunk_dead(int c0, int c1, int n_valid,
   return c0 >= n_valid && (tail_start < 0 || c1 <= tail_start);
 }
 
-__global__ void init_keys(unsigned long long* key, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) key[i] = pack_key(kBig, 0);
+// ---- Kernel C -------------------------------------------------------------
+
+constexpr int kCThreads = 256;
+constexpr int kCWarps = kCThreads / 32;
+constexpr int kCPerLane = 2;                // sources a lane keeps in registers
+constexpr int kCSources = 32 * kCPerLane;   // sources per block
+constexpr int kCRows = 512;                 // most rows a block stages
+constexpr int kCStride = kWords + 1;        // staged row: 11 words and its bias
+constexpr unsigned kCBias = 1024;           // added to d by a masked row or source
+constexpr int kCShift = 20;                 // key = d << 20 | index
+constexpr unsigned kCNone = kCBias << kCShift;  // keys from here on: no pair
+constexpr unsigned kCIndex = (1u << kCShift) - 1u;  // the key's index bits
+constexpr int kCParts = kCThreads / kCSources;  // threads per source in the merge
+
+// Carry-save adder: a + b + c = sum + 2 carry, bit by bit.
+__device__ __forceinline__ void csa(unsigned a, unsigned b, unsigned c, unsigned& sum,
+                                    unsigned& carry) {
+  sum = a ^ b ^ c;
+  carry = (a & b) | (c & (a ^ b));
 }
 
-__global__ void unpack_keys(const unsigned long long* key, float* dmin,
-                            int32_t* darg, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const unsigned long long k = key[i];
-    dmin[i] = __uint_as_float(static_cast<unsigned int>(k >> 32));
-    darg[i] = static_cast<int32_t>(k & 0xffffffffull);
-  }
-}
-
-__device__ __forceinline__ int hamming(const int32_t* a, const int32_t* b) {
-  int d = 0;
+// Bits in which two descriptors differ.  popc is the slow instruction (16
+// lanes per SM per clock against 64 for logic), so seven carry-save adders
+// first fold the 11 words into one word of weight 1, one of weight 2 and two
+// of weight 4: 4 popc instead of 11.
+__device__ __forceinline__ unsigned hamming(const unsigned* a, const unsigned* b) {
+  unsigned x[kWords];
 #pragma unroll
-  for (int w = 0; w < kWords; ++w) d += __popc(a[w] ^ b[w]);
-  return d;
+  for (int w = 0; w < kWords; ++w) x[w] = a[w] ^ b[w];
+  unsigned s1, c1, s2, c2, s3, c3, s4, c4, s5, c5, s6, c6, s7, c7;
+  csa(x[0], x[1], x[2], s1, c1);
+  csa(x[3], x[4], x[5], s2, c2);
+  csa(x[6], x[7], x[8], s3, c3);
+  csa(s1, s2, s3, s4, c4);
+  csa(c1, c2, c3, s5, c5);  // of weight 2 and 4
+  csa(x[9], x[10], s4, s6, c6);
+  csa(c4, s5, c6, s7, c7);  // all three of weight 2
+  return __popc(s6) + 2 * __popc(s7) + 4 * (__popc(c5) + __popc(c7));
 }
 
-// C, per source: min and lowest argmin over the live valid candidates.
-__global__ void __launch_bounds__(kThreads)
-hamming_source_kernel(const int32_t* __restrict__ a, const uint8_t* __restrict__ am,
-                      const int32_t* __restrict__ b, const uint8_t* __restrict__ bm,
-                      const int32_t* __restrict__ nv_ptr, int ka, int cb,
-                      int tail_start, unsigned long long* __restrict__ akey) {
-  __shared__ int32_t sb[kChunk * kWords];
-  __shared__ uint8_t sok[kChunk];
-  const int n_valid = *nv_ptr;
-  const int c0 = blockIdx.x * kChunk, c1 = min(c0 + kChunk, cb);
-  if (chunk_dead(c0, c1, n_valid, tail_start)) return;
-  for (int k = threadIdx.x; k < kChunk * kWords; k += kThreads) {
-    const int j = c0 + k / kWords;
-    sb[k] = j < c1 ? b[(size_t)c0 * kWords + k] : 0;
+__device__ __forceinline__ void write_hamming(unsigned key, float* dmin,
+                                              int32_t* darg, int at) {
+  const bool some = key < kCNone;
+  dmin[at] = some ? (float)(key >> kCShift) : kBig;
+  darg[at] = some ? (int32_t)(key & kCIndex) : 0;
+}
+
+// C: split blockIdx.x of gridDim.x, source block blockIdx.y (see the header).
+// apart holds gridDim.x rows of gridDim.y * 64 keys, bpart gridDim.y rows of
+// cb keys; acount one counter per source block, bcount one per split.
+__global__ void __launch_bounds__(kCThreads)
+hamming_kernel(const int32_t* __restrict__ a, const uint8_t* __restrict__ am,
+               const int32_t* __restrict__ b, const uint8_t* __restrict__ bm,
+               const int32_t* __restrict__ nv_ptr, int ka, int cb, int tail_start,
+               unsigned* __restrict__ apart, unsigned* __restrict__ bpart,
+               int* __restrict__ acount, int* __restrict__ bcount,
+               float* __restrict__ amin, int32_t* __restrict__ aarg,
+               float* __restrict__ bmin, int32_t* __restrict__ barg) {
+  __shared__ __align__(16) unsigned sb[kCRows * kCStride];
+  __shared__ unsigned sbkey[kCRows];
+  __shared__ unsigned sakey[kCWarps][kCSources];
+  __shared__ int last_a, last_b;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nsplit = gridDim.x, ngroup = gridDim.y;
+
+  // Live rows as one run: v in [0, lo) is row v, v >= lo is row v - lo + t0.
+  const int lo = min(max(*nv_ptr, 0), cb);
+  const int t0 = tail_start < 0 ? cb : min(max(tail_start, lo), cb);
+  const int live = lo + (cb - t0);
+  const int per = (live + nsplit - 1) / nsplit;  // <= kCRows: the wrapper picks nsplit so
+  const int v0 = min((int)blockIdx.x * per, live);
+  const int cnt = min(v0 + per, live) - v0;
+
+  // My share of the dead rows [lo, t0): no candidate.
+  const int nblocks = nsplit * ngroup;
+  for (long long j = lo + ((long long)blockIdx.y * nsplit + blockIdx.x) * kCThreads + tid;
+       j < t0; j += (long long)nblocks * kCThreads) {
+    bmin[j] = kBig;
+    barg[j] = 0;
   }
-  const int jt = c0 + threadIdx.x;
-  sok[threadIdx.x] = jt < c1 && bm[jt] && live_row(jt, n_valid, tail_start);
+
+  for (int k = tid; k < cnt * kCStride; k += kCThreads) {
+    const int s = k / kCStride, w = k - s * kCStride;
+    const int v = v0 + s;
+    const size_t j = v < lo ? v : v - lo + t0;
+    sb[k] = w < kWords ? (unsigned)b[j * kWords + w] : (bm[j] ? 0u : kCBias);
+  }
+
+  const int i0 = blockIdx.y * kCSources;
+  unsigned aw[kCPerLane][kWords], abias[kCPerLane], bkey[kCPerLane], best[kCPerLane];
+#pragma unroll
+  for (int u = 0; u < kCPerLane; ++u) {
+    const int i = i0 + lane + 32 * u;
+    const bool ok = i < ka && am[i];
+#pragma unroll
+    for (int w = 0; w < kWords; ++w)
+      aw[u][w] = ok ? (unsigned)a[(size_t)i * kWords + w] : 0u;
+    abias[u] = (ok ? 0u : kCBias) << kCShift;  // added to d << kCShift
+    bkey[u] = abias[u] | (unsigned)i;          // ... with the source's index
+    best[u] = 0xffffffffu;
+  }
   __syncthreads();
 
-  const int i = blockIdx.y * kThreads + threadIdx.x;
-  if (i >= ka || !am[i]) return;
-  int32_t aw[kWords];
+  const uint4* sb4 = reinterpret_cast<const uint4*>(sb);
+  for (int t = warp; t < cnt; t += kCWarps) {
+    const uint4 r0 = sb4[3 * t], r1 = sb4[3 * t + 1], r2 = sb4[3 * t + 2];
+    const unsigned row[kWords] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y,
+                                  r1.z, r1.w, r2.x, r2.y, r2.z};
+    unsigned kb = 0xffffffffu;
 #pragma unroll
-  for (int w = 0; w < kWords; ++w) aw[w] = a[(size_t)i * kWords + w];
-  int best = 1 << 30, arg = 0;
-  for (int t = 0; t < c1 - c0; ++t) {
-    if (!sok[t]) continue;
-    const int d = hamming(aw, sb + t * kWords);
-    if (d < best) { best = d; arg = c0 + t; }
-  }
-  if (best < (1 << 30)) atomicMin(akey + i, pack_key((float)best, arg));
-}
-
-// C, per candidate: min and lowest argmin over the valid sources.
-__global__ void __launch_bounds__(kThreads)
-hamming_candidate_kernel(const int32_t* __restrict__ a, const uint8_t* __restrict__ am,
-                         const int32_t* __restrict__ b, const uint8_t* __restrict__ bm,
-                         const int32_t* __restrict__ nv_ptr, int ka, int cb,
-                         int tail_start, float* __restrict__ bmin,
-                         int32_t* __restrict__ barg) {
-  __shared__ int32_t sa[kChunk * kWords];
-  __shared__ uint8_t sok[kChunk];
-  const int n_valid = *nv_ptr;
-  const int j = blockIdx.x * kThreads + threadIdx.x;
-  const int c0 = blockIdx.x * kThreads, c1 = min(c0 + kThreads, cb);
-  if (chunk_dead(c0, c1, n_valid, tail_start)) {
-    if (j < cb) { bmin[j] = kBig; barg[j] = 0; }
-    return;
-  }
-  const bool ok = j < cb && bm[j] && live_row(j, n_valid, tail_start);
-  int32_t bw[kWords];
-#pragma unroll
-  for (int w = 0; w < kWords; ++w) bw[w] = ok ? b[(size_t)j * kWords + w] : 0;
-  int best = 1 << 30, arg = 0;
-  for (int s0 = 0; s0 < ka; s0 += kChunk) {
-    const int sn = min(kChunk, ka - s0);
-    for (int k = threadIdx.x; k < kChunk * kWords; k += kThreads)
-      sa[k] = k < sn * kWords ? a[(size_t)s0 * kWords + k] : 0;
-    sok[threadIdx.x] = threadIdx.x < sn && am[s0 + threadIdx.x];
-    __syncthreads();
-    if (ok) {
-      for (int t = 0; t < sn; ++t) {
-        if (!sok[t]) continue;
-        const int d = hamming(bw, sa + t * kWords);
-        if (d < best) { best = d; arg = s0 + t; }
-      }
+    for (int u = 0; u < kCPerLane; ++u) {
+      const unsigned d = r2.w + hamming(aw[u], row);
+      const unsigned dk = d << kCShift;
+      kb = min(kb, dk + bkey[u]);
+      // The row's number in the run stands for its index until the loop is
+      // over: the two ascend together.
+      best[u] = min(best[u], dk + abias[u] + (unsigned)(v0 + t));
     }
-    __syncthreads();
+    kb = __reduce_min_sync(0xffffffffu, kb);
+    if (lane == 0) sbkey[t] = kb;
   }
-  if (j < cb) {
-    bmin[j] = best < (1 << 30) ? (float)best : kBig;
-    barg[j] = arg;
+#pragma unroll
+  for (int u = 0; u < kCPerLane; ++u) {
+    const int v = (int)(best[u] & kCIndex);
+    const unsigned j = (unsigned)(v < lo ? v : v - lo + t0);
+    sakey[warp][lane + 32 * u] = best[u] < kCNone ? (best[u] & ~kCIndex) | j : 0xffffffffu;
+  }
+  __syncthreads();
+
+  if (tid < kCSources) {
+    unsigned k = sakey[0][tid];
+#pragma unroll
+    for (int w = 1; w < kCWarps; ++w) k = min(k, sakey[w][tid]);
+    apart[(size_t)blockIdx.x * ngroup * kCSources + i0 + tid] = k;
+  }
+  for (int s = tid; s < cnt; s += kCThreads) {
+    const int v = v0 + s;
+    const size_t j = v < lo ? v : v - lo + t0;
+    bpart[(size_t)blockIdx.y * cb + j] = sbkey[s];
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last_a = atomicAdd(&acount[blockIdx.y], 1) == nsplit - 1;
+    last_b = atomicAdd(&bcount[blockIdx.x], 1) == ngroup - 1;
+  }
+  __syncthreads();
+  if (!last_a && !last_b) return;
+  __threadfence();
+  if (last_b) {  // per row of this split, the minimum over the source blocks
+    for (int s = tid; s < cnt; s += kCThreads) {
+      const int v = v0 + s;
+      const size_t j = v < lo ? v : v - lo + t0;
+      unsigned k = __ldcg(bpart + j);
+      for (int g = 1; g < ngroup; ++g) k = min(k, __ldcg(bpart + (size_t)g * cb + j));
+      write_hamming(k, bmin, barg, (int)j);
+    }
+    if (tid == 0) bcount[blockIdx.x] = 0;  // ready for the next call on this stream
+  }
+  if (last_a) {  // per source of this block, the minimum over the splits
+    const int s = tid % kCSources, mypart = tid / kCSources;
+    const unsigned* col = apart + i0 + s;
+    unsigned k = 0xffffffffu;
+#pragma unroll 8
+    for (int x = mypart; x < nsplit; x += kCParts)
+      k = min(k, __ldcg(col + (size_t)x * ngroup * kCSources));
+    sakey[mypart][s] = k;  // free since the barriers above
+    __syncthreads();
+    if (tid < kCSources && i0 + tid < ka) {
+#pragma unroll
+      for (int p = 1; p < kCParts; ++p) k = min(k, sakey[p][tid]);
+      write_hamming(k, amin, aarg, i0 + tid);
+    }
+    if (tid == 0) acount[blockIdx.y] = 0;
   }
 }
 
@@ -318,22 +417,23 @@ inline int grid1(int n) { return (n + kThreads - 1) / kThreads; }
 
 extern "C" {
 
+// Scratch from the caller, for ngroup = ceil(ka / 64) source blocks: apart
+// nsplit * ngroup * 64 keys, bpart ngroup * cb keys, acount ngroup ints and
+// bcount nsplit ints, zero before the first call.  nsplit * 512 >= cb, and
+// ka and cb are below 2^20.
 int bshot_hamming_nn_bounded(const int32_t* a, const uint8_t* am, const int32_t* b,
                              const uint8_t* bm, const int32_t* nv, int ka, int cb,
-                             int tail_start, unsigned long long* akey, float* amin,
-                             int32_t* aarg, float* bmin, int32_t* barg,
-                             void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (ka > 0) init_keys<<<grid1(ka), kThreads, 0, st>>>(akey, ka);
-  if (ka > 0 && cb > 0) {
-    dim3 g((cb + kChunk - 1) / kChunk, grid1(ka));
-    hamming_source_kernel<<<g, kThreads, 0, st>>>(a, am, b, bm, nv, ka, cb,
-                                                  tail_start, akey);
-  }
-  if (cb > 0)
-    hamming_candidate_kernel<<<grid1(cb), kThreads, 0, st>>>(
-        a, am, b, bm, nv, ka, cb, tail_start, bmin, barg);
-  if (ka > 0) unpack_keys<<<grid1(ka), kThreads, 0, st>>>(akey, amin, aarg, ka);
+                             int tail_start, int nsplit, unsigned* apart,
+                             unsigned* bpart, int* acount, int* bcount,
+                             float* amin, int32_t* aarg, float* bmin,
+                             int32_t* barg, void* stream) {
+  if (ka < 1 || cb < 1 || ka >= (1 << kCShift) || cb >= (1 << kCShift) ||
+      nsplit < 1 || (long long)nsplit * kCRows < cb)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(nsplit, (ka + kCSources - 1) / kCSources);
+  hamming_kernel<<<grid, kCThreads, 0, (cudaStream_t)stream>>>(
+      a, am, b, bm, nv, ka, cb, tail_start, apart, bpart, acount, bcount, amin,
+      aarg, bmin, barg);
   return (int)cudaGetLastError();
 }
 

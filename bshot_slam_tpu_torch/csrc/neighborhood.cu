@@ -40,9 +40,22 @@
 //      __threadfence) adds the partials in ascending split order and writes
 //      the result.  No float atomics: the same inputs give the same bits.
 //
-// Kernel B: one thread per query, 128 queries per block; the block walks
-// the cloud in tiles of 128 candidates staged in shared memory and
-// accumulates in f32 registers.
+// Kernel B has the same shape, without feature rows.
+//   1. pack_cloud_kernel with no features: the float4 candidates and the
+//      tile boxes only.
+//   2. segratio_kernel, grid (query blocks of 128) x (splits): the same list
+//      of kept tiles, the same ring (a tile is 2 KB of float4 here), one
+//      broadcast float4 per candidate.  A thread keeps its query, ctvec,
+//      v.q and (pos, neg, sum) in registers.  57% of the tested pairs are in
+//      radius, so the accumulation is predicated arithmetic for every pair
+//      (pos += in && dots > 0, and so on), with neither a branch nor a warp
+//      vote: the vote A needs to skip its feature loads costs B more than
+//      the ten instructions it would skip.  `normalized` is a template
+//      parameter: CVS carries no square root and no division (CVSN keeps
+//      them behind a vote).  Partial (pos, neg, sum) go to scratch as one
+//      float4 per query and split, and the last block of a query block adds
+//      them in ascending split order: the counts (below 2^24) stay exact,
+//      the sum is deterministic.
 //
 // Work, counted in f32 instructions (kernels/neighborhood.py holds the same
 // counts for the bound): a radius test is 8 (dot3: a multiply and 2 FMAs;
@@ -115,49 +128,7 @@ __device__ __forceinline__ bool separated(const float* qb, const float* rb,
   return false;
 }
 
-struct Query {
-  bool ok;
-  float x, y, z, qq, r2;
-};
-
-__device__ __forceinline__ Query load_query(const float* pts, const uint8_t* mask,
-                                            const float* r2row, float r2, int n,
-                                            float* red, float* qbox) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  Query q;
-  q.ok = i < n && mask[i];
-  q.x = q.ok ? pts[3 * i] : 0.0f;
-  q.y = q.ok ? pts[3 * i + 1] : 0.0f;
-  q.z = q.ok ? pts[3 * i + 2] : 0.0f;
-  q.qq = norm2(q.x, q.y, q.z);
-  q.r2 = (q.ok && r2row != nullptr) ? r2row[i] : r2;
-  block_box(q.ok, q.x, q.y, q.z, q.qq, red, qbox);
-  return q;
-}
-
-// Stage candidate tile [t0, t0 + kTile) and its box; returns whether the
-// block may skip it.  Every thread of the block must call it.
-__device__ __forceinline__ bool stage_tile(const float* pts, const uint8_t* mask,
-                                           int n, int t0, float r2, float* sx,
-                                           float* sy, float* sz, float* spp,
-                                           uint8_t* sok, float* red,
-                                           const float* qbox, float* rbox) {
-  const int j = t0 + threadIdx.x;
-  const bool ok = j < n && mask[j];
-  const float x = ok ? pts[3 * j] : 0.0f;
-  const float y = ok ? pts[3 * j + 1] : 0.0f;
-  const float z = ok ? pts[3 * j + 2] : 0.0f;
-  const float pp = norm2(x, y, z);
-  sx[threadIdx.x] = x;
-  sy[threadIdx.x] = y;
-  sz[threadIdx.x] = z;
-  spp[threadIdx.x] = pp;
-  sok[threadIdx.x] = ok;
-  block_box(ok, x, y, z, pp, red, rbox);  // ends with __syncthreads
-  return separated(qbox, rbox, r2);
-}
-
-// ---- Kernel A -------------------------------------------------------------
+// ---- What A and B share: cp.async, the tile list, the pre-pass ---------------
 
 constexpr int kStages = 3;      // shared-memory ring of candidate tiles
 constexpr int kMaxTiles = 1024;  // tiles a block can list: n <= 131072 rows
@@ -177,9 +148,49 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-// A, pre-pass: pack tile blockIdx.x (see the header note).  `cand` holds
-// gridDim.x * kTile rows, `featp` as many rows of nfp floats, `boxes` 8
-// floats per tile: lo[3], hi[3], max |p|^2, 0.
+__device__ __forceinline__ void load_box(const float* boxes, int tile, float* box) {
+  *reinterpret_cast<float4*>(box) =
+      *reinterpret_cast<const float4*>(boxes + tile * 8);
+  *reinterpret_cast<float4*>(box + 4) =
+      *reinterpret_cast<const float4*>(boxes + tile * 8 + 4);
+}
+
+// The tiles within reach of the block's query box, in ascending order (one
+// tile per thread, a ballot compacts the kept ones).  Split blockIdx.y of
+// gridDim.y takes every gridDim.y-th of them: they go to `list`, their number
+// is returned.  Every thread of the block must call it.
+__device__ __forceinline__ int list_kept_tiles(const float* boxes, const float* qbox,
+                                               int ntiles, float r2, uint16_t* list,
+                                               int* wcount) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int split = blockIdx.y, nsplit = gridDim.y;
+  int total = 0;
+  for (int g0 = 0; g0 < ntiles; g0 += kThreads) {
+    const int tile = g0 + tid;
+    bool keep = false;
+    if (tile < ntiles) {
+      float rbox[8];
+      load_box(boxes, tile, rbox);
+      keep = !separated(qbox, rbox, r2);
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) wcount[warp] = __popc(b);
+    __syncthreads();
+    int pos = total + __popc(b & ((1u << lane) - 1u));
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) pos += wcount[w];
+      total += wcount[w];
+    }
+    if (keep && pos % nsplit == split) list[pos / nsplit] = (uint16_t)tile;
+    __syncthreads();
+  }
+  return total > split ? (total - split + nsplit - 1) / nsplit : 0;
+}
+
+// Pre-pass of A and B: pack tile blockIdx.x (see the header note).  `cand`
+// holds gridDim.x * kTile rows, `featp` as many rows of nfp floats (B has no
+// features: nfp = 0 and the pointers are null), `boxes` 8 floats per tile:
+// lo[3], hi[3], max |p|^2, 0.
 __global__ void __launch_bounds__(kThreads)
 pack_cloud_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
                   const float* __restrict__ feat, float4* __restrict__ cand,
@@ -204,6 +215,8 @@ pack_cloud_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mas
     boxes[blockIdx.x * 8 + threadIdx.x] = threadIdx.x < 7 ? box[threadIdx.x] : 0.0f;
 }
 
+// ---- Kernel A -------------------------------------------------------------
+
 // A, main kernel: query block blockIdx.x, split blockIdx.y of gridDim.y.
 template <int NFP>
 __global__ void __launch_bounds__(kThreads)
@@ -218,45 +231,18 @@ accumulate_kernel(const float4* __restrict__ cand, const float* __restrict__ fea
   __shared__ int wcount[kWarps];
   __shared__ int last;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x;
   const int qb = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
   const int i = qb * kTile + tid;
 
   float qbox[8];
-  *reinterpret_cast<float4*>(qbox) = *reinterpret_cast<const float4*>(boxes + qb * 8);
-  *reinterpret_cast<float4*>(qbox + 4) =
-      *reinterpret_cast<const float4*>(boxes + qb * 8 + 4);
+  load_box(boxes, qb, qbox);
   if (!(qbox[0] <= qbox[3])) {  // no valid query in this block: zeros
     if (split == 0 && i < n)
       for (int f = 0; f < nf; ++f) out[(size_t)i * nf + f] = 0.0f;
     return;
   }
-
-  // The kept tiles in ascending order; this block takes every nsplit-th.
-  int total = 0;
-  for (int g0 = 0; g0 < ntiles; g0 += kThreads) {
-    const int tile = g0 + tid;
-    bool keep = false;
-    if (tile < ntiles) {
-      float rbox[8];
-      *reinterpret_cast<float4*>(rbox) =
-          *reinterpret_cast<const float4*>(boxes + tile * 8);
-      *reinterpret_cast<float4*>(rbox + 4) =
-          *reinterpret_cast<const float4*>(boxes + tile * 8 + 4);
-      keep = !separated(qbox, rbox, r2);
-    }
-    const unsigned b = __ballot_sync(0xffffffffu, keep);
-    if (lane == 0) wcount[warp] = __popc(b);
-    __syncthreads();
-    int pos = total + __popc(b & ((1u << lane) - 1u));
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) pos += wcount[w];
-      total += wcount[w];
-    }
-    if (keep && pos % nsplit == split) list[pos / nsplit] = (uint16_t)tile;
-    __syncthreads();
-  }
-  const int mine = total > split ? (total - split + nsplit - 1) / nsplit : 0;
+  const int mine = list_kept_tiles(boxes, qbox, ntiles, r2, list, wcount);
 
   const float4 q = cand[i];  // a masked query is inert too
   const float r2q = (r2row != nullptr && i < n) ? r2row[i] : r2;
@@ -336,60 +322,103 @@ accumulate_kernel(const float4* __restrict__ cand, const float* __restrict__ fea
   if (tid == 0) counters[qb] = 0;  // ready for the next call on this stream
 }
 
-__global__ void __launch_bounds__(kThreads)
-segratio_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
-                const float* __restrict__ ctvec, const float* __restrict__ r2row,
-                float* __restrict__ out, int n, int normalized, float r2) {
-  __shared__ float sx[kTile], sy[kTile], sz[kTile], spp[kTile];
-  __shared__ uint8_t sok[kTile];
-  __shared__ float red[7 * kWarps], qbox[7], rbox[7];
+// ---- Kernel B -------------------------------------------------------------
 
-  const Query q = load_query(pts, mask, r2row, r2, n, red, qbox);
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const float vx = q.ok ? ctvec[3 * i] : 0.0f;
-  const float vy = q.ok ? ctvec[3 * i + 1] : 0.0f;
-  const float vz = q.ok ? ctvec[3 * i + 2] : 0.0f;
+// B, main kernel: query block blockIdx.x, split blockIdx.y of gridDim.y.
+// `part` holds one float4 (pos, neg, sum, 0) per split and query.
+template <bool NORMALIZED>
+__global__ void __launch_bounds__(kThreads)
+segratio_kernel(const float4* __restrict__ cand, const float* __restrict__ boxes,
+                const float* __restrict__ ctvec, const float* __restrict__ r2row,
+                float4* __restrict__ part, int* __restrict__ counters,
+                float* __restrict__ out, int n, int ntiles, float r2) {
+  __shared__ __align__(16) float4 sc[kStages][kTile];
+  __shared__ uint16_t list[kMaxTiles];
+  __shared__ int wcount[kWarps];
+  __shared__ int last;
+
+  const int tid = threadIdx.x;
+  const int qb = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int i = qb * kTile + tid;
+
+  float qbox[8];
+  load_box(boxes, qb, qbox);
+  if (!(qbox[0] <= qbox[3])) {  // no valid query in this block: zeros
+    if (split == 0 && i < n) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = 0.0f;
+    return;
+  }
+  const int mine = list_kept_tiles(boxes, qbox, ntiles, r2, list, wcount);
+
+  // A masked query is inert (q.w = +inf): it passes no radius test, so its
+  // three sums stay 0 whatever its ctvec holds.
+  const float4 q = cand[i];
+  const float r2q = (r2row != nullptr && i < n) ? r2row[i] : r2;
+  const float vx = i < n ? ctvec[3 * i] : 0.0f;
+  const float vy = i < n ? ctvec[3 * i + 1] : 0.0f;
+  const float vz = i < n ? ctvec[3 * i + 2] : 0.0f;
   const float vq = dot3(vx, vy, vz, q.x, q.y, q.z);
-  const float vnorm = sqrtf(norm2(vx, vy, vz));
+  const float vnorm = NORMALIZED ? sqrtf(norm2(vx, vy, vz)) : 0.0f;
   float pos = 0.0f, neg = 0.0f, ssum = 0.0f;
 
-  if (qbox[0] <= qbox[3]) {
-    for (int t0 = 0; t0 < n; t0 += kTile) {
-      const bool skip = stage_tile(pts, mask, n, t0, r2, sx, sy, sz, spp, sok,
-                                   red, qbox, rbox);
-      if (!skip && q.ok) {
-        const int tn = min(kTile, n - t0);
-        for (int t = 0; t < tn; ++t) {
-          if (!sok[t]) continue;
-          const float d2 =
-              pair_d2(q.qq, spp[t], dot3(q.x, q.y, q.z, sx[t], sy[t], sz[t]));
-          if (!(d2 <= q.r2)) continue;
-          const float dots = __fsub_rn(dot3(vx, vy, vz, sx[t], sy[t], sz[t]), vq);
-          pos += dots > 0.0f ? 1.0f : 0.0f;
-          neg += dots < 0.0f ? 1.0f : 0.0f;
-          if (normalized) {
-            const float denom = vnorm * sqrtf(d2);
-            if (denom > 0.0f) ssum += dots / fmaxf(denom, 1e-12f);
-          } else if (d2 > 0.0f) {
-            ssum += dots;
-          }
-        }
+  auto fetch = [&](int k) {  // start the copy of my k-th tile into its stage
+    if (k < mine)
+      cp_async16(&sc[k % kStages][tid], cand + (size_t)list[k] * kTile + tid);
+    cp_async_commit();  // an empty group keeps the count of groups uniform
+  };
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) fetch(k);
+  for (int k = 0; k < mine; ++k) {
+    cp_async_wait<kStages - 2>();  // my copy of tile k has landed
+    __syncthreads();  // everyone's has, and tile k - 1 is done with
+    fetch(k + kStages - 1);
+    const float4* c4 = sc[k % kStages];
+#pragma unroll 4
+    for (int t = 0; t < kTile; ++t) {
+      const float4 p = c4[t];
+      const float d2 = pair_d2(q.w, p.w, dot3(q.x, q.y, q.z, p.x, p.y, p.z));
+      const bool in = d2 <= r2q;
+      const float dots = __fsub_rn(dot3(vx, vy, vz, p.x, p.y, p.z), vq);
+      pos += (in && dots > 0.0f) ? 1.0f : 0.0f;
+      neg += (in && dots < 0.0f) ? 1.0f : 0.0f;
+      if (!NORMALIZED) {
+        ssum += (in && d2 > 0.0f) ? dots : 0.0f;
+      } else if (__any_sync(0xffffffffu, in)) {  // the square root and the division
+        const float denom = vnorm * sqrtf(d2);
+        if (in && denom > 0.0f) ssum += dots / fmaxf(denom, 1e-12f);
       }
-      __syncthreads();
     }
   }
-  if (i < n) {
-    out[3 * i] = q.ok ? pos : 0.0f;
-    out[3 * i + 1] = q.ok ? neg : 0.0f;
-    out[3 * i + 2] = q.ok ? ssum : 0.0f;
+
+  // Partial sums to scratch; the last block of this query block adds them
+  // in ascending split order.
+  const size_t stride = (size_t)gridDim.x * kTile;  // float4 per split
+  part[split * stride + i] = make_float4(pos, neg, ssum, 0.0f);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&counters[qb], 1) == nsplit - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  pos = neg = ssum = 0.0f;
+  for (int s = 0; s < nsplit; ++s) {
+    const float4 v = __ldcg(part + s * stride + i);
+    pos += v.x;
+    neg += v.y;
+    ssum += v.z;
   }
+  if (i < n) {
+    out[3 * i] = pos;
+    out[3 * i + 1] = neg;
+    out[3 * i + 2] = ssum;
+  }
+  if (tid == 0) counters[qb] = 0;  // ready for the next call on this stream
 }
 
 }  // namespace
 
 extern "C" {
 
-// Scratch, allocated by the caller for ntiles = ceil(n / 128) tiles and
+// A's scratch, allocated by the caller for ntiles = ceil(n / 128) tiles and
 // nfp = nf rounded up to a multiple of 4: cand ntiles * 128 float4, featp
 // ntiles * 128 * nfp floats, boxes ntiles * 8 floats, part nsplit * ntiles *
 // 128 * nfp floats, counters ntiles ints, zero before the first call.
@@ -423,14 +452,30 @@ int bshot_neighborhood_accumulate(const float* pts, const uint8_t* mask,
   return (int)cudaGetLastError();
 }
 
+// Scratch from the caller, for ntiles = ceil(n / 128) tiles: cand ntiles *
+// 128 float4, boxes ntiles * 8 floats, part nsplit * ntiles * 128 float4,
+// counters ntiles ints, zero before the first call.
 int bshot_segratio_accumulate(const float* pts, const uint8_t* mask,
                               const float* ctvec, const float* r2row, float* out,
-                              int n, int normalized, float r2, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    segratio_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        pts, mask, ctvec, r2row, out, n, normalized, r2);
-  }
+                              float* cand, float* boxes, float* part,
+                              int* counters, int n, int normalized, int nsplit,
+                              float r2, void* stream) {
+  if (n <= 0) return 0;
+  const int ntiles = (n + kTile - 1) / kTile;
+  if (ntiles > kMaxTiles || nsplit < 1 || nsplit > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  float4* cand4 = reinterpret_cast<float4*>(cand);
+  float4* part4 = reinterpret_cast<float4*>(part);
+  pack_cloud_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, nullptr, cand4, nullptr,
+                                                 boxes, n, 0, 0);
+  const dim3 grid(ntiles, nsplit);
+  if (normalized)
+    segratio_kernel<true><<<grid, kThreads, 0, st>>>(
+        cand4, boxes, ctvec, r2row, part4, counters, out, n, ntiles, r2);
+  else
+    segratio_kernel<false><<<grid, kThreads, 0, st>>>(
+        cand4, boxes, ctvec, r2row, part4, counters, out, n, ntiles, r2);
   return (int)cudaGetLastError();
 }
 

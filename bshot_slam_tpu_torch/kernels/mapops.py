@@ -14,19 +14,23 @@ pairs count as distance 3e38; a row with no candidate reports (3e38, 0);
 ties go to the lowest index.  Descriptors are packed (., 11) int32 words
 holding the uint32 bit patterns.
 
-The CUDA side (csrc/mapops.cu): C and E give one thread per query and
-split the candidates over blocks in chunks of 128 rows, merging chunk
-minima with a 64-bit atomicMin on (distance bits << 32 | index); dead
-chunks exit at once, so the work follows the live rows.  D is one launch
-per call: a grid of (split of the live rows, block of 64 queries), two
-queries per lane in registers, per-block (distance bits << 32 | index) keys
-in scratch and the last block of a query block writing the minimum over the
-splits; the wrapper keeps D's scratch per device, stream and shape.  The
-work per pair of valid live
-rows, by instruction class, is in `HAMMING_PAIR_OPS`, `EUCLID_PAIR_OPS`,
-`DEDUP_PAIR_OPS` and `DEDUP_SAME_BLOCK_OPS` (csrc/mapops.cu says how they
-are counted); `chip_smoke.py` turns them into the bound at the main path's
-shapes.
+The CUDA side (csrc/mapops.cu).  C is one launch per call that computes
+each distance once for both sides: a grid of (split of the live rows, block
+of 64 sources), two sources per lane in registers, 32-bit keys
+(distance << 20 | index) whose minimum stays in a register per source and
+is one warp reduction per row, then per-block keys in scratch and two
+last-block merges (per source over the splits, per row over the source
+blocks) that write minima and indices directly; it takes fewer than 2^20
+rows on either side.  D is one launch per call: a grid of (split of the
+live rows, block of 64 queries), two queries per lane in registers,
+per-block (distance bits << 32 | index) keys in scratch and the last block
+of a query block writing the minimum over the splits.  E gives one thread
+per query and splits the candidates over blocks in chunks of 128 rows; dead
+chunks exit at once.  The wrappers keep C's and D's scratch per device,
+stream and shape.  The work per pair of valid live rows, by instruction
+class, is in `HAMMING_PAIR_OPS`, `EUCLID_PAIR_OPS`, `DEDUP_PAIR_OPS` and
+`DEDUP_SAME_BLOCK_OPS` (csrc/mapops.cu says how they are counted);
+`chip_smoke.py` turns them into the bound at the main path's shapes.
 """
 
 from __future__ import annotations
@@ -52,6 +56,13 @@ DEDUP_SAME_BLOCK_OPS = {"f32": 8}
 EUCLID_QUERIES = 64
 EUCLID_ROWS = 2048
 EUCLID_BLOCKS = 264
+# Kernel C: sources per block, most rows a block stages, the blocks it aims
+# to have in flight (four on each SM) and the rows either side may have (a
+# key holds an index in 20 bits).
+HAMMING_SOURCES = 64
+HAMMING_ROWS = 512
+HAMMING_BLOCKS = 528
+HAMMING_MAX_ROWS = 1 << 20
 
 
 def popcount_distances(a_words: torch.Tensor, b_words: torch.Tensor) -> torch.Tensor:
@@ -103,29 +114,51 @@ def hamming_nn_bounded(a_words: torch.Tensor, a_mask: torch.Tensor,
         return hamming_nn_bounded_plain(a_words, a_mask, b_words, b_mask,
                                         n_valid_b, tail_start)
     ka, cb = a_words.shape[0], b_words.shape[0]
+    if not (1 <= ka < HAMMING_MAX_ROWS and 1 <= cb < HAMMING_MAX_ROWS):
+        raise ValueError(f"kernel C takes 1 to {HAMMING_MAX_ROWS - 1} sources "
+                         f"and candidates, got {ka} and {cb}")
     dev = a_words.device
     require(a_words, "a_words", torch.int32, (ka, N_WORDS))
     require(a_mask, "a_mask", torch.bool, (ka,))
     require(b_words, "b_words", torch.int32, (cb, N_WORDS))
     require(b_mask, "b_mask", torch.bool, (cb,))
     nv = device_count_arg(n_valid_b, dev)
-    key = torch.empty((ka,), dtype=torch.int64, device=dev)
     a_min = torch.empty((ka,), dtype=torch.float32, device=dev)
     a_arg = torch.empty((ka,), dtype=torch.int32, device=dev)
     b_min = torch.empty((cb,), dtype=torch.float32, device=dev)
     b_arg = torch.empty((cb,), dtype=torch.int32, device=dev)
+    stream = stream_arg(dev)
+    nsplit, bufs = _hamming_scratch(dev, stream, ka, cb)
     P, I = _build.P, _build.I
     fn = _build.bind("mapops", "bshot_hamming_nn_bounded",
-                     [P] * 5 + [I, I, I] + [P] * 6)
+                     [P] * 5 + [I] * 4 + [P] * 9)
     _build.check(fn(ptr(a_words), ptr(a_mask), ptr(b_words), ptr(b_mask),
-                    ptr(nv), ka, cb, int(tail_start), ptr(key), ptr(a_min),
-                    ptr(a_arg), ptr(b_min), ptr(b_arg), stream_arg(dev)),
+                    ptr(nv), ka, cb, int(tail_start), nsplit, *bufs,
+                    ptr(a_min), ptr(a_arg), ptr(b_min), ptr(b_arg), stream),
                  "hamming_nn_bounded")
     hamming_nn_bounded.launches += 1
     return a_min, a_arg, b_min, b_arg
 
 
 hamming_nn_bounded.launches = 0
+
+
+def _hamming_scratch(dev, stream: int, ka: int, cb: int):
+    """(nsplit, pointers of kernel C's scratch): the splits' keys per source,
+    the source blocks' keys per row, and the arrival counters of the source
+    blocks and of the splits (zero between calls)."""
+    groups = -(-ka // HAMMING_SOURCES)
+    nsplit = max(-(-cb // HAMMING_ROWS),
+                 min(-(-HAMMING_BLOCKS // groups), -(-cb // 64)))
+
+    def make():
+        i32 = dict(dtype=torch.int32, device=dev)
+        bufs = (torch.empty((nsplit, groups * HAMMING_SOURCES), **i32),
+                torch.empty((groups, cb), **i32),
+                torch.zeros((groups,), **i32), torch.zeros((nsplit,), **i32))
+        return bufs, tuple(ptr(b) for b in bufs)
+
+    return nsplit, scratch(dev, stream, ("hamming", ka, cb), make)[1]
 
 
 def euclid_nn_bounded_plain(q, q_mask, ref, ref_mask, n_valid_ref,

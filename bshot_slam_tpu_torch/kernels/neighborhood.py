@@ -13,18 +13,19 @@ in-radius points, the counts of sign(v_i.p_j - v_i.q_i) and the CVS dot sum
 The CUDA side (csrc/neighborhood.cu) runs one thread per query over
 candidate tiles of 128 rows in shared memory; it skips tiles that are empty
 or out of reach of the block's query box, with a margin that keeps every
-result equal to the unpruned one.  Kernel A is two launches: a pre-pass
-packs the cloud once (float4 candidates with masked rows inert, feature
-rows padded to 16-byte loads, every tile's box), then a grid of (query
-block, split) blocks walks only the tiles it keeps through a cp.async ring
-and the last block of a query block adds the splits' partial sums in a
-fixed order, so the result is deterministic.  The wrapper keeps A's scratch
-(`_accumulate_scratch`: ~0.8 MB of packed cloud and `nsplit` partial
-buffers at the main path's 12288 x 10) per device, stream and shape.  The
-work, in f32 instructions, is `RADIUS_TEST_F32` per radius test the skips
-leave plus, per in-radius pair, one add per feature column (A) or
-`SEGRATIO_IN_RADIUS_F32` (B); `chip_smoke.py` turns these counts into the
-bound at the main path's shapes.
+result equal to the unpruned one.  Both kernels are two launches: a
+pre-pass packs the cloud once (float4 candidates with masked rows inert,
+every tile's box and, for A, feature rows padded to 16-byte loads), then a
+grid of (query block, split) blocks walks only the tiles it keeps through a
+cp.async ring and the last block of a query block adds the splits' partial
+sums in a fixed order, so the result is deterministic (B's two counts stay
+exact).  The wrappers keep the scratch (`_accumulate_scratch`: ~0.8 MB of
+packed cloud and `nsplit` partial buffers at the main path's 12288 x 10;
+`_segratio_scratch`: ~1.8 MB at 12288 rows) per device, stream and shape,
+each kernel under a key of its own.  The work, in f32 instructions, is
+`RADIUS_TEST_F32` per radius test the skips leave plus, per in-radius pair,
+one add per feature column (A) or `SEGRATIO_IN_RADIUS_F32` (B);
+`chip_smoke.py` turns these counts into the bound at the main path's shapes.
 
 The plain versions mirror the reference's `lax.scan` path tile by tile.
 Counts are exact between the two: the kernel reproduces the rounding of
@@ -43,9 +44,9 @@ from bshot_slam_tpu_torch.kernels import (
 )
 
 MAX_FEAT = 16  # feature columns the CUDA kernel accumulates in registers
-MAX_ROWS = 131072  # rows kernel A takes: a block lists at most 1024 tiles
+MAX_ROWS = 131072  # rows the CUDA kernels take: a block lists at most 1024 tiles
 TILE = 128  # queries per block and candidates per tile of the CUDA kernels
-# Kernel A spreads a query block's kept tiles over this many blocks, so that
+# Kernels A and B spread a query block's kept tiles over so many blocks that
 # about ACCUMULATE_BLOCKS blocks of 4 warps are in flight on the 132 SMs.
 ACCUMULATE_BLOCKS = 768
 MAX_SPLIT = 16  # ... but no more than this many per query block
@@ -109,13 +110,18 @@ def neighborhood_accumulate(points: torch.Tensor, mask: torch.Tensor,
 neighborhood_accumulate.launches = 0
 
 
+def _tiles_and_splits(n: int):
+    """(tiles of TILE rows, blocks that share a query block's kept tiles)."""
+    ntiles = max(1, -(-n // TILE))
+    return ntiles, min(MAX_SPLIT, max(1, -(-ACCUMULATE_BLOCKS // ntiles)))
+
+
 def _accumulate_scratch(dev, stream: int, n: int, nf: int):
     """(nsplit, pointers of kernel A's scratch): the packed candidates,
     padded features, tile boxes, the splits' partial sums and the query
     blocks' arrival counters (zero between calls)."""
-    ntiles = max(1, -(-n // TILE))
+    ntiles, nsplit = _tiles_and_splits(n)
     nfp = -(-nf // 4) * 4
-    nsplit = min(MAX_SPLIT, max(1, -(-ACCUMULATE_BLOCKS // ntiles)))
     rows = ntiles * TILE
 
     def make():
@@ -168,20 +174,44 @@ def segratio_accumulate(points: torch.Tensor, mask: torch.Tensor,
         return segratio_accumulate_plain(points, mask, ctvec, radius,
                                          normalized, r2_row, tile)
     n = points.shape[0]
+    if n > MAX_ROWS:
+        raise ValueError(f"kernel B takes at most {MAX_ROWS} rows")
+    if not math.isfinite(radius):
+        raise ValueError("kernel B needs a finite radius")
     require(points, "points", torch.float32, (n, 3))
     require(mask, "mask", torch.bool, (n,))
     require(ctvec, "ctvec", torch.float32, (n, 3))
     if r2_row is not None:
         require(r2_row, "r2_row", torch.float32, (n,))
-    out = torch.empty((n, 3), dtype=torch.float32, device=points.device)
+    dev = points.device
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    stream = stream_arg(dev)
+    nsplit, bufs = _segratio_scratch(dev, stream, n)
+    P, I = _build.P, _build.I
     fn = _build.bind("neighborhood", "bshot_segratio_accumulate",
-                     [_build.P] * 5 + [_build.I, _build.I, _build.F, _build.P])
+                     [P] * 9 + [I, I, I, _build.F, P])
     _build.check(fn(ptr(points), ptr(mask), ptr(ctvec), ptr(r2_row), ptr(out),
-                    n, int(normalized), radius * radius,
-                    stream_arg(points.device)),
+                    *bufs, n, int(normalized), nsplit, radius * radius, stream),
                  "segratio_accumulate")
     segratio_accumulate.launches += 1
     return out
 
 
 segratio_accumulate.launches = 0
+
+
+def _segratio_scratch(dev, stream: int, n: int):
+    """(nsplit, pointers of kernel B's scratch): the packed candidates, tile
+    boxes, the splits' partial (pos, neg, sum, 0) and the query blocks'
+    arrival counters (zero between calls)."""
+    ntiles, nsplit = _tiles_and_splits(n)
+    rows = ntiles * TILE
+
+    def make():
+        f32 = dict(dtype=torch.float32, device=dev)
+        bufs = (torch.empty((rows, 4), **f32), torch.empty((ntiles, 8), **f32),
+                torch.empty((nsplit, rows, 4), **f32),
+                torch.zeros((ntiles,), dtype=torch.int32, device=dev))
+        return bufs, tuple(ptr(b) for b in bufs)
+
+    return nsplit, scratch(dev, stream, ("segratio", n), make)[1]

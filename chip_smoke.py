@@ -10,7 +10,7 @@ Phases, one line each:
      PyTorch version: integer outputs exactly equal to the plain version
      run on CPU copies of the inputs, float outputs within the stated
      tolerance, no row differing from the plain version run on the card,
-     A and D bit-identical over two runs on the same inputs; kernel and
+     A, B, C and D bit-identical over two runs on the same inputs; kernel and
      plain times on the card (CUDA events, median of 25), the kernel's
      device-only time and device launches per call (`torch.profiler`) and
      the host's time per wrapper call;
@@ -22,7 +22,7 @@ Phases, one line each:
      `torch.profiler` pass over 6 frames of a second engine (device busy
      time per frame, the device kernels that take the most of it);
      the port's own kernels per frame (kernel D: one device launch per
-     ICP iteration);
+     ICP iteration; B and C: at most two device launches per call);
   5. one JSON line of per-kernel results (`launches` counts the whole
      engine run of `frames` frames, `launches_per_frame` divides it), the
      card line again, and the result line {"ok": true, "device": {...}}.
@@ -316,6 +316,7 @@ def check_neighborhood(cfg, points_np, nv, dev):
     ctvec = (pts_c - psum / torch.clamp(cnt, min=1.0)[:, None]).contiguous()
     ctvec_d = ctvec.to(dev)
     outb = K.segratio_accumulate(pts, mask, ctvec_d, r)
+    againb = K.segratio_accumulate(pts, mask, ctvec_d, r)
     refb = K.segratio_accumulate_plain(pts_c, mask_c, ctvec, r)
     bad_b = int_mismatch(outb[:, :2], refb[:, :2])
     errb = (outb[:, 2].cpu() - refb[:, 2]).abs()
@@ -332,6 +333,7 @@ def check_neighborhood(cfg, points_np, nv, dev):
         replaces="bshot_slam_tpu/kernels/neighborhood.py:245",
         int_mismatch=bad_b, float_out_of_tol=float_bad_b,
         max_abs_err=float(errb.max()), card_plain_rows_differ=card_rows_b,
+        deterministic=same_bits([outb], [againb]),
         **measure(lambda: K.segratio_accumulate(pts, mask, ctvec_d, r),
                   lambda: K.segratio_accumulate_plain(pts, mask, ctvec_d, r)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -399,6 +401,7 @@ def check_mapops(cfg, dev):
     args = (d["a_words"], d["a_mask"], d["b_words"], d["b_mask"], nv_d)
     cargs = (c["a_words"], c["a_mask"], c["b_words"], c["b_mask"], nv)
     got = M.hamming_nn_bounded(*args, tail_start=tail)
+    again = M.hamming_nn_bounded(*args, tail_start=tail)
     want = M.hamming_nn_bounded_plain(*cargs, tail_start=tail)
     bad = sum(int_mismatch(g, w) for g, w in zip(got, want))
     card = M.hamming_nn_bounded_plain(*args, tail_start=tail)
@@ -415,7 +418,7 @@ def check_mapops(cfg, dev):
         int_mismatch=bad, float_out_of_tol=0,
         max_abs_err=float(max((g.cpu() - w).abs().max() for g, w in
                               ((got[0], want[0]), (got[2], want[2])))),
-        card_plain_rows_differ=card_rows,
+        card_plain_rows_differ=card_rows, deterministic=same_bits(got, again),
         **measure(lambda: M.hamming_nn_bounded(*args, tail_start=tail),
                   lambda: M.hamming_nn_bounded_plain(*args, tail_start=tail)),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -524,9 +527,9 @@ def host_preprocess_ms(cfg, sweeps) -> float:
 
 # The __global__ functions of csrc/*.cu, as the profiler names them.
 PORT_KERNELS = ("pack_cloud_kernel", "accumulate_kernel", "segratio_kernel",
-                "hamming_source_kernel", "hamming_candidate_kernel",
-                "euclid_kernel", "dedup_kernel", "init_keys", "unpack_keys",
-                "zero_flags")
+                "hamming_kernel", "euclid_kernel", "dedup_kernel", "zero_flags")
+# Most device launches a call of a wrapper may make.
+MAX_DEVICE_LAUNCHES = {"segratio_accumulate": 2, "hamming_nn_bounded": 2}
 
 
 def profile_engine(cfg, sweeps, dev, n: int = 6):
@@ -607,6 +610,10 @@ def main() -> int:
     if failed:
         raise SmokeError("kernels disagree with their plain versions, or with "
                          f"themselves over two runs: {failed}")
+    wide = {r["name"]: r["device_launches_per_call"] for r in rows
+            if r["device_launches_per_call"] > MAX_DEVICE_LAUNCHES.get(r["name"], 99)}
+    if wide:  # a trace can lose records, not add them
+        raise SmokeError(f"more device launches per call than allowed: {wide}")
 
     res, _ = run_engine(cfg, sweeps, gt, dev)
     print(f"[4] engine: {N_FRAMES} frames, {res['fps']:.3f} frames/s after the "

@@ -4,7 +4,7 @@ Needs an NVIDIA GPU with nvcc (marker `cuda`); skips elsewhere.  Run on the
 card with `python -m pytest tests/test_torch_cuda.py -q -m cuda`.  Integer
 outputs must equal the plain version run on CPU copies exactly (the kernels
 reproduce its rounding); float sums agree to summation order.  Kernels A
-and D also run every edge case of `tests/torch_kernel_cases.py`, twice: the
+to D also run every edge case of `tests/torch_kernel_cases.py`, twice: the
 two runs must be bit-identical.
 """
 
@@ -18,7 +18,8 @@ from bshot_slam_tpu_torch.kernels import mapops as M
 from bshot_slam_tpu_torch.kernels import neighborhood as K
 from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 from tests.torch_kernel_cases import (
-    A_CASES, D_CASES, accumulate_case, euclid_case,
+    A_CASES, B_CASES, C_CASES, D_CASES, accumulate_case, euclid_case,
+    hamming_case, segratio_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -61,6 +62,44 @@ def test_accumulate_case_on_card(dev, name):
     live = torch.tensor(c["feat"][c["mask"]])
     top = live.abs().max(dim=0).values if len(live) else torch.zeros(want.shape[1])
     assert ((got.cpu() - want).abs() <= 1e-5 * want_cnt * top[None, :]).all()
+
+
+@pytest.mark.parametrize("name", B_CASES)
+def test_segratio_case_on_card(dev, name):
+    c = segratio_case(name)
+    pts, mask = torch.tensor(c["points"]), torch.tensor(c["mask"])
+    r2_row = None if c["r2_row"] is None else torch.tensor(c["r2_row"])
+    x, y, z = pts.unbind(-1)
+    mom = K.neighborhood_accumulate_plain(
+        pts, mask, torch.stack([torch.ones_like(x), x, y, z], -1), c["radius"], r2_row)
+    cnt = mom[:, 0]
+    ctvec = (pts - mom[:, 1:4] / cnt.clamp(min=1.0)[:, None] if c["ctvec"] is None
+             else torch.tensor(c["ctvec"])).contiguous()
+    want = K.segratio_accumulate_plain(pts, mask, ctvec, c["radius"],
+                                       c["normalized"], r2_row)
+    args = (pts.to(dev), mask.to(dev), ctvec.to(dev), c["radius"], c["normalized"],
+            None if r2_row is None else r2_row.to(dev))
+    got, again = K.segratio_accumulate(*args), K.segratio_accumulate(*args)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    torch.testing.assert_close(got[:, :2].cpu(), want[:, :2], rtol=0, atol=0)
+    tol = (1e-5 * cnt + 1e-3 if c["normalized"]
+           else 1e-5 * cnt * torch.linalg.norm(ctvec, dim=-1) * c["radius"] + 1e-2)
+    assert ((got[:, 2].cpu() - want[:, 2]).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("name", C_CASES)
+def test_hamming_case_on_card(dev, name):
+    c = hamming_case(name)
+    words = [torch.tensor(c[k].view(np.int32)) for k in ("a_words", "b_words")]
+    cpu = (words[0], torch.tensor(c["a_mask"]), words[1], torch.tensor(c["b_mask"]))
+    want = M.hamming_nn_bounded_plain(*cpu, c["n_valid"], c["tail_start"])
+    args = [t.to(dev) for t in cpu]
+    for nv in (c["n_valid"], torch.tensor(c["n_valid"], dtype=torch.int32, device=dev)):
+        got = M.hamming_nn_bounded(*args, nv, c["tail_start"])
+        again = M.hamming_nn_bounded(*args, nv, c["tail_start"])
+        for g, a, w in zip(got, again, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+            assert torch.equal(g, a)
 
 
 @pytest.mark.parametrize("name", D_CASES)

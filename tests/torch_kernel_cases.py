@@ -1,4 +1,4 @@
-"""Seeded edge cases for the port's kernels A and D (numpy only).
+"""Seeded edge cases for the port's kernels A, B, C and D (numpy only).
 
 `tests/test_torch_kernel_cases.py` runs them through the port's plain
 versions against the reference on the CPU; `tests/test_torch_cuda.py` runs
@@ -13,6 +13,18 @@ RADIUS = 3000.0
 A_CASES = (
     "n1", "n127", "n128", "n129", "n3000", "all_masked", "one_valid", "cap",
     "nf1", "nf10", "nf16", "far_clusters", "shell",
+)
+# B runs on A's clouds: CV and CVS read one call (`normalized=False`), the
+# `_cvsn` cases the other; `ctvec` is None where a test derives it from the
+# cloud's own moments (point minus centroid of its neighbourhood).
+B_CLOUDS = ("n1", "n127", "n128", "n129", "n3000", "all_masked", "one_valid",
+            "cap", "far_clusters", "shell")
+B_CASES = B_CLOUDS + ("n129_cvsn", "n3000_cvsn", "cap_cvsn", "shell_cvsn",
+                      "dots_zero", "coincident", "coincident_cvsn")
+C_CASES = (
+    "ka1", "ka600", "ka601", "nv0", "nv0_tail", "nv_odd_tail", "nv_full",
+    "a_all_masked", "b_all_masked", "live_by_index", "dup_candidates",
+    "dup_sources", "dense",
 )
 D_CASES = (
     "kq1", "kq600", "kq601", "nv0", "nv0_tail", "nv_odd", "nv_odd_tail",
@@ -122,3 +134,103 @@ def euclid_case(name: str) -> dict:
             ref[j + 128 * (k + 1)] = ref[j]
             qm[k] = True
     return dict(q=q, q_mask=qm, ref=ref, ref_mask=rm, n_valid=nv, tail_start=tail)
+
+
+def segratio_case(name: str) -> dict:
+    """Inputs of `segratio_accumulate`: points, mask, ctvec (or None: point
+    minus the centroid of its neighbourhood), radius, normalized, r2_row."""
+    normalized = name.endswith("_cvsn")
+    base = name[:-5] if normalized else name
+    ctvec = None
+    if base in B_CLOUDS:
+        c = accumulate_case(base)
+        pts, mask, radius, r2_row = c["points"], c["mask"], c["radius"], c["r2_row"]
+    else:
+        rng = np.random.default_rng(3000 + B_CASES.index(name))
+        n, radius, r2_row = 400, RADIUS, None
+        mask = rng.random(n) < 0.9
+        if base == "dots_zero":
+            # Three z-planes and ctvec along z: v.p - v.q is exactly 0 for
+            # every pair within a plane, which counts as neither sign.
+            pts = np.round(rng.uniform(-2500, 2500, (n, 3))).astype(np.float32)
+            pts[:, 2] = 500.0 * rng.integers(0, 3, n)
+            ctvec = np.tile(np.float32([0.0, 0.0, 700.0]), (n, 1))
+        elif base == "coincident":
+            # Every point of the second half repeats one of the first: d2 is
+            # exactly 0 there, and such a pair adds nothing to the sum.
+            pts = rng.normal(0, 2500.0, (n, 3)).astype(np.float32)
+            pts[n // 2:] = pts[: n // 2]
+            mask[:] = True
+            ctvec = rng.normal(0, 600.0, (n, 3)).astype(np.float32)
+        else:
+            raise KeyError(name)
+        pts[~mask] = 0.0
+    return dict(points=pts, mask=mask, ctvec=ctvec, radius=radius,
+                normalized=normalized, r2_row=r2_row)
+
+
+def _words(rng, n):
+    return rng.integers(0, 2**32, (n, 11), dtype=np.uint64).astype(np.uint32)
+
+
+def live_rows(n_rows: int, n_valid: int, tail_start: int) -> np.ndarray:
+    rows = np.arange(n_rows)
+    live = rows < n_valid
+    if tail_start >= 0:
+        live |= rows >= tail_start
+    return live
+
+
+def hamming_case(name: str) -> dict:
+    """Inputs of `hamming_nn_bounded`: a_words, a_mask, b_words, b_mask
+    (words as uint32), n_valid, tail_start.  The window holds W = 2048 rows,
+    then a live tail; `dense` is the overflow fallback's shape."""
+    rng = np.random.default_rng(4000 + C_CASES.index(name))
+    W, cb = 2048, 2100
+    if name == "dense":
+        W, cb = 131072, 131672
+    ka = {"ka1": 1, "ka600": 600, "ka601": 601, "dense": 8}.get(name, 37)
+    nv = {"nv0": 0, "nv0_tail": 0, "nv_full": cb, "dense": 70001}.get(name, 1031)
+    tail = -1 if name in ("nv0", "nv_full", "dup_candidates") else W
+    a, b = _words(rng, ka), _words(rng, cb)
+    am = rng.random(ka) > 0.1
+    am[0] = True
+    bm = np.zeros(cb, bool)
+    bm[:nv] = rng.random(nv) > 0.1
+    if tail >= 0:
+        bm[tail:] = rng.random(cb - tail) > 0.1
+    # Near matches, so that the minima are not all ~140 bits of noise: row
+    # 3 + 7k is source k with k bits flipped (a source can have several).
+    for k in range(0 if name == "dup_candidates" else min(ka, 24)):
+        j = (3 + 7 * k) % max(nv, 1) if nv else cb - 1 - k
+        b[j] = a[k % ka]
+        b[j, k % 11] ^= np.uint32((1 << (k % 9)) - 1)
+    if name == "a_all_masked":
+        am[:] = False
+    if name == "b_all_masked":
+        bm[:] = False
+    if name == "live_by_index":  # set flags on dead rows must not count
+        bm[:] = rng.random(cb) > 0.1
+        b[nv + 5] = a[0]  # a dead exact match
+    if name == "dup_candidates":
+        # The nearest row of source k appears again 128 * (k + 1) rows later:
+        # a tie across warps, blocks and splits, which goes to the lowest index.
+        nv = 1700
+        bm[:nv] = True
+        for k in range(8):
+            j = 5 + 17 * k
+            b[j] = a[k]
+            b[j + 128 * (k + 1)] = a[k]
+            am[k] = True
+    if name == "dup_sources":
+        # Identical sources: a candidate takes the lowest source index.
+        a[9] = a[20] = a[36] = a[5]
+        am[[5, 9, 20, 36]] = True
+        b[[40, 900, W + 3]] = a[5]
+        bm[[40, 900, W + 3]] = True
+    if name == "dense":
+        b[[65000, 131072 + 17]] = a[1]  # far apart in the run: a tie across splits
+        bm[[65000, 131072 + 17]] = True
+        am[1] = True
+    return dict(a_words=a, a_mask=am, b_words=b, b_mask=bm, n_valid=nv,
+                tail_start=tail)
