@@ -66,9 +66,11 @@
 //     the results.
 //
 // Work per pair of valid live rows (kernels/mapops.py holds the same counts
-// for the bound): C, in its plain form, 11 XOR, 11 adds and a compare
-// (32-bit integer, 64 lanes per SM per clock) and 11 __popc (16 lanes per SM
-// per clock), so popc sets C's bound.  D, 8 f32 instructions (dot3: a multiply and 2
+// for the bound): C, in the cheapest form known (`hamming` below), 11 XOR, 14
+// logic instructions of 7 carry-save adders, 3 weighted adds and a minimum
+// for each side (30 of 32-bit integer, 64 lanes per SM per clock) and 4
+// __popc (16 lanes per SM per clock), so the integer pipe sets C's bound; 11
+// XOR and 11 __popc would take longer.  D, 8 f32 instructions (dot3: a multiply and 2
 // FMAs; d2: add, multiply, subtract; the clamp; the compare).  E, 3 integer
 // compares of the block keys and one f32 compare of the seg ratios, plus the
 // 8 of a distance test for pairs in the same block.  At a small live map a

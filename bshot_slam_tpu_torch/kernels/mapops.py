@@ -46,8 +46,10 @@ N_WORDS = 11
 _M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
 
 # Instructions per pair by class: "f32" (add, multiply, FMA, compare),
-# "int" (32-bit integer add, compare, logic), "popc".
-HAMMING_PAIR_OPS = {"int": 23, "popc": 11}
+# "int" (32-bit integer add, compare, logic), "popc".  C's are those of the
+# cheapest form known for 11 words: 11 XOR, 7 carry-save adders of 2 logic
+# instructions each, 4 popc, 3 weighted adds and one minimum for each side.
+HAMMING_PAIR_OPS = {"int": 30, "popc": 4}
 EUCLID_PAIR_OPS = {"f32": 8}
 DEDUP_PAIR_OPS = {"int": 3, "f32": 1}
 DEDUP_SAME_BLOCK_OPS = {"f32": 8}
@@ -56,12 +58,10 @@ DEDUP_SAME_BLOCK_OPS = {"f32": 8}
 EUCLID_QUERIES = 64
 EUCLID_ROWS = 2048
 EUCLID_BLOCKS = 264
-# Kernel C: sources per block, most rows a block stages, the blocks it aims
-# to have in flight (four on each SM) and the rows either side may have (a
-# key holds an index in 20 bits).
+# Kernel C: sources per block, most rows a block stages and the rows either
+# side may have (a key holds an index in 20 bits).
 HAMMING_SOURCES = 64
 HAMMING_ROWS = 512
-HAMMING_BLOCKS = 528
 HAMMING_MAX_ROWS = 1 << 20
 
 
@@ -88,9 +88,19 @@ def _min_argmin(d: torch.Tensor, dim: int):
     return torch.gather(d, dim, arg.unsqueeze(dim)).squeeze(dim), arg.to(torch.int32)
 
 
+def _no_pairs(ka: int, cb: int, device):
+    """Kernel C's outputs when a side is empty: every row reports (3e38, 0)."""
+    return (torch.full((ka,), BIG, dtype=torch.float32, device=device),
+            torch.zeros((ka,), dtype=torch.int32, device=device),
+            torch.full((cb,), BIG, dtype=torch.float32, device=device),
+            torch.zeros((cb,), dtype=torch.int32, device=device))
+
+
 def hamming_nn_bounded_plain(a_words, a_mask, b_words, b_mask, n_valid_b,
                              tail_start: int = -1, chunk: int = 2048):
     """Plain PyTorch version of kernel C (XOR-popcount distances)."""
+    if a_words.shape[0] == 0 or b_words.shape[0] == 0:
+        return _no_pairs(a_words.shape[0], b_words.shape[0], a_words.device)
     ok_b = b_mask & _live_rows(b_words.shape[0], n_valid_b, tail_start,
                                b_words.device)
     parts = []
@@ -114,14 +124,16 @@ def hamming_nn_bounded(a_words: torch.Tensor, a_mask: torch.Tensor,
         return hamming_nn_bounded_plain(a_words, a_mask, b_words, b_mask,
                                         n_valid_b, tail_start)
     ka, cb = a_words.shape[0], b_words.shape[0]
-    if not (1 <= ka < HAMMING_MAX_ROWS and 1 <= cb < HAMMING_MAX_ROWS):
-        raise ValueError(f"kernel C takes 1 to {HAMMING_MAX_ROWS - 1} sources "
+    if max(ka, cb) >= HAMMING_MAX_ROWS:
+        raise ValueError(f"kernel C takes fewer than {HAMMING_MAX_ROWS} sources "
                          f"and candidates, got {ka} and {cb}")
     dev = a_words.device
     require(a_words, "a_words", torch.int32, (ka, N_WORDS))
     require(a_mask, "a_mask", torch.bool, (ka,))
     require(b_words, "b_words", torch.int32, (cb, N_WORDS))
     require(b_mask, "b_mask", torch.bool, (cb,))
+    if ka == 0 or cb == 0:  # nothing to launch, as in the plain version
+        return _no_pairs(ka, cb, dev)
     nv = device_count_arg(n_valid_b, dev)
     a_min = torch.empty((ka,), dtype=torch.float32, device=dev)
     a_arg = torch.empty((ka,), dtype=torch.int32, device=dev)
@@ -148,8 +160,7 @@ def _hamming_scratch(dev, stream: int, ka: int, cb: int):
     the source blocks' keys per row, and the arrival counters of the source
     blocks and of the splits (zero between calls)."""
     groups = -(-ka // HAMMING_SOURCES)
-    nsplit = max(-(-cb // HAMMING_ROWS),
-                 min(-(-HAMMING_BLOCKS // groups), -(-cb // 64)))
+    nsplit = -(-cb // HAMMING_ROWS)
 
     def make():
         i32 = dict(dtype=torch.int32, device=dev)

@@ -102,6 +102,21 @@ def test_hamming_case_on_card(dev, name):
             assert torch.equal(g, a)
 
 
+@pytest.mark.parametrize("ka,cb", [(0, 700), (5, 0), (0, 0)])
+def test_hamming_empty_side_on_card(dev, ka, cb):
+    """An empty side launches nothing and reports (3e38, 0) for every row, as
+    the plain version does."""
+    cpu = (torch.zeros((ka, 11), dtype=torch.int32), torch.ones(ka, dtype=torch.bool),
+           torch.zeros((cb, 11), dtype=torch.int32), torch.ones(cb, dtype=torch.bool))
+    want = M.hamming_nn_bounded_plain(*cpu, cb, -1)
+    before = M.hamming_nn_bounded.launches
+    got = M.hamming_nn_bounded(*[t.to(dev) for t in cpu], cb, -1)
+    assert M.hamming_nn_bounded.launches == before
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("name", D_CASES)
 def test_euclid_case_on_card(dev, name):
     c = euclid_case(name)

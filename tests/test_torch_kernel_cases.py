@@ -200,6 +200,21 @@ def test_hamming_case(name):
         assert aarg[1] == 65000 and amin[1] == 0
 
 
+@pytest.mark.parametrize("ka,cb", [(0, 700), (5, 0), (0, 0)])
+def test_hamming_empty_side(ka, cb):
+    """No sources or no candidates: every row reports (3e38, 0), from the
+    wrapper and from the plain version alike."""
+    args = (torch.zeros((ka, 11), dtype=torch.int32), torch.ones(ka, dtype=torch.bool),
+            torch.zeros((cb, 11), dtype=torch.int32), torch.ones(cb, dtype=torch.bool))
+    for fn in (tm.hamming_nn_bounded, tm.hamming_nn_bounded_plain):
+        amin, aarg, bmin, barg = fn(*args, cb, tail_start=-1)
+        assert amin.shape == aarg.shape == (ka,) and bmin.shape == barg.shape == (cb,)
+        assert amin.dtype == bmin.dtype == torch.float32
+        assert aarg.dtype == barg.dtype == torch.int32
+        assert (amin == BIG).all() and (bmin == BIG).all()
+        assert (aarg == 0).all() and (barg == 0).all()
+
+
 @pytest.mark.parametrize("name", D_CASES)
 def test_euclid_case(name):
     c = euclid_case(name)
