@@ -9,8 +9,9 @@
 //
 // Candidate rows are live when j < n_valid, or j >= tail_start when
 // tail_start >= 0 (the previous frame's keypoints ride after the map
-// region); other rows are dead.  A row with no live valid candidate reports
-// (3e38, index 0), ties go to the lowest index: the reference's semantics.
+// region; E has no tail); other rows are dead.  A row with no live valid
+// candidate reports (3e38, index 0), ties go to the lowest index: the
+// reference's semantics.
 //
 // C is one launch per call and is bound by integer instructions, not bytes
 // (~2e7 pairs of 11 words against under 2 MB of input); descriptors stay
@@ -38,10 +39,6 @@
 //     of 2^30 or more; every block also writes (3e38, 0) to its share of the
 //     dead rows, which no block visits.  Integer minima: no order matters.
 //
-// E: one thread per query and a grid over candidate chunks of 128 rows
-// staged in shared memory; chunks wholly dead exit at once, so work follows
-// the live map, not the buffer.
-//
 // D is one launch per call and is bound by f32 instructions (~1.6e7 pairs of
 // ~10 instructions against 0.4 MB of input); the K=3 cross term must round
 // like common.cuh's FMA chain, so the tensor cores are of no use (wgmma has
@@ -65,30 +62,52 @@
 //     d2 and index: lowest index on ties, in one launch, without atomics on
 //     the results.
 //
+// E is one launch per call that writes the (k,) bools itself (~1.8e7 pairs
+// against 0.9 MB of input).  More than 99.9% of pairs at the check's shape
+// are in different voxel blocks, so that test is the kernel's work.  It has
+// D's shape:
+//   * The grid is (splits of the live rows) x (blocks of 64 newcomers); the
+//     rows [0, n_valid) (n_valid read on the device) are shared evenly by
+//     splits of at most 640 rows, so no block exists only to find its rows
+//     dead.  A lane keeps two newcomers in registers.
+//   * A block stages its rows once, each as an int4 (block key, seg ratio
+//     bits, b0, b1) and a float4 (x, y, z, b2 bits).  The key is a 32-bit
+//     hash of the block coordinates: equal blocks have equal keys.  A masked
+//     row's seg ratio is NaN, and NaN >= s is false for every s, as the plain
+//     rule rejects it, so the loop reads no mask.
+//   * Per pair, the fast test is one integer compare of the keys and one
+//     f32 compare of the seg ratios.  A warp takes 4 rows at a time and
+//     branches once, only when a pair of them passes; there the block
+//     coordinates are compared exactly and the distance computed with
+//     common.cuh's rounding.  A flag is a bit in a register.
+//   * Per block, one ballot per warp and an OR over the warps give two flag
+//     words, written to scratch; the last block of a newcomer block to
+//     finish (a counter behind __threadfence) ORs them over the splits and
+//     writes every bool once.  An OR does not depend on order.
+//   Measured (PERF.md): comparing the three coordinates per pair reads
+//   32 bytes of shared memory per row and warp and took 1.3x as long; a
+//   hash join of the rows against the newcomers' blocks was faster at the
+//   check's shape and 4-5x slower in the engine, where the newcomers crowd
+//   into a few blocks.
+//
 // Work per pair of valid live rows (kernels/mapops.py holds the same counts
 // for the bound): C, in the cheapest form known (`hamming` below), 11 XOR, 14
 // logic instructions of 7 carry-save adders, 3 weighted adds and a minimum
 // for each side (30 of 32-bit integer, 64 lanes per SM per clock) and 4
 // __popc (16 lanes per SM per clock), so the integer pipe sets C's bound; 11
 // XOR and 11 __popc would take longer.  D, 8 f32 instructions (dot3: a multiply and 2
-// FMAs; d2: add, multiply, subtract; the clamp; the compare).  E, 3 integer
-// compares of the block keys and one f32 compare of the seg ratios, plus the
-// 8 of a distance test for pairs in the same block.  At a small live map a
-// launch costs about its launch overhead.
+// FMAs; d2: add, multiply, subtract; the clamp; the compare).  E, per pair
+// of a newcomer and a live row, one integer compare of the block keys and
+// one f32 compare of the seg ratios, and for the pairs that pass both, 3
+// integer compares of the block coordinates and the 8 of a distance test.
+// At a small live map a launch costs about its launch overhead.
 #include "common.cuh"
 
 namespace {
 
 using namespace bshot;
 
-constexpr int kThreads = 128;
-constexpr int kChunk = 128;
 constexpr int kWords = 11;
-
-__device__ __forceinline__ bool chunk_dead(int c0, int c1, int n_valid,
-                                           int tail_start) {
-  return c0 >= n_valid && (tail_start < 0 || c1 <= tail_start);
-}
 
 // ---- Kernel C -------------------------------------------------------------
 
@@ -365,55 +384,143 @@ euclid_kernel(const float* __restrict__ q, const uint8_t* __restrict__ qm,
   if (tid == 0) counters[blockIdx.y] = 0;  // ready for the next call on this stream
 }
 
-__global__ void zero_flags(int32_t* out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = 0;
+// ---- Kernel E -------------------------------------------------------------
+
+constexpr int kEThreads = 256;
+constexpr int kEWarps = kEThreads / 32;
+constexpr int kEPerLane = 2;               // newcomers a lane keeps in registers
+constexpr int kENew = 32 * kEPerLane;      // newcomers per block
+constexpr int kERows = 640;                // most rows a block stages
+constexpr int kERun = 4;                   // rows a warp tests per branch
+constexpr int kNaNBits = 0x7fc00000;       // seg ratio of a masked row or newcomer
+
+// A 32-bit key of a voxel block: equal blocks give equal keys, so a pair
+// whose keys differ is not a blocker; a pair whose keys agree is compared
+// exactly.
+__device__ __forceinline__ int block_key(int b0, int b1, int b2) {
+  return (int)(((unsigned)b0 * 0x9E3779B1u) ^ ((unsigned)b1 * 0x85EBCA77u) ^
+               ((unsigned)b2 * 0xC2B2AE3Du));
 }
 
-// E: per newcomer, does any valid map row in [0, n_valid) block it?
-__global__ void __launch_bounds__(kThreads)
+// E: per newcomer, does a valid map row in [0, n_valid) block it?  Split
+// blockIdx.x of gridDim.x, newcomer block blockIdx.y (see the header).
+// part holds gridDim.y rows of gridDim.x * kEPerLane flag words.
+__global__ void __launch_bounds__(kEThreads)
 dedup_kernel(const float* __restrict__ pos, const int32_t* __restrict__ blk,
              const float* __restrict__ seg, const float* __restrict__ mpos,
              const int32_t* __restrict__ mblk, const float* __restrict__ mseg,
              const uint8_t* __restrict__ mvalid, const int32_t* __restrict__ nv_ptr,
-             int k, int c, float r2, int32_t* __restrict__ out) {
-  __shared__ float sx[kChunk], sy[kChunk], sz[kChunk], spp[kChunk], sseg[kChunk];
-  __shared__ int32_t sb0[kChunk], sb1[kChunk], sb2[kChunk];
-  __shared__ uint8_t sok[kChunk];
-  const int n_valid = *nv_ptr;
-  const int c0 = blockIdx.x * kChunk, c1 = min(c0 + kChunk, c);
-  if (chunk_dead(c0, c1, n_valid, -1)) return;
-  const int jt = c0 + threadIdx.x;
-  const bool okj = jt < c1 && jt < n_valid && mvalid[jt];
-  const float x = okj ? mpos[3 * (size_t)jt] : 0.0f;
-  const float y = okj ? mpos[3 * (size_t)jt + 1] : 0.0f;
-  const float z = okj ? mpos[3 * (size_t)jt + 2] : 0.0f;
-  sx[threadIdx.x] = x;
-  sy[threadIdx.x] = y;
-  sz[threadIdx.x] = z;
-  spp[threadIdx.x] = norm2(x, y, z);
-  sseg[threadIdx.x] = okj ? mseg[jt] : 0.0f;
-  sb0[threadIdx.x] = okj ? mblk[3 * (size_t)jt] : 0;
-  sb1[threadIdx.x] = okj ? mblk[3 * (size_t)jt + 1] : 0;
-  sb2[threadIdx.x] = okj ? mblk[3 * (size_t)jt + 2] : 0;
-  sok[threadIdx.x] = okj;
+             int k, int c, float r2, unsigned* __restrict__ part,
+             int* __restrict__ counters, uint8_t* __restrict__ out) {
+  __shared__ __align__(16) int4 sb[kERows];     // key, seg ratio bits, b0, b1
+  __shared__ __align__(16) float4 sp[kERows];   // x, y, z, b2 bits
+  __shared__ unsigned sflag[kEWarps][kEPerLane];
+  __shared__ int last;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nsplit = gridDim.x, g = blockIdx.y;
+
+  // The live rows [0, n_valid), shared evenly by the splits.
+  const int live = min(max(*nv_ptr, 0), c);
+  const int per = (live + nsplit - 1) / nsplit;  // <= kERows: the wrapper picks nsplit so
+  const int j0 = min((int)blockIdx.x * per, live);
+  const int cnt = min(j0 + per, live) - j0;
+
+  // Whole runs of kERun rows: the pad rows past cnt are inert.
+  for (int s = tid; s < (cnt + kERun - 1) / kERun * kERun; s += kEThreads) {
+    if (s < cnt) {
+      const size_t j = j0 + s;
+      const int b0 = mblk[3 * j], b1 = mblk[3 * j + 1], b2 = mblk[3 * j + 2];
+      sb[s] = make_int4(block_key(b0, b1, b2),
+                        mvalid[j] ? __float_as_int(mseg[j]) : kNaNBits, b0, b1);
+      sp[s] = make_float4(mpos[3 * j], mpos[3 * j + 1], mpos[3 * j + 2], __int_as_float(b2));
+    } else {
+      sb[s] = make_int4(0, kNaNBits, 0, 0);
+      sp[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+
+  const int i0 = g * kENew;
+  float qx[kEPerLane], qy[kEPerLane], qz[kEPerLane], qq[kEPerLane], qs[kEPerLane];
+  int q0[kEPerLane], q1[kEPerLane], q2[kEPerLane], qk[kEPerLane];
+  bool hit[kEPerLane];
+#pragma unroll
+  for (int u = 0; u < kEPerLane; ++u) {
+    const int i = i0 + lane + 32 * u;
+    const bool in = i < k;
+    qx[u] = in ? pos[3 * i] : 0.0f;
+    qy[u] = in ? pos[3 * i + 1] : 0.0f;
+    qz[u] = in ? pos[3 * i + 2] : 0.0f;
+    qq[u] = norm2(qx[u], qy[u], qz[u]);
+    qs[u] = in ? seg[i] : __int_as_float(kNaNBits);
+    q0[u] = in ? blk[3 * i] : 0;
+    q1[u] = in ? blk[3 * i + 1] : 0;
+    q2[u] = in ? blk[3 * i + 2] : 0;
+    qk[u] = block_key(q0[u], q1[u], q2[u]);
+    hit[u] = false;
+  }
   __syncthreads();
 
-  const int i = blockIdx.y * kThreads + threadIdx.x;
-  if (i >= k) return;
-  const float px = pos[3 * i], py = pos[3 * i + 1], pz = pos[3 * i + 2];
-  const float qq = norm2(px, py, pz);
-  const int b0 = blk[3 * i], b1 = blk[3 * i + 1], b2 = blk[3 * i + 2];
-  const float s = seg[i];
-  for (int t = 0; t < c1 - c0; ++t) {
-    if (!sok[t] || sb0[t] != b0 || sb1[t] != b1 || sb2[t] != b2 || !(sseg[t] >= s))
-      continue;
-    const float d2 = pair_d2(qq, spp[t], dot3(px, py, pz, sx[t], sy[t], sz[t]));
-    if (d2 < r2) { out[i] = 1; return; }
+  // A warp takes runs of kERun rows in turn.  Per pair the fast test takes
+  // the row's key and seg ratio (its first 8 bytes) and is one integer and
+  // one f32 compare (NaN >= s is false); a run branches once, only when a
+  // pair of it passes, and there the block is compared exactly and the
+  // distance computed.  (Holding each row's whole int4 across the branch
+  // instead measured 8% slower.)
+  const int2* skey = reinterpret_cast<const int2*>(sb);
+  for (int t = kERun * warp; t < cnt; t += kERun * kEWarps) {
+    bool cand[kERun][kEPerLane];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < kERun; ++r) {
+      const int2 ks = skey[2 * (t + r)];
+#pragma unroll
+      for (int u = 0; u < kEPerLane; ++u) {
+        cand[r][u] = (ks.x == qk[u]) & (__int_as_float(ks.y) >= qs[u]);
+        any |= cand[r][u];
+      }
+    }
+    if (any) {
+#pragma unroll
+      for (int r = 0; r < kERun; ++r) {
+        const int4 b = sb[t + r];
+        const float4 p = sp[t + r];
+        const float pp = norm2(p.x, p.y, p.z);
+#pragma unroll
+        for (int u = 0; u < kEPerLane; ++u)
+          if (cand[r][u] & (b.z == q0[u]) & (b.w == q1[u]) & (__float_as_int(p.w) == q2[u]))
+            hit[u] |= pair_d2(qq[u], pp, dot3(qx[u], qy[u], qz[u], p.x, p.y, p.z)) < r2;
+      }
+    }
   }
-}
+#pragma unroll
+  for (int u = 0; u < kEPerLane; ++u) {
+    const unsigned m = __ballot_sync(0xffffffffu, hit[u]);  // bit l: newcomer i0 + 32u + l
+    if (lane == 0) sflag[warp][u] = m;
+  }
+  __syncthreads();
 
-inline int grid1(int n) { return (n + kThreads - 1) / kThreads; }
+  if (tid < kEPerLane) {
+    unsigned m = 0;
+#pragma unroll
+    for (int w = 0; w < kEWarps; ++w) m |= sflag[w][tid];
+    part[((size_t)g * nsplit + blockIdx.x) * kEPerLane + tid] = m;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&counters[g], 1) == nsplit - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (warp < kEPerLane) {  // warp u ORs word u over the splits
+    unsigned m = 0;
+    for (int x = lane; x < nsplit; x += 32)
+      m |= __ldcg(part + ((size_t)g * nsplit + x) * kEPerLane + warp);
+    m = __reduce_or_sync(0xffffffffu, m);
+    const int i = i0 + 32 * warp + lane;
+    if (i < k) out[i] = (m >> lane) & 1u;
+  }
+  if (tid == 0) counters[g] = 0;  // ready for the next call on this stream
+}
 
 }  // namespace
 
@@ -455,18 +562,20 @@ int bshot_euclid_nn_bounded(const float* q, const uint8_t* qm, const float* r,
   return (int)cudaGetLastError();
 }
 
+// Scratch from the caller, for ngroup = ceil(k / 64) newcomer blocks: part
+// ngroup * nsplit * 2 words, counters ngroup ints, zero before the first
+// call.  nsplit * 640 >= c.  out is k bytes, each written 0 or 1.
 int bshot_dedup_blocked_bounded(const float* pos, const int32_t* blk,
                                 const float* seg, const float* mpos,
                                 const int32_t* mblk, const float* mseg,
                                 const uint8_t* mvalid, const int32_t* nv, int k,
-                                int c, float r2, int32_t* out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (k > 0) zero_flags<<<grid1(k), kThreads, 0, st>>>(out, k);
-  if (k > 0 && c > 0) {
-    dim3 g((c + kChunk - 1) / kChunk, grid1(k));
-    dedup_kernel<<<g, kThreads, 0, st>>>(pos, blk, seg, mpos, mblk, mseg, mvalid,
-                                         nv, k, c, r2, out);
-  }
+                                int c, float r2, int nsplit, unsigned* part,
+                                int* counters, uint8_t* out, void* stream) {
+  if (k < 1 || c < 1 || nsplit < 1 || (long long)nsplit * kERows < c)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(nsplit, (k + kENew - 1) / kENew);
+  dedup_kernel<<<grid, kEThreads, 0, (cudaStream_t)stream>>>(
+      pos, blk, seg, mpos, mblk, mseg, mvalid, nv, k, c, r2, part, counters, out);
   return (int)cudaGetLastError();
 }
 

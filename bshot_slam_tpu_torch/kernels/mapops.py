@@ -24,11 +24,15 @@ blocks) that write minima and indices directly; it takes fewer than 2^20
 rows on either side.  D is one launch per call: a grid of (split of the
 live rows, block of 64 queries), two queries per lane in registers,
 per-block (distance bits << 32 | index) keys in scratch and the last block
-of a query block writing the minimum over the splits.  E gives one thread
-per query and splits the candidates over blocks in chunks of 128 rows; dead
-chunks exit at once.  The wrappers keep C's and D's scratch per device,
-stream and shape.  The work per pair of valid live rows, by instruction
-class, is in `HAMMING_PAIR_OPS`, `EUCLID_PAIR_OPS`, `DEDUP_PAIR_OPS` and
+of a query block writing the minimum over the splits.  E is one launch per
+call in D's shape: a grid of (split of the live rows, block of 64
+newcomers), two newcomers per lane in registers, rows staged with a 32-bit
+key of their voxel block and a NaN seg ratio where masked, a fast test per
+pair of keys and seg ratios with the exact block compare and the distance
+behind it, flag bits ORed per block into scratch and the last block of a
+newcomer block writing the (k,) bools.  The wrappers keep C's, D's and E's
+scratch per device, stream and shape.  The work per pair of valid live
+rows, by instruction class, is in `HAMMING_PAIR_OPS`, `EUCLID_PAIR_OPS`, `DEDUP_PAIR_OPS` and
 `DEDUP_SAME_BLOCK_OPS` (csrc/mapops.cu says how they are counted);
 `chip_smoke.py` turns them into the bound at the main path's shapes.
 """
@@ -51,8 +55,8 @@ _M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
 # instructions each, 4 popc, 3 weighted adds and one minimum for each side.
 HAMMING_PAIR_OPS = {"int": 30, "popc": 4}
 EUCLID_PAIR_OPS = {"f32": 8}
-DEDUP_PAIR_OPS = {"int": 3, "f32": 1}
-DEDUP_SAME_BLOCK_OPS = {"f32": 8}
+DEDUP_PAIR_OPS = {"int": 1, "f32": 1}
+DEDUP_SAME_BLOCK_OPS = {"int": 3, "f32": 8}
 # Kernel D: queries per block, most rows a block stages, and the blocks it
 # aims to have in flight (two on each of the 132 SMs).
 EUCLID_QUERIES = 64
@@ -63,6 +67,9 @@ EUCLID_BLOCKS = 264
 HAMMING_SOURCES = 64
 HAMMING_ROWS = 512
 HAMMING_MAX_ROWS = 1 << 20
+# Kernel E: newcomers per block (two per lane) and most rows a block stages.
+DEDUP_NEWCOMERS = 64
+DEDUP_ROWS = 640
 
 
 def popcount_distances(a_words: torch.Tensor, b_words: torch.Tensor) -> torch.Tensor:
@@ -263,17 +270,38 @@ def dedup_blocked_bounded(pos: torch.Tensor, blk: torch.Tensor,
     require(map_blk, "map_blk", torch.int32, (c, 3))
     require(map_seg, "map_seg", torch.float32, (c,))
     require(map_valid, "map_valid", torch.bool, (c,))
+    if k == 0 or c == 0:  # nothing to launch, as in the plain version
+        return torch.zeros((k,), dtype=torch.bool, device=dev)
     nv = device_count_arg(n_valid, dev)
-    out = torch.empty((k,), dtype=torch.int32, device=dev)
+    out = torch.empty((k,), dtype=torch.bool, device=dev)
+    stream = stream_arg(dev)
+    nsplit, part, counters = _dedup_scratch(dev, stream, k, c)
     P, I = _build.P, _build.I
     fn = _build.bind("mapops", "bshot_dedup_blocked_bounded",
-                     [P] * 8 + [I, I, _build.F, P, P])
+                     [P] * 8 + [I, I, _build.F, I] + [P] * 4)
     _build.check(fn(ptr(pos), ptr(blk), ptr(seg), ptr(map_pos), ptr(map_blk),
                     ptr(map_seg), ptr(map_valid), ptr(nv), k, c,
-                    dedup_radius * dedup_radius, ptr(out), stream_arg(dev)),
+                    dedup_radius * dedup_radius, nsplit, part, counters,
+                    ptr(out), stream),
                  "dedup_blocked_bounded")
     dedup_blocked_bounded.launches += 1
-    return out > 0
+    return out
 
 
 dedup_blocked_bounded.launches = 0
+
+
+def _dedup_scratch(dev, stream: int, k: int, c: int):
+    """(nsplit, pointer of the splits' flag words, pointer of the newcomer
+    blocks' arrival counters) of kernel E; the counters are zero between
+    calls."""
+    groups = -(-k // DEDUP_NEWCOMERS)
+    nsplit = -(-c // DEDUP_ROWS)
+
+    def make():
+        i32 = dict(dtype=torch.int32, device=dev)
+        bufs = (torch.empty((groups, nsplit, DEDUP_NEWCOMERS // 32), **i32),
+                torch.zeros((groups,), **i32))
+        return bufs, tuple(ptr(b) for b in bufs)
+
+    return (nsplit, *scratch(dev, stream, ("dedup", k, c), make)[1])

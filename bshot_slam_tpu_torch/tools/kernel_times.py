@@ -15,7 +15,8 @@ Per root and kernel, at the shapes of `chip_smoke.py` phase [3] and with
 its functions: exactness against the plain version, the median of 25
 CUDA-event timings, the device-only time and the device launches per call
 from `torch.profiler`, and the host's microseconds per wrapper call.
-With `--engine`, also the 24-frame engine run of phase [4] (frames/s, ATE).
+With `--engine`, also the 24-frame engine run of phase [4] (frames/s, ATE,
+final map size) and its profiled pass (the port's kernels per frame).
 Prints one JSON line per root and a table, and writes the results to
 `--out` (default `build/kernel_times.json`).
 """
@@ -61,7 +62,8 @@ def measure_root(root: str, engine: bool) -> dict:
     out["kernels"] = [{k: r[k] for k in ROW_KEYS} for r in rows]
     if engine:
         res, _ = cs.run_engine(cfg, sweeps, gt, dev)
-        out["engine"] = {k: res[k] for k in ("fps", "ate_mm", "launches")}
+        out["engine"] = {k: res[k] for k in ("fps", "ate_mm", "map_size", "launches")}
+        out["engine"]["own_per_frame"] = cs.profile_engine(cfg, sweeps, dev)[3]
     return out
 
 
@@ -101,8 +103,10 @@ def main() -> int:
                   f"{k['device_ms']:>11.4f}{k['device_launches_per_call']:>9.1f}"
                   f"{k['host_us_per_call']:>9.1f}{str(exact):>7}")
         if "engine" in res:
-            print(f"{res['root']:<22}engine {res['engine']['fps']:.3f} frames/s, "
-                  f"ATE {res['engine']['ate_mm']:.1f} mm")
+            e = res["engine"]
+            print(f"{res['root']:<22}engine {e['fps']:.3f} frames/s, ATE "
+                  f"{e['ate_mm']:.1f} mm, map {e['map_size']}; per frame: "
+                  + "; ".join(f"{k} {ms:.4f} ms x{c:.0f}" for k, ms, c in e["own_per_frame"]))
     print(results[0]["card"])
     return 0
 

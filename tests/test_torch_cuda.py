@@ -4,7 +4,7 @@ Needs an NVIDIA GPU with nvcc (marker `cuda`); skips elsewhere.  Run on the
 card with `python -m pytest tests/test_torch_cuda.py -q -m cuda`.  Integer
 outputs must equal the plain version run on CPU copies exactly (the kernels
 reproduce its rounding); float sums agree to summation order.  Kernels A
-to D also run every edge case of `tests/torch_kernel_cases.py`, twice: the
+to E also run every edge case of `tests/torch_kernel_cases.py`, twice: the
 two runs must be bit-identical.
 """
 
@@ -18,8 +18,8 @@ from bshot_slam_tpu_torch.kernels import mapops as M
 from bshot_slam_tpu_torch.kernels import neighborhood as K
 from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 from tests.torch_kernel_cases import (
-    A_CASES, B_CASES, C_CASES, D_CASES, accumulate_case, euclid_case,
-    hamming_case, segratio_case,
+    A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES,
+    accumulate_case, dedup_case, euclid_case, hamming_case, segratio_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -130,6 +130,33 @@ def test_euclid_case_on_card(dev, name):
         for g, a, w in zip(got, again, want):
             torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
             assert torch.equal(g, a)
+
+
+@pytest.mark.parametrize("name", E_CASES)
+def test_dedup_case_on_card(dev, name):
+    c = dedup_case(name)
+    cpu = [torch.tensor(c[a]) for a in E_ARGS]
+    want = M.dedup_blocked_bounded_plain(*cpu, c["n_valid"], DEDUP_RADIUS)
+    args = [t.to(dev) for t in cpu]
+    for nv in (c["n_valid"], torch.tensor(c["n_valid"], dtype=torch.int32, device=dev)):
+        got = M.dedup_blocked_bounded(*args, nv, DEDUP_RADIUS)
+        again = M.dedup_blocked_bounded(*args, nv, DEDUP_RADIUS)
+        assert got.dtype == torch.bool and got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("k,c", [(0, 700), (5, 0), (0, 0)])
+def test_dedup_empty_side_on_card(dev, k, c):
+    """No newcomers or no map rows: (k,) False on the card, without a launch."""
+    args = (torch.zeros((k, 3)), torch.zeros((k, 3), dtype=torch.int32), torch.zeros(k),
+            torch.zeros((c, 3)), torch.zeros((c, 3), dtype=torch.int32), torch.ones(c),
+            torch.ones(c, dtype=torch.bool))
+    before = M.dedup_blocked_bounded.launches
+    got = M.dedup_blocked_bounded(*[t.to(dev) for t in args], c, DEDUP_RADIUS)
+    assert M.dedup_blocked_bounded.launches == before
+    assert got.device.type == "cuda" and got.dtype == torch.bool
+    assert got.shape == (k,) and not got.any()
 
 
 def test_neighborhood_kernels(dev):

@@ -1,12 +1,13 @@
-"""Port parity at the edges: kernels A to D (plain versions) vs the reference.
+"""Port parity at the edges: kernels A to E (plain versions) vs the reference.
 
 Every case of `tests/torch_kernel_cases.py` goes through the port's
 `neighborhood_accumulate` / `segratio_accumulate` / `hamming_nn_bounded` /
-`euclid_nn_bounded` on CPU tensors (the plain PyTorch versions, which the
+`euclid_nn_bounded` / `dedup_blocked_bounded` on CPU tensors (the plain PyTorch versions, which the
 CUDA kernels must reproduce on the card: `tests/test_torch_cuda.py` runs
 the same cases there) and through the reference: its Pallas kernels in
 interpret mode, and for A's moment features and B's scores also its
-`lax.scan` path.  Counts, sign counts, minima, argmins and d2 are exact;
+`lax.scan` path.  Counts, sign counts, minima, argmins, d2 and dedup flags
+are exact;
 A's sums agree to 1e-5 * count * max|feat|, B's CVS sum to 1e-5 * count *
 |ctvec| * r + 1e-2 and its CVSN sum of cosines to 1e-5 * count + 1e-3
 (summation order only).
@@ -27,8 +28,9 @@ from bshot_slam_tpu_torch.kernels import mapops as tm
 from bshot_slam_tpu_torch.kernels import neighborhood as tk
 from bshot_slam_tpu_torch.ops import keypoints as tkp
 from tests.torch_kernel_cases import (
-    A_CASES, B_CASES, C_CASES, D_CASES, accumulate_case, euclid_case,
-    hamming_case, live_rows, segratio_case,
+    A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES,
+    accumulate_case, dedup_case, euclid_case, hamming_case, live_rows,
+    segratio_case,
 )
 
 BIG = np.float32(3.0e38)
@@ -240,3 +242,40 @@ def test_euclid_case(name):
         assert none.all()
     if name == "duplicates":
         np.testing.assert_array_equal(idx[:8], 5 + 17 * np.arange(8))
+
+
+@pytest.mark.parametrize("name", E_CASES)
+def test_dedup_case(name):
+    c = dedup_case(name)
+    nv = c["n_valid"]
+    got = tm.dedup_blocked_bounded(*[_t(c[a]) for a in E_ARGS], nv,
+                                   DEDUP_RADIUS).numpy()
+    assert got.dtype == np.bool_ and got.shape == c["pos"].shape[:1]
+    # The reference decides liveness by tile, the port by row: they are the
+    # same function once the valid flag is cleared on rows past n_valid.
+    live = c["map_valid"] & live_rows(len(c["map_valid"]), nv, -1)
+    if len(live):  # with no map rows the reference's grid is empty
+        want = np.asarray(jm.dedup_blocked_bounded(
+            *[_j(c[a]) for a in E_ARGS[:6]], _j(live), jnp.int32(nv),
+            dedup_radius=DEDUP_RADIUS, interpret=True))
+        np.testing.assert_array_equal(got, want)
+    if c["expect"] is not None:
+        np.testing.assert_array_equal(got, c["expect"])
+    if name == "dense":
+        assert got.mean() > 0.9
+    if name == "valid_past_nv":  # the rows past the cursor would block
+        every = tm.dedup_blocked_bounded(*[_t(c[a]) for a in E_ARGS],
+                                         len(live), DEDUP_RADIUS).numpy()
+        assert every.all() and not got.all()
+
+
+@pytest.mark.parametrize("k,c", [(0, 700), (5, 0), (0, 0)])
+def test_dedup_empty_side(k, c):
+    """No newcomers or no map rows: (k,) False, from the wrapper and from
+    the plain version alike."""
+    args = (torch.zeros((k, 3)), torch.zeros((k, 3), dtype=torch.int32), torch.zeros(k),
+            torch.zeros((c, 3)), torch.zeros((c, 3), dtype=torch.int32), torch.ones(c),
+            torch.ones(c, dtype=torch.bool))
+    for fn in (tm.dedup_blocked_bounded, tm.dedup_blocked_bounded_plain):
+        got = fn(*args, c, DEDUP_RADIUS)
+        assert got.dtype == torch.bool and got.shape == (k,) and not got.any()

@@ -1,4 +1,4 @@
-"""Seeded edge cases for the port's kernels A, B, C and D (numpy only).
+"""Seeded edge cases for the port's kernels A to E (numpy only).
 
 `tests/test_torch_kernel_cases.py` runs them through the port's plain
 versions against the reference on the CPU; `tests/test_torch_cuda.py` runs
@@ -30,6 +30,15 @@ D_CASES = (
     "kq1", "kq600", "kq601", "nv0", "nv0_tail", "nv_odd", "nv_odd_tail",
     "nv_full", "nv_full_tail", "all_masked", "duplicates", "live_by_index",
 )
+E_CASES = (
+    "k1", "k600", "k601", "nv0", "nv_odd", "nv_full", "c0", "all_masked",
+    "valid_past_nv", "collisions", "on_radius", "straddle", "negative_blocks",
+    "dense",
+)
+# Kernel E's tensor arguments, in order (n_valid follows them).
+E_ARGS = ("pos", "blk", "seg", "map_pos", "map_blk", "map_seg", "map_valid")
+DEDUP_RADIUS = 800.0
+BLOCK_MM = 10000.0
 
 
 def moment_features(pts: np.ndarray) -> np.ndarray:
@@ -234,3 +243,102 @@ def hamming_case(name: str) -> dict:
         am[1] = True
     return dict(a_words=a, a_mask=am, b_words=b, b_mask=bm, n_valid=nv,
                 tail_start=tail)
+
+
+def _snap(x):
+    return (np.trunc(x / 10.0) * 10.0).astype(np.float32)
+
+
+def _grid_newcomers(k: int, side: int):
+    """k newcomers 2 m apart in voxel block (0, 0, 0), on a cube of `side`
+    points a side centred on 0.  At side 3 the coordinates are small enough
+    (|x| <= 2800 mm with partners within 800 mm) that every term of the
+    expanded d2 is an exact float32: d2 of 800^2 is exactly r^2."""
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    return (2000.0 * (g[:k] - (side - 1) // 2)).astype(np.float32)
+
+
+def _straddle_newcomers():
+    """24 newcomers 10 mm inside a block face (x = +-4990 rounds to block 0),
+    each on its own axis and side, 2.5 m apart along another axis."""
+    pos = np.zeros((24, 3), np.float32)
+    for i in range(24):
+        axis, sgn, t = i % 3, (1.0, -1.0)[(i // 3) % 2], i // 6
+        pos[i, axis] = sgn * 4990.0
+        pos[i, (axis + 1) % 3] = 2500.0 * t - 3750.0
+    return pos
+
+
+def dedup_case(name: str) -> dict:
+    """Inputs of `dedup_blocked_bounded` (`E_ARGS` and n_valid), and
+    `expect`: the flags by construction, or None where only the reference
+    decides.  The map holds 3000 rows (three of the kernel's splits); row
+    3i lies near newcomer i.  Positions are on the 10 mm snap grid, blocks
+    are round(pos / 10 m)."""
+    rng = np.random.default_rng(5000 + E_CASES.index(name))
+    c = 0 if name == "c0" else 3000
+    k = {"k1": 1, "k600": 600, "k601": 601, "on_radius": 27, "straddle": 24}.get(name, 97)
+    nv = {"nv0": 0, "nv_full": c, "all_masked": c, "c0": 0}.get(name, 1777)
+    shift = -30000.0 if name == "negative_blocks" else 0.0
+    pos = _snap(rng.uniform(-12000, 12000, (k, 3)) + shift)
+    seg = rng.random(k).astype(np.float32)
+    mpos = _snap(rng.uniform(-12000, 12000, (c, 3)) + shift)
+    mseg = rng.random(c).astype(np.float32)
+    mvalid = rng.random(c) > 0.1
+    near = np.arange(min(k, c // 3))
+    spread = 150.0 if name == "dense" else 500.0
+    mpos[3 * near] = _snap(pos[near] + rng.normal(0, spread, (len(near), 3)))
+    expect = None
+    if name == "dense":  # a live, valid, higher-ranked row beside every newcomer
+        mseg[3 * near] = np.maximum(mseg[3 * near], seg[near])
+        mvalid[3 * near] = True
+    if name == "all_masked":
+        mvalid[:] = False
+    if name == "valid_past_nv":  # exact copies with seg 1 past the cursor
+        mvalid[nv:] = True
+        mpos[nv:nv + k] = pos
+        mseg[nv:] = 1.0
+    if name in ("collisions", "on_radius", "straddle"):
+        # Every other row is far away (voxel blocks 5 and 6): each newcomer
+        # can be blocked by its own partner, row 3i, and by nothing else.
+        if name == "collisions":
+            pos = _grid_newcomers(k, 5)
+        elif name == "on_radius":
+            pos = _grid_newcomers(k, 3)
+        elif name == "straddle":
+            pos = _straddle_newcomers()
+        mpos = _snap(rng.uniform(50000, 60000, (c, 3)))
+        mvalid[:] = True
+        expect = np.zeros(k, bool)
+        for i in range(k):
+            j = 3 * i
+            if name == "collisions":
+                # Same position; seg one ulp above, equal, one ulp below.
+                mpos[j] = pos[i]
+                mseg[j] = (np.nextafter(seg[i], np.float32(2)), seg[i],
+                           np.nextafter(seg[i], np.float32(-1)))[i % 3]
+                expect[i] = i % 3 != 2
+                mpos[nv + i], mseg[nv + i] = pos[i], 1.0  # past the cursor
+            elif name == "on_radius":
+                # |offset| exactly 800 (not blocked: d2 < r^2 is strict),
+                # 794.0 or 790 (blocked), 806.0 (not).
+                off = ((480, 640, 0), (0, 0, 800), (-640, 0, -480), (470, 640, 0),
+                       (0, -790, 0), (490, 640, 0))[i % 6]
+                mpos[j] = pos[i] + np.float32(off)
+                mseg[j] = 1.0
+                expect[i] = i % 6 in (3, 4)
+            else:
+                # 20 mm away across the face (another block), or 20 mm
+                # inward (the same block) for every other group of six.
+                axis = i % 3
+                inward = (i // 6) % 2 == 1
+                mpos[j] = pos[i]
+                mpos[j, axis] += np.sign(pos[i, axis]) * (-20.0 if inward else 20.0)
+                mseg[j] = 1.0
+                expect[i] = inward
+    if name in ("nv0", "c0", "all_masked"):
+        expect = np.zeros(k, bool)
+    blk = np.round(pos / BLOCK_MM).astype(np.int32)
+    mblk = np.round(mpos / BLOCK_MM).astype(np.int32)
+    return dict(pos=pos, blk=blk, seg=seg, map_pos=mpos, map_blk=mblk, map_seg=mseg,
+                map_valid=mvalid, n_valid=nv, expect=expect)
