@@ -22,8 +22,10 @@ def from_rt(rotation: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:
     rotation = rotation.expand(batch + (3, 3))
     translation = translation.expand(batch + (3,))
     top = torch.cat([rotation, translation[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rotation.dtype,
-                          device=rotation.device).expand(batch + (4,))
+    # The last row of the identity, made on the device: no host copy (which
+    # would synchronise) and no in-place write (functorch transforms).
+    bottom = torch.eye(4, dtype=rotation.dtype,
+                       device=rotation.device)[3].expand(batch + (4,))
     return torch.cat([top, bottom[..., None, :]], dim=-2)
 
 

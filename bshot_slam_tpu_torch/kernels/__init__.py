@@ -61,15 +61,25 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+_COUNTS: dict[tuple, torch.Tensor] = {}
+
+
 def device_count_arg(n, device: torch.device) -> torch.Tensor:
     """A row bound (int or 0-d tensor) as a one-element int32 tensor on
     `device`, which the kernels read, so a device-side bound costs no host
-    sync."""
+    sync.  An int's tensor is made once per device and value and kept (the
+    kernels only read it): no copy from the host, which would synchronise,
+    and no fill launch per call."""
     if isinstance(n, torch.Tensor):
         if n.dtype == torch.int32 and n.device == device and n.numel() == 1:
             return n
         return n.to(device=device, dtype=torch.int32).reshape(1).contiguous()
-    return torch.tensor([int(n)], dtype=torch.int32, device=device)
+    key = (device.index, int(n))
+    t = _COUNTS.get(key)
+    if t is None:
+        t = _COUNTS[key] = torch.full((1,), int(n), dtype=torch.int32,
+                                      device=device)
+    return t
 
 
 def stream_arg(device: torch.device) -> int:

@@ -1,42 +1,44 @@
 """Host-side SLAM engine: sweeps in, poses out.
 
-Port of `bshot_slam_tpu.odometry.engine` (the synchronous host-preprocess
-path): each sweep is binned into a range image, classified and extracted on
-the host (numpy), padded to the smallest cloud bucket that holds it, and
-stepped on the device; the packed diagnostics come back in one transfer.
+Port of `bshot_slam_tpu.odometry.engine` (host-preprocess ingest): each
+sweep is binned into a range image, classified and extracted on the host
+(numpy), padded to the smallest cloud bucket that holds it, and stepped on
+the device.  The synchronous engine fetches each frame's packed diagnostics
+at once.  The pipelined engine (`pipelined=True`) dispatches each frame
+without a host sync (`pipeline.odometry_step_deferred`) and fetches the
+rows of `fetch_every` frames in one device-to-host copy; a frame whose
+match or dedup window overflowed aborts on the device, and at the drain it
+and every later in-flight frame are re-run in order through the
+synchronous step with the clouds and RANSAC draws they were dispatched
+with, so the records are the synchronous engine's.  At the map's hard
+capacity the weakest keypoints of the densest blocks are evicted.  The
+optional backend (`enable_backend`) collects keyframes, and
+`optimize_backend` / `apply_backend_corrections` run loop closure, the
+pose graph and map re-anchoring (every `backend_every` frames, or when
+asked); `build_ba_problem` assembles a bundle adjustment.
 
 Runs on the card unless the caller asks for the CPU: `device=None` means
 "cuda", and raises when no card is visible.  Not ported yet (they raise
-NotImplementedError): the pipelined engine, the fused device preprocess,
-the backend, multi-device meshes, correspondence retention, the native C
-preprocess, and map eviction at the hard capacity.
+NotImplementedError): the fused device preprocess (`host_preprocess=False`)
+and multi-device meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Iterable, List, Optional
+from typing import Iterable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from bshot_slam_tpu_torch.backend import keyframes as kf_mod
 from bshot_slam_tpu_torch.config import SlamConfig
+from bshot_slam_tpu_torch.device import resolve_device, upload
 from bshot_slam_tpu_torch.io.velodyne import LaserSweep
 from bshot_slam_tpu_torch.odometry import mapstore, pipeline
 from bshot_slam_tpu_torch.ops import preprocess_host as ph
-from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
-
-
-def resolve_device(device=None) -> torch.device:
-    """`None` -> the card; raises when CUDA is asked for but not visible."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is visible; pass device='cpu' to run the plain "
-            "PyTorch path on the CPU"
-        )
-    return dev
+from bshot_slam_tpu_torch.ops.rangeimage import RangeImage, build_range_image
 
 
 def pick_bucket(n_valid: int, cfg: SlamConfig) -> int:
@@ -61,12 +63,33 @@ class FrameRecord:
     n_dropped: int = 0  # cumulative keypoints lost at the capacity ceiling
 
 
-class SlamEngine:
-    """Streaming scan-to-map odometry over a sweep source.
+class _Pending(NamedTuple):
+    """One in-flight pipelined frame awaiting its diagnostics drain, with
+    what a re-run needs: its cloud and its RANSAC draws."""
 
-    `draws`, when given, supplies each frame's (H, 3) uniform RANSAC draws
-    in order (tests inject the reference's); otherwise they come from a
-    `torch.Generator` on the engine's device seeded with `seed`."""
+    diag: pipeline.StepDiagnostics  # device tensors (features for keyframes)
+    points: torch.Tensor  # (bucket, 3) cloud on the device
+    pmask: Optional[torch.Tensor]  # None: front-compacted, iota < n_valid
+    n_valid: object  # int or () device tensor
+    draws: torch.Tensor  # (H, 3) RANSAC draws
+    map_cap: int  # map capacity at dispatch (the tail block's offset)
+
+
+class SlamEngine:
+    """Streaming scan-to-map odometry over a sweep source, with an optional
+    keyframe / loop-closure / pose-graph backend.
+
+    `draws`, when given, supplies the (H, 3) uniform RANSAC draws of each
+    frame and of each verified loop-closure pair, in the order they are
+    used (tests inject the reference's); otherwise they come from a
+    `torch.Generator` on the engine's device seeded with `seed`.
+
+    `pipelined=True`: `process_*` returns the newest finalized record (None
+    until one exists); records lag by up to `fetch_every` frames until the
+    next drain; call `flush()` after the last frame.  Keyframing runs at
+    drain time from the retained device features, and a periodic backend
+    pass drains everything first, so corrections land at the same frame as
+    in the synchronous engine."""
 
     def __init__(self, cfg: SlamConfig, seed: int = 0, tile: int = 2048,
                  device=None, draws: Optional[Iterable] = None,
@@ -74,13 +97,8 @@ class SlamEngine:
                  pipelined: bool = False, fetch_every: int = 1,
                  host_preprocess: bool = True, keep_corr: bool = False,
                  mesh=None):
-        unported = {
-            "enable_backend": enable_backend or backend_every,
-            "pipelined": pipelined or fetch_every != 1,
-            "host_preprocess=False": not host_preprocess,
-            "keep_corr": keep_corr,
-            "mesh": mesh is not None,
-        }
+        unported = {"host_preprocess=False": not host_preprocess,
+                    "mesh": mesh is not None}
         for name, asked in unported.items():
             if asked:
                 raise NotImplementedError(f"SlamEngine({name}) is not ported yet")
@@ -101,16 +119,58 @@ class SlamEngine:
         )
         self.records: List[FrameRecord] = []
         self._warned_drop = False
+        self._warned_evict = False
+        self.n_evicted = 0  # cumulative keypoints evicted at capacity
+        # Pipelined mode.
+        self.pipelined = pipelined
+        self.fetch_every = max(1, fetch_every)
+        self._pending: List[_Pending] = []
+        self._fetch = None  # (entries, pinned rows, event) of a started copy
+        self._ok = torch.ones((), dtype=torch.bool, device=self.device)
+        self._cursor_ub: Optional[int] = None  # host bound on map.cursor
+        self._frames_in = 0  # frames dispatched
+        self.n_redispatched = 0  # frames re-run after a window overflow
+        # Backend.
+        self.enable_backend = enable_backend
+        self.backend_every = backend_every
+        self.keyframes = kf_mod.init_keyframes(cfg, device=self.device)
+        self._last_kf_pose = np.eye(4, dtype=np.float32)
+        self._frames_since_kf = 10**9  # force a keyframe on frame 0
+        self.optimized_keyframe_poses: Optional[np.ndarray] = None
+        self.loop_edges: list = []  # the last pass's verified closures
+        self.backend_stats: dict = {}  # the last pass's candidate counts
+        # Host mirrors of the keyframe count and positions, so neither the
+        # pipelined path nor the eviction slot picker syncs on the store.
+        self._kf_count = 0
+        self._kf_positions: List[np.ndarray] = []
+        self.n_kf_evicted = 0
+        self._warned_kf_evict = False
+        # keep_corr: each finalized frame's correspondences (world-frame
+        # source keypoints, matched candidate indices, inlier flags), as a
+        # viewer draws them; costs small device fetches per frame.
+        self.keep_corr = keep_corr
+        self.last_corr: Optional[dict] = None
+        self._prev_kp_world: Optional[np.ndarray] = None
+
+    # -- ingest -------------------------------------------------------------
 
     def process_sweep(self, sweep: LaserSweep,
-                      selected: Optional[np.ndarray] = None) -> FrameRecord:
+                      selected: Optional[np.ndarray] = None):
         ri = build_range_image(sweep, self.cfg.sensor, selected)
         return self.process_range_image(ri.range_mm, ri.azimuth_rad,
                                         ri.vert_rad, ri.selected)
 
+    def process_frame(self, frame):
+        """A raw LaserSweep (binned on the host) or an upload-ready
+        RangeImage."""
+        if isinstance(frame, RangeImage):
+            return self.process_range_image(frame.range_mm, frame.azimuth_rad,
+                                            frame.vert_rad)
+        return self.process_sweep(frame)
+
     def process_range_image(self, range_mm: np.ndarray, azimuth_rad: np.ndarray,
                             vert_rad: np.ndarray,
-                            selected: Optional[np.ndarray] = None) -> FrameRecord:
+                            selected: Optional[np.ndarray] = None):
         """Host classify + extract (numpy), then one compact device step at
         the smallest bucket holding the kept points."""
         classes, xyz, valid = ph.preprocess_host(range_mm, azimuth_rad, vert_rad,
@@ -122,23 +182,156 @@ class SlamEngine:
         points[:nv] = pts
         return self.process_compact(points, nv)
 
-    def _next_rng(self):
-        if self._draws is None:
-            return self.generator
-        return torch.tensor(np.asarray(next(self._draws), np.float32),
-                            device=self.device)
-
-    def process_compact(self, points: np.ndarray, n_valid: int) -> FrameRecord:
+    def process_compact(self, points: np.ndarray, n_valid: int):
         """One frame from a host-preprocessed compact cloud: points
         (bucket, 3) front-compacted, n_valid exact."""
-        self._maybe_grow_map()
-        self.state, diag = pipeline.odometry_step_compact(
-            self.state, torch.as_tensor(points, device=self.device),
-            int(n_valid), self._next_rng(), self.cfg, self.tile,
-        )
-        return self._finalize(diag.packed.cpu().numpy())
+        return self._step(upload(np.asarray(points, np.float32), self.device),
+                          None, int(n_valid))
 
-    def _finalize(self, pk: np.ndarray) -> FrameRecord:
+    def process_cloud(self, points, pmask, n_valid=None):
+        """One frame from a (bucket, 3) cloud and its (bucket,) mask (host
+        arrays or tensors); `n_valid` defaults to the mask's count."""
+        points = self._as_device(points, np.float32)
+        pmask = self._as_device(pmask, np.bool_)
+        if n_valid is None:
+            n_valid = torch.sum(pmask.to(torch.int32))
+        return self._step(points, pmask, n_valid)
+
+    def _as_device(self, x, dtype) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return upload(np.asarray(x, dtype), self.device)
+
+    def _next_draws(self) -> torch.Tensor:
+        """This frame's (H, 3) RANSAC draws: injected, or from the engine's
+        generator (the same numbers the synchronous step draws)."""
+        H = self.cfg.match.ransac_iterations
+        if self._draws is not None:
+            return upload(np.asarray(next(self._draws), np.float32), self.device)
+        return torch.rand((H, 3), generator=self.generator, device=self.device)
+
+    def _rng_source(self):
+        """What the backend's RANSAC draws from: the injected draws'
+        iterator, or the generator."""
+        return self._draws if self._draws is not None else self.generator
+
+    def _step(self, points: torch.Tensor, pmask: Optional[torch.Tensor], n_valid):
+        self._maybe_grow_map()
+        cap = self.state.map.positions.shape[0]
+        if self.pipelined:
+            draws = self._next_draws()
+            self.state, self._ok, diag = pipeline.odometry_step_deferred(
+                self.state, self._ok, points, pmask, n_valid, draws, self.cfg,
+                self.tile)
+            return self._enqueue(_Pending(diag, points, pmask, n_valid, draws, cap))
+        rng = self.generator if self._draws is None else self._next_draws()
+        return self._run_sync(points, pmask, n_valid, rng, cap)
+
+    def _run_sync(self, points, pmask, n_valid, rng, cap: int) -> FrameRecord:
+        """The synchronous step (host-side window decisions) and its record."""
+        if pmask is None:
+            self.state, diag = pipeline.odometry_step_compact(
+                self.state, points, n_valid, rng, self.cfg, self.tile)
+        else:
+            self.state, diag = pipeline.odometry_step(
+                self.state, points, pmask, rng, self.cfg, self.tile,
+                n_valid=n_valid)
+        return self._finalize(diag, diag.packed.cpu().numpy(), cap)
+
+    # -- pipelined mode -----------------------------------------------------
+
+    def _enqueue(self, entry: _Pending) -> Optional[FrameRecord]:
+        """Queue a frame for a later batched fetch; returns the newest
+        already-finalized record."""
+        self._pending.append(entry)
+        self._frames_in += 1
+        if len(self._pending) == self.fetch_every:
+            # The next drain takes exactly these rows: start their copy now
+            # so it lands while the host prepares the next frame.
+            self._start_fetch(list(self._pending))
+        rec = None
+        if (self.enable_backend and self.backend_every
+                and self._frames_in % self.backend_every == 0):
+            # A periodic backend pass: drain everything first so the
+            # corrections land at the same frame as in synchronous mode.
+            rec = self._drain(keep=0)
+        elif len(self._pending) > self.fetch_every:
+            rec = self._drain(keep=1)
+        if rec is not None:
+            return rec
+        return self.records[-1] if self.records else None
+
+    def _start_fetch(self, entries: List[_Pending]) -> None:
+        """One device-to-host copy of the entries' packed rows, started
+        without waiting (pinned memory, non-blocking)."""
+        rows = torch.stack([e.diag.packed for e in entries])
+        if rows.is_cuda:
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = rows, None
+        self._fetch = (entries, host, event)
+
+    def _fetched(self, entries: List[_Pending]) -> np.ndarray:
+        """The entries' packed rows on the host: the copy started for them,
+        or a new one."""
+        f = self._fetch
+        if f is None or len(f[0]) != len(entries) or any(
+                a is not b for a, b in zip(f[0], entries)):
+            self._start_fetch(entries)
+            f = self._fetch
+        self._fetch = None
+        if f[2] is not None:
+            f[2].synchronize()
+        return f[1].numpy().copy()
+
+    def flush(self) -> Optional[FrameRecord]:
+        """Pipelined mode: finalize all in-flight frames (call after the
+        last process_* call); returns the final record, or None."""
+        return self._drain(keep=0)
+
+    def _drain(self, keep: int) -> Optional[FrameRecord]:
+        """Fetch and finalize pending frames down to `keep` in flight,
+        oldest first, in one device-to-host copy.  An uncommitted row (a
+        window overflow, or an abort cascading from one) sends it and every
+        later in-flight frame to `_redispatch`."""
+        n = len(self._pending) - keep
+        if n <= 0:
+            return None
+        batch, self._pending = self._pending[:n], self._pending[n:]
+        rows = self._fetched(batch)
+        rec = None
+        for i, (entry, pk) in enumerate(zip(batch, rows)):
+            if pk[pipeline.IDX_COMMITTED] == 0.0:
+                stalled = batch[i:] + self._pending
+                self._pending = []
+                self._fetch = None
+                return self._redispatch(stalled)
+            last = i == len(batch) - 1 and not self._pending
+            rec = self._finalize(entry.diag, pk, entry.map_cap, can_backend=last)
+        return rec
+
+    def _redispatch(self, stalled: List[_Pending]) -> Optional[FrameRecord]:
+        """Re-run the stalled frames in order through the synchronous step
+        with the clouds and draws they were dispatched with.  The aborted
+        steps left the state untouched and drew nothing more, so this is
+        the run the synchronous engine makes."""
+        self._ok = torch.ones((), dtype=torch.bool, device=self.device)
+        self._cursor_ub = None
+        self.n_redispatched += len(stalled)
+        rec = None
+        for e in stalled:
+            self._maybe_grow_map(exact=True)
+            rec = self._run_sync(e.points, e.pmask, e.n_valid, e.draws,
+                                 self.state.map.positions.shape[0])
+        return rec
+
+    # -- records ------------------------------------------------------------
+
+    def _finalize(self, diag, pk: np.ndarray, map_cap: int,
+                  can_backend: bool = True) -> FrameRecord:
         P = pipeline
         rec = FrameRecord(
             pose=pk[:16].reshape(4, 4).astype(np.float32),
@@ -157,27 +350,240 @@ class SlamEngine:
                 f"{len(self.records)}: {rec.n_dropped} keypoint(s) dropped",
                 stacklevel=2,
             )
+        if self.enable_backend:
+            self._maybe_keyframe(diag, rec, abs_frame=int(pk[P.IDX_FRAME]),
+                                 map_cap=map_cap)
+        if self.keep_corr:
+            kp = diag.features.keypoints.cpu().numpy()
+            kp_w = kp @ rec.pose[:3, :3].T + rec.pose[:3, 3]
+            self.last_corr = {
+                "src_world": kp_w,
+                "index": diag.corr_index.cpu().numpy(),
+                "inlier": (diag.corr_inlier & diag.features.mask).cpu().numpy(),
+                "map_cap": map_cap,
+                "prev_src_world": self._prev_kp_world,
+            }
+            self._prev_kp_world = kp_w
         self.records.append(rec)
+        if (can_backend and self.enable_backend and self.backend_every
+                and len(self.records) % self.backend_every == 0
+                and self._kf_count >= 2):
+            self.optimize_backend()
+            self.apply_backend_corrections()
+            rec = self.records[-1]  # its pose may have been corrected
         return rec
 
-    def _maybe_grow_map(self) -> None:
+    # -- the map ------------------------------------------------------------
+
+    def _maybe_grow_map(self, exact: bool = False) -> None:
         """Pad the map to the next capacity bucket when this frame's insert
-        could overflow it."""
-        cap = self.state.map.positions.shape[0]
+        could overflow it; at the hard capacity, evict the weakest keypoints
+        of the densest blocks instead.
+
+        Pipelined (unless `exact`), the decision starts from a host-side
+        upper bound on the cursor (each step appends at most top_k rows), so
+        no frame syncs for it; only when the bound says the map may be full
+        does the engine drain every in-flight frame and read the true
+        cursor, which makes the decision the synchronous engine's."""
         hard_cap = self.cfg.map.capacity
-        need = int(self.state.map.cursor) + self.cfg.keypoints.top_k
-        if need <= cap:
-            return
-        for b in sorted(set(self.cfg.runtime.map_buckets) | {hard_cap}):
-            if min(need, hard_cap) <= b <= hard_cap and b > cap:
-                self.state = self.state._replace(
-                    map=mapstore.grow_map(self.state.map, b)
-                )
-                return
-        if need > hard_cap:
-            raise NotImplementedError(
-                f"map at hard capacity {hard_cap}: eviction is not ported yet"
+        inc = self.cfg.keypoints.top_k
+        pipelined = self.pipelined and not exact
+        if pipelined and (self._cursor_ub is None or self._cursor_ub + inc > min(
+                self.state.map.positions.shape[0], hard_cap)):
+            self._drain(keep=0)  # re-runs of aborted frames may grow the map
+            self._cursor_ub = int(self.state.map.cursor)
+        cap = self.state.map.positions.shape[0]
+        cursor = self._cursor_ub if pipelined else int(self.state.map.cursor)
+        need = cursor + inc
+        if need > cap:
+            for b in sorted(set(self.cfg.runtime.map_buckets) | {hard_cap}):
+                if min(need, hard_cap) <= b <= hard_cap and b > cap:
+                    self.state = self.state._replace(
+                        map=mapstore.grow_map(self.state.map, b))
+                    break
+            else:
+                if need > hard_cap:
+                    cursor = self._evict(cursor)
+        if pipelined:
+            self._cursor_ub = cursor + inc
+
+    def _evict(self, cursor: int) -> int:
+        """Make room for one frame at the hard capacity (a fixed n_evict);
+        returns the new cursor."""
+        n_evict = min(2 * self.cfg.keypoints.top_k, self.cfg.map.capacity // 2)
+        self.state = self.state._replace(
+            map=mapstore.evict_keypoints(self.state.map, n_evict))
+        after = int(self.state.map.cursor)
+        evicted = cursor - after
+        self.n_evicted += evicted
+        if evicted and not self._warned_evict:
+            self._warned_evict = True
+            warnings.warn(
+                f"map at hard capacity {self.cfg.map.capacity}: evicting the "
+                f"weakest keypoints of the densest blocks ({evicted} this frame)",
+                stacklevel=3,
             )
+        return after
+
+    # -- backend ------------------------------------------------------------
+
+    def _maybe_keyframe(self, diag, rec: FrameRecord, abs_frame: int,
+                        map_cap: int) -> None:
+        if not kf_mod.should_add_keyframe(self._last_kf_pose, rec.pose,
+                                          self._frames_since_kf,
+                                          self.cfg.backend):
+            self._frames_since_kf += 1
+            return
+        # Saturation: evict the most redundant keyframe (anchor and the
+        # newest quarter protected) instead of dropping new material.
+        Mk = self.cfg.backend.max_keyframes
+        if self._kf_count >= Mk:
+            slot = kf_mod.pick_eviction_slot(np.asarray(self._kf_positions),
+                                             self._kf_count)
+            self.keyframes = kf_mod.evict_keyframe(self.keyframes, slot)
+            del self._kf_positions[slot]
+            self._kf_count -= 1
+            self.n_kf_evicted += 1
+            if not self._warned_kf_evict:
+                self._warned_kf_evict = True
+                warnings.warn(
+                    f"keyframe store saturated at {Mk}: evicting the most "
+                    "redundant keyframe per new add (raise "
+                    "BackendConfig.max_keyframes for long sequences)",
+                    stacklevel=3,
+                )
+        # Landmark observations: inlier matches into the map as it was at
+        # step time (indices past map_cap matched the previous frame).
+        obs_lm = torch.where(diag.corr_inlier & (diag.corr_index < map_cap),
+                             diag.corr_index, -1)
+        self.keyframes = kf_mod.add_keyframe(
+            self.keyframes, upload(rec.pose, self.device), diag.features,
+            abs_frame, obs_lm)
+        self._kf_count += 1
+        self._kf_positions.append(np.asarray(rec.pose[:3, 3]))
+        self._last_kf_pose = rec.pose
+        self._frames_since_kf = 1
+
+    def optimize_backend(self, max_candidates: int = 8):
+        """Loop-closure detection + pose-graph optimisation over the
+        keyframes.  Returns (optimised keyframe poses (n, 4, 4), loop edges)
+        and keeps the poses in `optimized_keyframe_poses`."""
+        from bshot_slam_tpu_torch.backend import loop_closure, posegraph
+
+        if self.pipelined:
+            self._drain(keep=0)
+        n = self._kf_count
+        if n < 2:
+            return self.keyframes.poses[:n].cpu().numpy(), []
+        stats: dict = {}
+        edges = loop_closure.find_loop_closures(
+            self.keyframes, self.cfg, self._rng_source(), max_candidates, n=n,
+            stats=stats)
+        self.loop_edges = edges
+        self.backend_stats = dict(stats, closures=len(edges), keyframes=n)
+        # Nodes padded to a power-of-two bucket (repeating the last pose:
+        # the implied identity chain edges are inert) and loop edges to a
+        # multiple of 4 (masked), as the reference pads them.
+        kf = self.keyframes.poses[:n]
+        bucket = 8
+        while bucket < n:
+            bucket *= 2
+        bucket = min(bucket, max(self.cfg.backend.max_keyframes, n))
+        if bucket > n:
+            kf = torch.cat([kf, kf[-1:].expand(bucket - n, 4, 4)])
+        bcfg = self.cfg.backend
+        g = posegraph.odometry_edges(kf, weight=(1000.0 / bcfg.odom_edge_sigma_mm) ** 2)
+        if edges:
+            e_pad = (-len(edges)) % 4
+            ez = np.stack([e.z for e in edges] + [np.eye(4, dtype=np.float32)] * e_pad)
+            ew = [(1000.0 / max(e.rmse_mm, bcfg.lc_sigma_floor_mm)) ** 2
+                  for e in edges] + [0.0] * e_pad
+            g = posegraph.add_edges(
+                g, torch.tensor([e.kf_i for e in edges] + [0] * e_pad),
+                torch.tensor([e.kf_j for e in edges] + [0] * e_pad),
+                torch.from_numpy(ez.astype(np.float32)),
+                torch.tensor(ew, dtype=torch.float32))
+            mask = g.edge_mask.clone()
+            mask[len(mask) - e_pad:] = False
+            g = g._replace(edge_mask=mask)
+        res = posegraph.optimize_pose_graph(g, iterations=bcfg.gn_iterations)
+        self.optimized_keyframe_poses = res.poses[:n].cpu().numpy()
+        return self.optimized_keyframe_poses, edges
+
+    def apply_backend_corrections(self) -> dict:
+        """Propagate the optimised keyframe poses into the recorded
+        trajectory, the live reference pose and the global map: per-keyframe
+        corrections `T_opt @ inv(T_raw)` are twist-interpolated to every
+        frame, and landmarks move by the correction of the frame that
+        inserted them, so later frames match against the corrected map."""
+        from bshot_slam_tpu_torch.backend import corrections as corr_mod
+
+        if self.pipelined:
+            self._drain(keep=0)
+        if self.optimized_keyframe_poses is None:
+            self.optimize_backend()
+        n_kf = self._kf_count
+        if n_kf < 2 or not self.records:
+            return {"max_correction_mm": 0.0, "n_landmarks_moved": 0}
+        kf_opt = self.optimized_keyframe_poses.astype(np.float32)
+        kf_raw = self.keyframes.poses[:n_kf].cpu().numpy()
+        corr_kf = kf_opt @ np.linalg.inv(kf_raw)
+        F = len(self.records)
+        frame0 = int(self.state.frame_idx) - F
+        kf_frames = self.keyframes.frame_idx[:n_kf].cpu().numpy() - frame0
+        dev = self.device
+        corr_t = corr_mod.interpolate_corrections(
+            torch.from_numpy(corr_kf.astype(np.float32)).to(dev),
+            torch.from_numpy(kf_frames.astype(np.int32)).to(dev),
+            torch.arange(F, dtype=torch.int32, device=dev))
+        corr = corr_t.cpu().numpy()
+        for f, r in enumerate(self.records):
+            r.pose = (corr[f] @ r.pose).astype(np.float32)
+        ref_pose = (corr[-1] @ self.state.ref_pose.cpu().numpy()).astype(np.float32)
+        self.state = self.state._replace(
+            map=corr_mod.reanchor_map(self.state.map, corr_t, frame0, self.cfg.map),
+            ref_pose=torch.from_numpy(ref_pose).to(dev),
+        )
+        # The store's poses become the optimised ones so the next graph
+        # build does not correct twice; the host mirror follows.
+        poses = self.keyframes.poses.clone()
+        poses[:n_kf] = torch.from_numpy(kf_opt).to(dev)
+        self.keyframes = self.keyframes._replace(poses=poses)
+        self._kf_positions[:n_kf] = list(kf_opt[:, :3, 3])
+        self._last_kf_pose = (corr_kf[-1] @ self._last_kf_pose).astype(np.float32)
+        self.optimized_keyframe_poses = None  # consumed
+        m = self.state.map
+        n_moved = int(torch.sum(m.valid & (m.frame_born >= 0)))
+        return {"max_correction_mm": float(np.max(np.linalg.norm(corr[:, :3, 3],
+                                                                 axis=-1))),
+                "n_landmarks_moved": n_moved}
+
+    def build_ba_problem(self):
+        """A bundle-adjustment problem from the keyframes' landmark
+        observations (map landmarks matched as RANSAC inliers)."""
+        from bshot_slam_tpu_torch.backend.ba import BAProblem
+
+        if self.pipelined:
+            self._drain(keep=0)
+        n = self._kf_count
+        obs_lm = self.keyframes.obs_lm[:n].cpu().numpy()  # (n, K)
+        kp = self.keyframes.keypoints[:n].cpu().numpy()  # (n, K, 3)
+        kf_idx, kp_idx = np.nonzero(obs_lm >= 0)
+        lm_raw = obs_lm[kf_idx, kp_idx]
+        uniq, compact = np.unique(lm_raw, return_inverse=True)
+        L = min(len(uniq), self.cfg.backend.ba_max_landmarks)
+        keep = compact < L
+        kf_idx, kp_idx, compact = kf_idx[keep], kp_idx[keep], compact[keep]
+        landmarks = self.state.map.positions.cpu().numpy()[uniq[:L]]
+        dev = self.device
+        return BAProblem(
+            poses=self.keyframes.poses[:n].clone(),
+            landmarks=torch.from_numpy(landmarks.astype(np.float32)).to(dev),
+            obs_kf=torch.from_numpy(kf_idx.astype(np.int32)).to(dev),
+            obs_lm=torch.from_numpy(compact.astype(np.int32)).to(dev),
+            obs_p=torch.from_numpy(kp[kf_idx, kp_idx].astype(np.float32)).to(dev),
+            obs_mask=torch.ones(len(kf_idx), dtype=torch.bool, device=dev),
+        )
 
     @property
     def trajectory(self) -> np.ndarray:

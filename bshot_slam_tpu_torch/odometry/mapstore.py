@@ -1,11 +1,12 @@
 """Device-resident global keypoint map with voxel-block dedup.
 
-Port of `bshot_slam_tpu.odometry.mapstore` (the main-path part; eviction at
-the hard capacity is not ported yet).  Fixed-capacity tensors with a valid
-mask and an append cursor: valid rows are exactly [0, cursor).  A new
+Port of `bshot_slam_tpu.odometry.mapstore`.  Fixed-capacity tensors with a
+valid mask and an append cursor: valid rows are exactly [0, cursor).  A new
 keypoint is rejected when an existing same-block keypoint lies within the
 dedup radius and has a seg_ratio >= its own (kernel E against the map, a
-lower-triangular test within the batch), then survivors are appended.
+lower-triangular test within the batch), then survivors are appended.  At
+the hard capacity `evict_keypoints` drops the weakest keypoints of the
+densest blocks and front-compacts the survivors.
 
 Functions return new states and never modify their inputs in place.
 """
@@ -17,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from bshot_slam_tpu_torch.config import MapConfig
+from bshot_slam_tpu_torch.device import resolve_device
 from bshot_slam_tpu_torch.kernels.mapops import dedup_blocked_bounded
 from bshot_slam_tpu_torch.ops.keypoints import _pair_d2
 
@@ -34,7 +36,9 @@ class MapState(NamedTuple):
 
 def init_map(cfg: MapConfig, capacity: int | None = None,
              device=None) -> MapState:
+    """An empty map; `device=None` means the card (raises without one)."""
     C = capacity if capacity is not None else cfg.capacity
+    device = resolve_device(device)
     return MapState(
         positions=torch.zeros((C, 3), dtype=torch.float32, device=device),
         descriptors=torch.zeros((C, 11), dtype=torch.int32, device=device),
@@ -109,8 +113,14 @@ def insert_keypoints(
     cfg: MapConfig,
     frame_idx=-1,  # () int32 provenance for frame_born
     window_cap: int | None = None,
-) -> MapState:
-    """Batched equivalent of K sequential `Map::addKeypoint` calls."""
+    deferred: bool = False,
+):
+    """Batched equivalent of K sequential `Map::addKeypoint` calls.
+
+    With `deferred`, the dedup window is never checked on the host: the
+    compact window always runs and the call returns (state, fits), `fits`
+    a device bool that is False when the window overflowed `window_cap`
+    (the state is then wrong and the caller must discard it)."""
     dev = pos.device
     pos = snap_positions(pos, cfg.snap_mm)
     blk = block_coords(pos, cfg.block_size_mm)
@@ -120,6 +130,7 @@ def insert_keypoints(
     # `window_cap`) the rows whose block lies in the batch's block box —
     # an exact superset of the possible blockers — unless they overflow it.
     C = state.positions.shape[0]
+    fits = torch.ones((), dtype=torch.bool, device=dev)
     if window_cap is not None and C > window_cap:
         W = window_cap
         big = 2**30
@@ -129,7 +140,8 @@ def insert_keypoints(
             (state.blocks >= lo[None, :]) & (state.blocks <= hi[None, :]), dim=-1
         )
         n_win = torch.sum(inwin.to(torch.int32))
-        if int(n_win) > W:
+        fits = n_win <= W
+        if not deferred and not fits:  # host sync: the dense scan
             rejected_by_map = _dedup_against(
                 pos, blk, seg, state.positions, state.blocks, state.seg_ratios,
                 state.valid, state.cursor, cfg,
@@ -170,7 +182,7 @@ def insert_keypoints(
     tgt = torch.where(ok, slot, C).long()
     n_ok = torch.sum(ok.to(torch.int32))
     fidx = torch.as_tensor(frame_idx, dtype=torch.int32, device=dev)
-    return MapState(
+    new_state = MapState(
         positions=_set_rows(state.positions, tgt, pos),
         descriptors=_set_rows(state.descriptors, tgt, desc),
         seg_ratios=_set_rows(state.seg_ratios, tgt, seg),
@@ -180,6 +192,61 @@ def insert_keypoints(
         frame_born=_set_rows(state.frame_born, tgt, fidx.expand(K)),
         n_dropped=(state.n_dropped + torch.sum(accept.to(torch.int32))
                    - n_ok).to(torch.int32),
+    )
+    return (new_state, fits) if deferred else new_state
+
+
+def evict_keypoints(state: MapState, n_evict: int) -> MapState:
+    """Evict up to `n_evict` keypoints, lowest-seg-ratio-in-densest-block
+    first, then front-compact the survivors so valid rows stay exactly
+    [0, cursor).  Evicted rows get `frame_born` -1.
+
+    Ties follow the reference exactly: its lexsort is three stable sorts
+    (last key first), its float32 score `occ * 2C + (C - 1 - seg_rank)`
+    rounds above 2^24 as it does there, and its top-k takes the lowest
+    index among equal scores (a stable descending sort)."""
+    C = state.positions.shape[0]
+    dev = state.positions.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    # Per-row block occupancy: sort rows by block, then run lengths.
+    blk = torch.where(state.valid[:, None], state.blocks, 2**30)
+    order = torch.arange(C, device=dev)
+    for k in (2, 1, 0):
+        order = order[torch.argsort(blk[order, k], stable=True)]
+    sb = blk[order]
+    new_run = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                         torch.any(sb[1:] != sb[:-1], dim=1)])
+    run_id = torch.cumsum(new_run.to(torch.int32), dim=0) - 1
+    run_len = torch.zeros((C,), **i32).index_add_(
+        0, run_id, torch.ones((C,), **i32))
+    occ = torch.zeros((C,), **i32).index_copy(0, order, run_len[run_id])
+    occ = torch.where(state.valid, occ, 0)
+
+    # Eviction score: densest block first, lowest seg_ratio within.
+    seg_rank = torch.zeros((C,), **i32).index_copy(
+        0, torch.argsort(state.seg_ratios, stable=True),
+        torch.arange(C, **i32))
+    score = torch.where(
+        state.valid,
+        occ.to(torch.float32) * (2.0 * C) + (C - 1 - seg_rank).to(torch.float32),
+        -1.0,
+    )
+    evict_idx = torch.sort(score, descending=True, stable=True).indices[:n_evict]
+    evict = torch.zeros((C,), dtype=torch.bool, device=dev).index_fill(
+        0, evict_idx, True) & state.valid
+
+    # Stable front-compaction of the survivors.
+    keep = state.valid & ~evict
+    perm = torch.argsort((~keep).to(torch.uint8), stable=True)
+    return MapState(
+        positions=state.positions[perm],
+        descriptors=state.descriptors[perm],
+        seg_ratios=state.seg_ratios[perm],
+        blocks=state.blocks[perm],
+        valid=keep[perm],
+        cursor=torch.sum(keep.to(torch.int32)).to(torch.int32),
+        frame_born=torch.where(keep, state.frame_born, -1)[perm],
+        n_dropped=state.n_dropped,
     )
 
 

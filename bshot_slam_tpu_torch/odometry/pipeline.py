@@ -10,9 +10,14 @@ and B), map-window matching (kernel C), RANSAC, pose gate, ICP (kernel D,
 10 launches), map insert (kernel E), and the packed diagnostics row.
 
 Where the reference branches on device values with `lax.cond` (window
-overflow), the port fetches the scalar and branches in Python: one host
-sync per branch in the synchronous engine.  `rng` takes the place of the
-reference's PRNG key: a `torch.Generator`, or the (H, 3) RANSAC draws.
+overflow), the synchronous step fetches the scalar and branches in Python:
+one host sync per branch.  The deferred step (`odometry_step_deferred`,
+the pipelined engine's) never syncs: it always runs the compact windows,
+computes on the device whether both fit, and commits its state only then
+(commit-or-abort, as the reference's fused step does for its cloud
+bucket); the engine re-runs an aborted frame through the synchronous step.
+`rng` takes the place of the reference's PRNG key: a `torch.Generator`, or
+the (H, 3) RANSAC draws.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from bshot_slam_tpu_torch.config import SlamConfig
+from bshot_slam_tpu_torch.device import resolve_device
 from bshot_slam_tpu_torch.geometry import se3
 from bshot_slam_tpu_torch.odometry import mapstore
 from bshot_slam_tpu_torch.ops import bshot, hamming
@@ -85,7 +91,10 @@ class StepDiagnostics(NamedTuple):
 
 
 def init_state(cfg: SlamConfig, device=None) -> OdometryState:
+    """The empty odometry state; `device=None` means the card (raises
+    without one)."""
     K = cfg.keypoints.top_k
+    device = resolve_device(device)
     return OdometryState(
         map=mapstore.init_map(cfg.map, device=device),
         ref=FrameFeatures(
@@ -140,8 +149,11 @@ def compute_features(points: torch.Tensor, pmask: torch.Tensor,
 
 
 def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
-                        cfg: SlamConfig):
-    """featureMatching + evaluateEstimation."""
+                        cfg: SlamConfig, deferred: bool = False):
+    """featureMatching + evaluateEstimation.  Also returns `fits`: with
+    `deferred`, a device bool that is False when the match window overflowed
+    (the compact window ran anyway and the results are to be discarded);
+    otherwise True."""
     mcfg = cfg.match
     ref_pose = state.ref_pose
     center = se3.translation(ref_pose)
@@ -159,9 +171,12 @@ def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
     # on overflow the dense full-capacity scan runs instead (lossless).
     W = cfg.runtime.window_cap
     use_compact = cfg.runtime.window_compact and capacity > W
+    fits = torch.ones((), dtype=torch.bool, device=dev)
     if use_compact:
         n_win = torch.sum(win.to(torch.int32))
-        use_compact = int(n_win) <= W
+        fits = n_win <= W
+        if not deferred:
+            use_compact = bool(fits)  # host sync: the dense fallback
     if use_compact:
         widx = mapstore.compact_indices(win, W)
         wmask = torch.arange(W, dtype=torch.int32, device=dev) < n_win
@@ -231,18 +246,23 @@ def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
     corr_stats = torch.where(n_in > 0, torch.stack([c_mean, c_std, c_median]),
                              torch.zeros(3, dtype=torch.float32, device=dev))
     return (T_best, rr, corr_index, n_mutual, gate, h_diff, t_diff, icp.rmse,
-            corr_stats)
+            corr_stats, fits)
 
 
 def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
                         pmask: torch.Tensor, rng, cfg: SlamConfig,
-                        tile: int = 2048, n_valid=None):
+                        tile: int = 2048, n_valid=None, ok=None):
     """One full SLAM frame; `n_valid` (the cloud count) optionally rides in
-    `packed` with the [n_valid, bucket, committed] tail."""
+    `packed` with the [n_valid, bucket, committed] tail.  With `ok` (a
+    device bool: no earlier in-flight frame aborted) the step is deferred:
+    it commits only when `ok` holds and both windows fit, passes `state`
+    through otherwise, and returns (state', committed, diag)."""
     dev = points.device
+    deferred = ok is not None
     src = compute_features(points, pmask, cfg, tile)
     (T_best, rr, corr_index, n_mutual, gate, h_diff, t_diff, icp_rmse,
-     corr_stats) = _match_and_estimate(rng, src, state, cfg)
+     corr_stats, match_fits) = _match_and_estimate(rng, src, state, cfg,
+                                                   deferred)
 
     # INITIAL frame: identity pose, no gating.
     is_initial = state.frame_idx == 0
@@ -257,9 +277,16 @@ def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
         frame_idx=state.frame_idx,
         window_cap=(cfg.runtime.window_cap if cfg.runtime.window_compact
                     else None),
+        deferred=deferred,
     )
+    committed = torch.ones((), dtype=torch.bool, device=dev)
+    if deferred:
+        new_map, dedup_fits = new_map
+        committed = ok & match_fits & dedup_fits
     new_state = OdometryState(map=new_map, ref=src, ref_pose=T_best,
                               frame_idx=state.frame_idx + 1)
+    if deferred:  # abort: every field passes through unchanged
+        new_state = _select(committed, new_state, state)
     msize = mapstore.map_size(new_map)
     f32 = torch.float32
     parts = [
@@ -270,9 +297,11 @@ def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
         new_map.n_dropped.to(f32)[None],
         state.frame_idx.to(f32)[None],
     ]
-    if n_valid is not None:
-        parts.append(torch.tensor([float(n_valid), float(points.shape[0]), 1.0],
-                                  dtype=f32, device=dev))
+    if n_valid is not None:  # made on the device: no host copy
+        nv = (n_valid.to(f32).reshape(1) if isinstance(n_valid, torch.Tensor)
+              else torch.full((1,), float(n_valid), dtype=f32, device=dev))
+        parts += [nv, torch.full((1,), float(points.shape[0]), dtype=f32,
+                                 device=dev), committed.to(f32)[None]]
     diag = StepDiagnostics(
         pose=T_best, n_mutual=n_mutual, n_inliers=rr.n_inliers, gated=gate,
         heading_diff_rad=h_diff, translation_diff_mm=t_diff, map_size=msize,
@@ -281,7 +310,16 @@ def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
         corr_inlier=rr.inliers & ~is_initial, features=src,
         n_dropped=new_map.n_dropped, packed=torch.cat(parts),
     )
+    if deferred:
+        return new_state, committed, diag
     return new_state, diag
+
+
+def _select(cond: torch.Tensor, a, b):
+    """Field by field `where(cond, a, b)` over nested NamedTuples."""
+    if isinstance(a, tuple):
+        return type(a)(*[_select(cond, x, y) for x, y in zip(a, b)])
+    return torch.where(cond, a, b)
 
 
 def odometry_step(state: OdometryState, points: torch.Tensor,
@@ -301,3 +339,18 @@ def odometry_step_compact(state: OdometryState, points: torch.Tensor,
     pmask = torch.arange(points.shape[0], device=points.device) < n_valid
     return _odometry_step_impl(state, points, pmask, rng, cfg, tile,
                                n_valid=n_valid)
+
+
+def odometry_step_deferred(state: OdometryState, ok: torch.Tensor,
+                           points: torch.Tensor, pmask: torch.Tensor | None,
+                           n_valid, rng, cfg: SlamConfig, tile: int = 2048):
+    """The pipelined engine's step: no host sync.  `pmask=None` means a
+    front-compacted cloud (`iota < n_valid`).  Commits only when `ok` holds
+    and the match and dedup windows fit `window_cap`; otherwise `state`
+    passes through unchanged and the packed row's committed flag is 0, so
+    the engine re-runs the frame (and every later in-flight frame) through
+    the synchronous step.  Returns (state', committed, diag)."""
+    if pmask is None:
+        pmask = torch.arange(points.shape[0], device=points.device) < n_valid
+    return _odometry_step_impl(state, points, pmask, rng, cfg, tile,
+                               n_valid=n_valid, ok=ok)

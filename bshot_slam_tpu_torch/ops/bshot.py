@@ -26,13 +26,26 @@ _SUBSETS = (
 )
 
 
+_SUBSETS_ON: dict = {}
+
+
+def _subsets(device: torch.device) -> torch.Tensor:
+    """The (15, 4) subset table on `device`, copied there once (a host copy
+    per frame would synchronise)."""
+    t = _SUBSETS_ON.get(device)
+    if t is None:
+        t = _SUBSETS_ON[device] = torch.tensor(_SUBSETS, dtype=torch.float32,
+                                               device=device)
+    return t
+
+
 def binarize(shot: torch.Tensor, threshold: float = 0.9) -> torch.Tensor:
     """(..., 352) SHOT floats -> (..., 352) {0,1} uint8 bits."""
     batch = shot.shape[:-1]
     groups = shot.reshape(batch + (88, 4)).to(torch.float32)
     total = torch.sum(groups, dim=-1)
     thr = threshold * total
-    subsets = torch.tensor(_SUBSETS, dtype=torch.float32, device=shot.device)
+    subsets = _subsets(shot.device)
     sums = groups @ subsets.T  # (..., 88, 15)
     cond = sums > thr[..., None]
     cond[..., -1] = True  # the all-ones fallback always fires

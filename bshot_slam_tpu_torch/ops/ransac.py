@@ -81,9 +81,11 @@ def ransac_rigid(
         torch.linalg.cross(s[:, 1] - s[:, 0], s[:, 2] - s[:, 0]), dim=-1
     )
     scores = torch.where(area2 > 1e-6, torch.sum(ok.to(torch.int32), dim=1), 0)
-    best = torch.argmax(scores)  # first maximum
-
-    inliers = ok[best] & (n_valid >= 3) & (scores[best] > 0)
+    # The first maximum, taken with index_select: indexing with a 0-d tensor
+    # reads it on the host, a synchronisation.
+    best = torch.argmax(scores).reshape(1)
+    inliers = (ok.index_select(0, best)[0] & (n_valid >= 3)
+               & (scores.index_select(0, best)[0] > 0))
     w = inliers.to(torch.float32)
     T = se3.kabsch(src, dst, w)
     T = torch.where(torch.sum(w) >= 3, T, torch.eye(4, dtype=T.dtype, device=dev))

@@ -23,9 +23,33 @@ Phases, one line each:
      time per frame, the device kernels that take the most of it);
      the port's own kernels per frame (kernel D: one device launch per
      ICP iteration; B and C: at most two device launches per call, E one);
-  5. one JSON line of per-kernel results (`launches` counts the whole
-     engine run of `frames` frames, `launches_per_frame` divides it), the
-     card line again, and the result line {"ok": true, "device": {...}}.
+  4b. the pipelined engine (`pipelined=True, fetch_every=8`) over the same
+     24 frames and prefilled map: records bit-identical to phase [4]'s
+     synchronous run, frames/s of both, and the synchronising calls per
+     frame between drains (`torch.cuda.set_sync_debug_mode("warn")`, by
+     source line); then a forced window overflow (`window_cap` 256, below
+     the frames' windows) through abort and re-run, whose records must equal
+     the synchronous engine's at that setting;
+  4c. eviction at full capacity: the map prefilled to within one frame of
+     `cfg.map.capacity`, so the pipelined engine evicts (`n_evicted`); then
+     `evict_keypoints` on the card against the same call on CPU copies,
+     every field exact, and its time on the card;
+  4d. the backend at full width over `bench.py`'s whole drive (129 frames,
+     64k-landmark prefill, `pipelined=True, enable_backend=True,
+     backend_every=32`): keyframes, pairs verified, closures, the best
+     candidate's inliers, each pass's time and its kernel C and D launches,
+     ATE before and after a final `apply_backend_corrections()`, the
+     quality guard; then kernels C and D at the loop-verification shape
+     (two of the drive's keyframes, 600 against 600) against their plain
+     versions, as in phase [3];
+  5. one JSON line of per-kernel results (`launches` counts the main path,
+     phase [4]'s engine run of `frames` frames, `launches_per_frame`
+     divides it; `launches_by_path` counts each later path alone, from 0;
+     C's and D's `loop_verification` the 600 x 600 check), the card line
+     again, and the result line {"ok": true, "device": {...}}.
+
+The drive is rendered once, in a pool of worker processes; the script's
+wall time is printed before the JSON lines.
 
 Any failed phase exits non-zero.  Without a visible CUDA device, or without
 the `bshot_slam_tpu_torch` package beside it, the script exits non-zero
@@ -34,13 +58,20 @@ and prints no result.
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
+import dataclasses
+import functools
 import json
 import math
+import multiprocessing
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -54,7 +85,11 @@ H100_LANES = {"f32": 128, "int": 64, "popc": 16}
 H100_DISPATCH_LANES = 128
 H100_BYTES_PER_S = 3.35e12
 N_FRAMES = 24
+N_DRIVE = 129  # bench.py's drive, one full circle
 PREFILL = 65536
+FETCH_EVERY = 8
+BACKEND_EVERY = 32
+OVERFLOW_WINDOW = 256  # phase [4b]'s window_cap, below the frames' windows
 REPEATS = 25
 # The bound of A and B counts the radius tests that a box prune at this
 # grain (query rows x candidate rows) leaves: a property of the cloud, fixed
@@ -204,13 +239,22 @@ def int_mismatch(a, b) -> int:
 # Phase 2: data
 
 
-def render_drive(cfg):
+def render_drive(cfg, n: int | None = None):
+    """The first n frames (N_FRAMES by default) of bench.py's drive,
+    `render_sequence(seed=0, step 400 mm, noise 20 mm, yaw 2 pi / 129)`,
+    frame for frame, rendered in a pool of worker processes."""
     from bshot_slam_tpu_torch.io import synthetic
 
-    return synthetic.render_sequence(
-        N_FRAMES, cfg.sensor, step_mm=400.0, noise_mm=20.0, seed=0,
-        n_firings=cfg.sensor.n_azimuth, yaw_rate_rad=2 * math.pi / 129,
-    )
+    n = N_FRAMES if n is None else n
+    poses = synthetic.straight_trajectory(n, step_mm=400.0,
+                                          yaw_rate_rad=2 * math.pi / N_DRIVE)
+    render = functools.partial(synthetic.render_sweep, synthetic.default_scene(0),
+                               cfg.sensor, n_firings=cfg.sensor.n_azimuth)
+    workers = max(1, min(n, (os.cpu_count() or 2) - 1))
+    ctx = multiprocessing.get_context("spawn")  # no fork of a CUDA process
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
+        sweeps = list(pool.map(render, poses, [None] * n, [20.0] * n, range(n)))
+    return sweeps, poses
 
 
 def frame_cloud(cfg, sweep):
@@ -229,15 +273,17 @@ def frame_cloud(cfg, sweep):
     return points, nv
 
 
-def prefilled_map(cfg, device, n: int = PREFILL):
+def prefilled_map(cfg, device, n: int | None = None, far=(1.9e6, 2.1e6)):
     """MapState at full capacity with `n` random valid landmarks far outside
-    the drive's query window (the benchmark's prefill)."""
+    the drive's query window (the benchmark's prefill), uniform in the cube
+    `far` (mm) on each axis."""
     import torch
 
     from bshot_slam_tpu_torch.odometry import mapstore
 
+    n = PREFILL if n is None else n
     rng = np.random.default_rng(42)
-    pos = rng.uniform(1.9e6, 2.1e6, (n, 3)).astype(np.float32)
+    pos = rng.uniform(*far, (n, 3)).astype(np.float32)
     pos = np.trunc(pos / cfg.map.snap_mm) * cfg.map.snap_mm
     st = mapstore.init_map(cfg.map, cfg.map.capacity, device=device)
     words = rng.integers(0, 2**32, (n, 11), dtype=np.uint64).astype(np.uint32)
@@ -560,6 +606,242 @@ def profile_engine(cfg, sweeps, dev, n: int = 6):
             [per_frame(e, e.key[:48]) for e in top], own)
 
 
+# ---------------------------------------------------------------------------
+# Phases 4b-4d: the pipelined engine, eviction, the backend
+
+
+def kernel_wrappers():
+    from bshot_slam_tpu_torch.kernels import mapops, neighborhood
+
+    return {
+        "neighborhood_accumulate": neighborhood.neighborhood_accumulate,
+        "segratio_accumulate": neighborhood.segratio_accumulate,
+        "hamming_nn_bounded": mapops.hamming_nn_bounded,
+        "euclid_nn_bounded": mapops.euclid_nn_bounded,
+        "dedup_blocked_bounded": mapops.dedup_blocked_bounded,
+    }
+
+
+def counted(fn):
+    """(fn()'s result, each kernel's launches during it, counted from 0)."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def records_equal(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(x.pose, y.pose) and np.array_equal(x.corr_stats, y.corr_stats)
+        and (x.n_inliers, x.n_mutual, x.gated, x.map_size, x.n_dropped, x.icp_rmse)
+        == (y.n_inliers, y.n_mutual, y.gated, y.map_size, y.n_dropped, y.icp_rmse)
+        for x, y in zip(a, b))
+
+
+def drive(eng, sweeps) -> float:
+    """Frames/s of eng over sweeps after the first frame, flush included."""
+    import torch
+
+    eng.process_sweep(sweeps[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for sw in sweeps[1:]:
+        eng.process_sweep(sw)
+    eng.flush()
+    torch.cuda.synchronize()
+    return (len(sweeps) - 1) / (time.perf_counter() - t0)
+
+
+def sync_census(eng, sweeps):
+    """Run the engine over sweeps with the sync debug mode on: per call, the
+    synchronising calls and whether the call drained (finalized records);
+    and the source lines of the synchronising calls made outside drains."""
+    import torch
+
+    calls, sites = [], [collections.Counter(), collections.Counter()]
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for i, sw in enumerate(sweeps):
+            n_rec = len(eng.records)
+            with warnings.catch_warnings(record=True) as ws:
+                warnings.simplefilter("always")
+                eng.process_sweep(sw)
+            syncs = [w for w in ws if "synchroniz" in str(w.message)]
+            drained = len(eng.records) != n_rec
+            calls.append((len(syncs), drained))
+            if not drained:  # [first call, later calls between drains]
+                for w in syncs:
+                    sites[min(i, 1)][f"{pathlib.Path(w.filename).name}:{w.lineno}"] += 1
+        eng.flush()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return calls, sites
+
+
+def pipelined_phase(cfg, sweeps, sync_eng, dev) -> dict:
+    """Phase [4b]."""
+    import torch
+
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+
+    def fresh(c=cfg, pipelined=True):
+        eng = SlamEngine(c, seed=0, device=dev, pipelined=pipelined,
+                         fetch_every=FETCH_EVERY)
+        eng.state = eng.state._replace(map=prefilled_map(c, dev))
+        return eng
+
+    pipe = fresh()
+    fps, launches = counted(lambda: drive(pipe, sweeps))
+    census = fresh()
+    calls, sites = sync_census(census, sweeps)
+    between = [n for n, drained in calls[1:] if not drained]
+    over = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, window_cap=OVERFLOW_WINDOW))
+    runs = []
+    for pipelined in (False, True):
+        eng = fresh(over, pipelined)
+        for sw in sweeps[:12]:
+            eng.process_sweep(sw)
+        eng.flush()
+        runs.append(eng)
+    torch.cuda.synchronize()
+    return dict(
+        fps=fps, launches=launches, equal=records_equal(pipe.records, sync_eng.records)
+        and records_equal(census.records, sync_eng.records),
+        first_call_syncs=calls[0][0], first_sites=dict(sites[0]), between=between,
+        syncs_per_frame=sum(between) / max(1, len(between)), sites=dict(sites[1]),
+        drain_syncs=[n for n, drained in calls if drained],
+        overflow_equal=records_equal(runs[0].records, runs[1].records),
+        redispatched=runs[1].n_redispatched, overflow_frames=len(runs[1].records))
+
+
+def eviction_phase(cfg, sweeps, dev) -> dict:
+    """Phase [4c]: the map starts one frame short of its hard capacity, in
+    dense far blocks (so eviction takes them, not the drive's own map)."""
+    import torch
+
+    from bshot_slam_tpu_torch.odometry import mapstore
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+
+    cap, k = cfg.map.capacity, cfg.keypoints.top_k
+    eng = SlamEngine(cfg, seed=0, device=dev, pipelined=True, fetch_every=FETCH_EVERY)
+    full = prefilled_map(cfg, dev, n=cap - k - 100, far=(1.9e6, 1.95e6))
+    eng.state = eng.state._replace(map=full)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, launches = counted(lambda: drive(eng, sweeps[:8]))
+    n_evict = min(2 * k, cap // 2)
+    m = eng.state.map
+    want = mapstore.evict_keypoints(mapstore.MapState(*cpu(*m)), n_evict)
+    outs = [mapstore.evict_keypoints(m, n_evict) for _ in range(2)]
+    exact = all(torch.equal(g.cpu(), w) for out in outs for g, w in zip(out, want))
+    return dict(n_evicted=eng.n_evicted, launches=launches, exact=exact,
+                cursor=int(m.cursor), evicted_now=int(m.cursor) - int(want.cursor),
+                ms=time_ms(lambda: mapstore.evict_keypoints(m, n_evict)),
+                cpu_ms=time_ms(lambda: mapstore.evict_keypoints(
+                    mapstore.MapState(*cpu(*m)), n_evict), repeats=5),
+                tail_inliers=[r.n_inliers for r in eng.records[-4:]])
+
+
+def backend_phase(cfg, sweeps, gt, dev) -> dict:
+    """Phase [4d]: the whole drive with the backend, each pass timed and its
+    kernel launches counted."""
+    import torch
+
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+    from bshot_slam_tpu_torch.utils.metrics import ate_rmse
+
+    eng = SlamEngine(cfg, seed=0, device=dev, pipelined=True, fetch_every=FETCH_EVERY,
+                     enable_backend=True, backend_every=BACKEND_EVERY)
+    eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
+    passes = []
+    optimize = eng.optimize_backend
+    wrappers = kernel_wrappers()
+
+    def timed_optimize(*a, **k):
+        torch.cuda.synchronize()
+        before = {n: w.launches for n, w in wrappers.items()}
+        t0 = time.perf_counter()
+        out = optimize(*a, **k)
+        torch.cuda.synchronize()
+        passes.append(dict(ms=(time.perf_counter() - t0) * 1e3, **eng.backend_stats,
+                           launches={n: w.launches - before[n] for n, w in wrappers.items()}))
+        return out
+
+    eng.optimize_backend = timed_optimize
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t0 = time.perf_counter()
+        _, launches = counted(lambda: [eng.process_sweep(sw) for sw in sweeps]
+                              + [eng.flush()])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    gt_pos = (np.linalg.inv(gt[0])[None] @ gt)[:, :3, 3]
+    path = float(np.linalg.norm(np.diff(gt_pos, axis=0), axis=1).sum())
+    ate_before = float(ate_rmse(eng.trajectory, gt_pos, align=False))
+    t0 = time.perf_counter()
+    eng.optimize_backend()
+    corr = eng.apply_backend_corrections()
+    torch.cuda.synchronize()
+    final_ms = (time.perf_counter() - t0) * 1e3
+    ate_after = float(ate_rmse(eng.trajectory, gt_pos, align=False))
+    return dict(eng=eng, passes=passes, launches=launches, wall_s=wall,
+                fps=len(sweeps) / wall, path_mm=path, ate_before=ate_before,
+                ate_after=ate_after, final_ms=final_ms, correction=corr,
+                keyframes=eng._kf_count, map_size=eng.records[-1].map_size,
+                n_evicted=eng.n_evicted,
+                tail_inliers=[r.n_inliers for r in eng.records[-8:]])
+
+
+def check_loop_kernels(eng, dev):
+    """Kernels C and D at the loop-verification shape: two of the drive's
+    keyframes, 600 keypoints against 600, as `_verify_pair` calls them."""
+    import torch
+
+    from bshot_slam_tpu_torch.geometry import se3
+    from bshot_slam_tpu_torch.kernels import mapops as M
+
+    kf = eng.keyframes
+    a, am, b, bm = (kf.descriptors[0], kf.kp_mask[0], kf.descriptors[1], kf.kp_mask[1])
+    K = a.shape[0]
+    rel = se3.compose(se3.inverse(kf.poses[1]), kf.poses[0])
+    q = se3.apply(rel, kf.keypoints[0]).contiguous()
+    r = kf.keypoints[1].contiguous()
+    ca, cam, cb, cbm, cq, cr = cpu(a, am, b, bm, q, r)
+    pairs = float(cam.sum()) * float(cbm.sum())
+    rows = {}
+    got = M.hamming_nn_bounded(a, am, b, bm, K)
+    again = M.hamming_nn_bounded(a, am, b, bm, K)
+    want = M.hamming_nn_bounded_plain(ca, cam, cb, cbm, K)
+    card = M.hamming_nn_bounded_plain(a, am, b, bm, K)
+    b_ms, b_by = bound(2 * K * 45 + 2 * K * 8, scaled(M.HAMMING_PAIR_OPS, pairs))
+    rows["hamming_nn_bounded"] = dict(
+        int_mismatch=sum(int_mismatch(g, w) for g, w in zip(got, want)),
+        card_plain_rows_differ=int_mismatch(got[1], card[1]) + int_mismatch(got[3], card[3]),
+        deterministic=same_bits(got, again),
+        max_abs_err=float(max((g.cpu() - w).abs().max() for g, w in
+                              ((got[0], want[0]), (got[2], want[2])))),
+        **measure(lambda: M.hamming_nn_bounded(a, am, b, bm, K),
+                  lambda: M.hamming_nn_bounded_plain(a, am, b, bm, K)),
+        bound_ms=b_ms, bound_by=b_by, shapes=f"a ({K},11) vs b ({K},11), {pairs:.0f} valid pairs")
+    got = M.euclid_nn_bounded(q, am, r, bm, K)
+    again = M.euclid_nn_bounded(q, am, r, bm, K)
+    want = M.euclid_nn_bounded_plain(cq, cam, cr, cbm, K)
+    card = M.euclid_nn_bounded_plain(q, am, r, bm, K)
+    b_ms, b_by = bound(2 * K * 13 + K * 8, scaled(M.EUCLID_PAIR_OPS, pairs))
+    rows["euclid_nn_bounded"] = dict(
+        int_mismatch=int_mismatch(got[1], want[1]) + int_mismatch(got[0], want[0]),
+        card_plain_rows_differ=int_mismatch(got[1], card[1]),
+        deterministic=same_bits(got, again),
+        max_abs_err=float((got[0].cpu() - want[0]).abs().max()),
+        **measure(lambda: M.euclid_nn_bounded(q, am, r, bm, K),
+                  lambda: M.euclid_nn_bounded_plain(q, am, r, bm, K)),
+        bound_ms=b_ms, bound_by=b_by, shapes=f"q ({K},3) vs ref ({K},3), {pairs:.0f} valid pairs")
+    torch.cuda.synchronize()
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -579,6 +861,7 @@ def main() -> int:
     from bshot_slam_tpu_torch.kernels import build_all
     from bshot_slam_tpu_torch.odometry.engine import pick_bucket
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     print(f"[1] card: {card}", flush=True)
@@ -586,8 +869,9 @@ def main() -> int:
 
     cfg = default_config()
     t0 = time.perf_counter()
-    sweeps, gt = render_drive(cfg)
-    print(f"[2] rendered {len(sweeps)} frames in {time.perf_counter() - t0:.1f} s; "
+    drive_sweeps, drive_gt = render_drive(cfg, N_DRIVE)
+    sweeps, gt = drive_sweeps[:N_FRAMES], drive_gt[:N_FRAMES]
+    print(f"[2] rendered {len(drive_sweeps)} frames in {time.perf_counter() - t0:.1f} s; "
           f"host preprocess {host_preprocess_ms(cfg, sweeps):.2f} ms/frame", flush=True)
 
     points, nv = frame_cloud(cfg, sweeps[3])
@@ -618,7 +902,7 @@ def main() -> int:
     if wide:  # a trace can lose records, not add them
         raise SmokeError(f"more device launches per call than allowed: {wide}")
 
-    res, _ = run_engine(cfg, sweeps, gt, dev)
+    res, sync_eng = run_engine(cfg, sweeps, gt, dev)
     print(f"[4] engine: {N_FRAMES} frames, {res['fps']:.3f} frames/s after the "
           f"first ({res['first_frame_s']:.2f} s), ATE {res['ate_mm']:.1f} mm on a "
           f"{res['path_mm']:.0f} mm path, tail inliers {res['tail_inliers']}, "
@@ -643,6 +927,79 @@ def main() -> int:
         raise SmokeError(f"kernel D made {icp} device launches per frame, more than "
                          f"one per ICP iteration ({cfg.match.icp_iterations})")
 
+    pipe = pipelined_phase(cfg, sweeps, sync_eng, dev)
+    print(f"[4b] pipelined (fetch_every {FETCH_EVERY}): {N_FRAMES} frames, "
+          f"{pipe['fps']:.3f} frames/s after the first (synchronous [4]: "
+          f"{res['fps']:.3f}); records bit-identical to the synchronous run: "
+          f"{pipe['equal']}; launches {pipe['launches']}", flush=True)
+    print(f"[4b] synchronising calls: first frame {pipe['first_call_syncs']} "
+          f"({pipe['first_sites'] or 'none'}: the cursor bound's first read), "
+          f"{pipe['syncs_per_frame']:.3f} per frame over "
+          f"the {len(pipe['between'])} frames between drains (by source line: "
+          f"{pipe['sites'] or 'none'}), at the drains {pipe['drain_syncs']}", flush=True)
+    print(f"[4b] forced window overflow (window_cap {OVERFLOW_WINDOW}): "
+          f"{pipe['redispatched']} of {pipe['overflow_frames']} frames aborted and "
+          f"re-run; records equal to the synchronous engine's: "
+          f"{pipe['overflow_equal']}", flush=True)
+    if not (pipe["equal"] and pipe["overflow_equal"]):
+        raise SmokeError("pipelined records differ from the synchronous engine's")
+    if not pipe["redispatched"]:
+        raise SmokeError("the forced window overflow aborted no frame")
+
+    ev = eviction_phase(cfg, drive_sweeps, dev)
+    print(f"[4c] eviction: map one frame short of {cfg.map.capacity}; 8 frames "
+          f"pipelined evicted {ev['n_evicted']} keypoints (tail inliers "
+          f"{ev['tail_inliers']}); evict_keypoints at cursor {ev['cursor']} "
+          f"drops {ev['evicted_now']} rows, card equal to CPU copies in every "
+          f"field, twice: {ev['exact']}; {ev['ms']:.3f} ms on the card (CPU "
+          f"{ev['cpu_ms']:.1f} ms); launches {ev['launches']}", flush=True)
+    if not ev["n_evicted"] or not ev["exact"]:
+        raise SmokeError("eviction did not run, or the card differs from the CPU")
+
+    bk = backend_phase(cfg, drive_sweeps, drive_gt, dev)
+    for i, ps in enumerate(bk["passes"]):
+        print(f"[4d] backend pass {i}: {ps['keyframes']} keyframes, "
+              f"{ps['verified']} pairs verified, {ps['closures']} closures, best "
+              f"candidate {ps['best_inliers']} inliers, {ps['ms']:.1f} ms, kernel C "
+              f"x{ps['launches']['hamming_nn_bounded']}, D "
+              f"x{ps['launches']['euclid_nn_bounded']}", flush=True)
+    print(f"[4d] backend drive: {N_DRIVE} frames in {bk['wall_s']:.1f} s "
+          f"({bk['fps']:.3f} frames/s with the passes), {bk['keyframes']} keyframes, "
+          f"map {bk['map_size']}, evicted {bk['n_evicted']}; ATE {bk['ate_before']:.1f} "
+          f"mm before and {bk['ate_after']:.1f} mm after a final "
+          f"apply_backend_corrections() ({bk['final_ms']:.1f} ms, "
+          f"{bk['correction']}) on a {bk['path_mm']:.0f} mm path; tail inliers "
+          f"{bk['tail_inliers']}; launches {bk['launches']}", flush=True)
+    if not bk["ate_after"] < 0.10 * bk["path_mm"]:
+        raise SmokeError("quality guard (backend drive): ATE >= 10% of the path")
+    if max(bk["tail_inliers"]) < cfg.match.gate_min_inliers:
+        raise SmokeError("quality guard (backend drive): too few inliers at the end")
+    if len(bk["passes"]) < N_DRIVE // BACKEND_EVERY:
+        raise SmokeError(f"only {len(bk['passes'])} backend passes ran")
+    loop_cd = {k: sum(ps["launches"][k] for ps in bk["passes"])
+               for k in ("hamming_nn_bounded", "euclid_nn_bounded")}
+    loop = check_loop_kernels(bk["eng"], dev)
+    for name, r in loop.items():
+        print(f"[4d] {name} at the loop-verification shape: {r['shapes']}; int "
+              f"mismatches vs CPU plain {r['int_mismatch']}, rows differing from "
+              f"the plain version on the card {r['card_plain_rows_differ']}, two runs "
+              f"bit-identical: {r['deterministic']}; kernel {r['ms']:.4f} ms (device "
+              f"only {r['device_ms']:.4f} ms in {r['device_launches_per_call']:.0f} "
+              f"launches), plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+        if r["int_mismatch"] or r["card_plain_rows_differ"] or not r["deterministic"]:
+            raise SmokeError(f"{name} disagrees at the loop-verification shape")
+        if r["device_launches_per_call"] > MAX_DEVICE_LAUNCHES.get(name, 1):
+            raise SmokeError(f"{name} made {r['device_launches_per_call']} device "
+                             "launches per call at the loop-verification shape")
+    paths = {"sync_24": res["launches"], "pipelined_24": pipe["launches"],
+             "eviction_8": ev["launches"], "backend_129": bk["launches"]}
+    idle = {p: [k for k, n in c.items() if n == 0] for p, c in paths.items()}
+    idle = {p: ks for p, ks in idle.items() if ks}
+    if idle or not all(loop_cd.values()):
+        raise SmokeError(f"kernels never launched on a path: {idle}, loop "
+                         f"verification {loop_cd}")
+
     keys = ("name", "source", "replaces", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "max_abs_err", "device_ms",
             "device_launches_per_call", "host_us_per_call")
@@ -651,8 +1008,18 @@ def main() -> int:
         k = {key: r[key] for key in keys}
         n = res["launches"][r["name"]]  # over the whole engine run
         k.update(route="cuda", launches=n, frames=N_FRAMES,
-                 launches_per_frame=n / N_FRAMES)
+                 launches_per_frame=n / N_FRAMES,
+                 launches_by_path={p: c[r["name"]] for p, c in paths.items()})
+        if r["name"] in loop:
+            lr = loop[r["name"]]
+            k["loop_verification"] = dict(
+                {key: lr[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "max_abs_err", "device_ms",
+                                          "device_launches_per_call")},
+                shapes=lr["shapes"], launches=loop_cd[r["name"]],
+                passes=len(bk["passes"]))
         kernels.append(k)
+    print(f"[5] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

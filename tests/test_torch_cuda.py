@@ -5,7 +5,10 @@ card with `python -m pytest tests/test_torch_cuda.py -q -m cuda`.  Integer
 outputs must equal the plain version run on CPU copies exactly (the kernels
 reproduce its rounding); float sums agree to summation order.  Kernels A
 to E also run every edge case of `tests/torch_kernel_cases.py`, twice: the
-two runs must be bit-identical.
+two runs must be bit-identical.  Map eviction on the card equals the same
+call on CPU copies exactly; C and D at the loop-verification shape (600
+against 600) equal their plain versions; the pipelined engine with the
+backend equals the synchronous one on the card.
 """
 
 import numpy as np
@@ -16,10 +19,12 @@ from bshot_slam_tpu_torch import tiny_config
 from bshot_slam_tpu_torch.io import synthetic
 from bshot_slam_tpu_torch.kernels import mapops as M
 from bshot_slam_tpu_torch.kernels import neighborhood as K
+from bshot_slam_tpu_torch.odometry import mapstore as tmap
 from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 from tests.torch_kernel_cases import (
     A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES,
-    accumulate_case, dedup_case, euclid_case, hamming_case, segratio_case,
+    EVICT_CASES, accumulate_case, dedup_case, euclid_case, evict_case,
+    hamming_case, keyframe_pair, segratio_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -228,3 +233,56 @@ def test_engine_step_on_card(dev):
         a, b = on_card.process_sweep(sw), on_cpu.process_sweep(sw)
         assert abs(a.map_size - b.map_size) <= 3
         assert np.abs(a.pose[:3, 3] - b.pose[:3, 3]).max() <= 5.0
+
+
+@pytest.mark.parametrize("case", sorted(EVICT_CASES))
+def test_evict_on_card(dev, case):
+    """Eviction on the card equals the same call on CPU copies exactly,
+    every field (the permutation included), twice."""
+    d, n_evict = evict_case(case)
+    t = {f: torch.tensor(d[f].view(np.int32) if d[f].dtype == np.uint32 else d[f])
+         for f in d}
+    want = tmap.evict_keypoints(tmap.MapState(**t), n_evict)
+    for _ in range(2):
+        got = tmap.evict_keypoints(tmap.MapState(**{f: x.to(dev) for f, x in t.items()}),
+                                   n_evict)
+        for f, g, w in zip(tmap.MapState._fields, got, want):
+            assert torch.equal(g.cpu(), w), f
+
+
+def test_loop_verification_kernels_on_card(dev):
+    """Kernels C and D at the loop-verification shape (600 keypoints against
+    600), as `_verify_pair` calls them, equal their plain versions on CPU
+    copies, twice."""
+    kp_a, desc_a, mask_a, kp_b, desc_b, mask_b = keyframe_pair(1)
+    a, b = torch.tensor(desc_a.view(np.int32)), torch.tensor(desc_b.view(np.int32))
+    am, bm = torch.tensor(mask_a), torch.tensor(mask_b)
+    want = M.hamming_nn_bounded(a, am, b, bm, 600)
+    q, r = torch.tensor(kp_a), torch.tensor(kp_b)
+    want_d = M.euclid_nn_bounded(q, am, r, bm, 600)
+    for _ in range(2):
+        got = M.hamming_nn_bounded(a.to(dev), am.to(dev), b.to(dev), bm.to(dev), 600)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        got = M.euclid_nn_bounded(q.to(dev), am.to(dev), r.to(dev), bm.to(dev), 600)
+        for g, w in zip(got, want_d):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_pipelined_engine_on_card(dev):
+    """The pipelined engine with the backend on the card gives the
+    synchronous engine's records, bit for bit (the kernels are
+    deterministic)."""
+    cfg = tiny_config()
+    sweeps, _ = synthetic.render_sequence(6, cfg.sensor, seed=3,
+                                          n_firings=cfg.sensor.n_azimuth)
+    runs = []
+    for pipelined in (False, True):
+        eng = SlamEngine(cfg, tile=256, enable_backend=True, backend_every=3,
+                         pipelined=pipelined, fetch_every=2)
+        for sw in sweeps:
+            eng.process_sweep(sw)
+        eng.flush()
+        runs.append(eng.records)
+    for a, b in zip(*runs):
+        assert np.array_equal(a.pose, b.pose) and a.map_size == b.map_size

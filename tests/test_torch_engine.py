@@ -18,8 +18,12 @@
     within 1, poses within 0.37 mm, ATE 133.58 vs 133.62 mm.  Held: counts
     within 5, poses within 2 mm and 1e-4 rad, ATE within 5 mm.
 (b) Every module of the port imports, and one CPU step runs, with `jax`
-    and `bshot_slam_tpu` made unimportable.
-(c) `SlamEngine()` without a device raises when no card is visible.
+    and `bshot_slam_tpu` made unimportable; so do the pipelined engine with
+    the backend (keyframes, loop closure, pose graph, corrections) and a
+    bundle adjustment over its keyframes.
+(c) `SlamEngine()` without a device raises when no card is visible; the
+    two modes not ported yet (fused device preprocess, meshes) raise
+    NotImplementedError.
 (d) Importing the port builds nothing and creates no build directory.
 """
 
@@ -159,6 +163,15 @@ sweeps, _ = synthetic.render_sequence(1, cfg.sensor, seed=3,
                                       n_firings=cfg.sensor.n_azimuth)
 rec = SlamEngine(cfg, device="cpu", tile=256).process_sweep(sweeps[0])
 assert rec.map_size > 0 and np.allclose(rec.pose, np.eye(4))
+from bshot_slam_tpu_torch.backend.ba import ba_solve
+eng = SlamEngine(cfg, device="cpu", tile=256, pipelined=True, fetch_every=2,
+                 enable_backend=True, keep_corr=True)
+for sw in sweeps + sweeps:
+    eng.process_sweep(sw)
+assert eng.flush() is not None and len(eng.records) == 2
+poses, edges = eng.optimize_backend()
+assert poses.shape[1:] == (4, 4) and "n_landmarks_moved" in eng.apply_backend_corrections()
+ba_solve(eng.build_ba_problem(), gn_iterations=1, cg_iterations=2)
 assert "jax" not in {k for k, v in sys.modules.items() if v is not None}
 print("ok")
 """
@@ -176,7 +189,9 @@ def test_engine_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tengine.SlamEngine(tc.tiny_config())
     with pytest.raises(NotImplementedError):
-        tengine.SlamEngine(tc.tiny_config(), device="cpu", pipelined=True)
+        tengine.SlamEngine(tc.tiny_config(), device="cpu", host_preprocess=False)
+    with pytest.raises(NotImplementedError):
+        tengine.SlamEngine(tc.tiny_config(), device="cpu", mesh=object())
 
 
 _NO_BUILD = r"""

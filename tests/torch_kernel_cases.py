@@ -1,9 +1,11 @@
-"""Seeded edge cases for the port's kernels A to E (numpy only).
+"""Seeded edge cases for the port's kernels A to E, map eviction and loop
+verification (numpy only).
 
-`tests/test_torch_kernel_cases.py` runs them through the port's plain
-versions against the reference on the CPU; `tests/test_torch_cuda.py` runs
-the CUDA kernels against the plain versions on the card.  A case is a dict
-of numpy arrays and scalars, made from a fixed seed by name.
+`tests/test_torch_kernel_cases.py` and `tests/test_torch_backend.py` run
+them through the port's plain versions against the reference on the CPU;
+`tests/test_torch_cuda.py` runs the CUDA kernels (and eviction on the card)
+against the plain versions.  A case is a dict of numpy arrays and scalars,
+made from a fixed seed by name.
 """
 
 import numpy as np
@@ -342,3 +344,64 @@ def dedup_case(name: str) -> dict:
     mblk = np.round(mpos / BLOCK_MM).astype(np.int32)
     return dict(pos=pos, blk=blk, seg=seg, map_pos=mpos, map_blk=mblk, map_seg=mseg,
                 map_valid=mvalid, n_valid=nv, expect=expect)
+
+
+# Map eviction: (capacity, valid rows, voxel blocks, seg-ratio levels,
+# n_evict).  "ties": few blocks and levels, so scores tie; the full 131072-row
+# map's float32 scores pass 2^24 and round into ties; n_evict above the
+# valid rows; an empty map.
+EVICT_CASES = {
+    "ties": (4096, 3000, 6, 4, 1200),
+    "full_capacity_rounding": (131072, 131072, 40, 1000, 1200),
+    "more_than_valid": (1024, 100, 3, 8, 512),
+    "empty": (1024, 0, 3, 8, 64),
+}
+
+
+def evict_case(name: str) -> tuple[dict, int]:
+    """(MapState fields as numpy arrays, n_evict): valid rows spread over a
+    few voxel blocks, seg ratios from a few levels (ties), each valid row's
+    frame_born its row number (so the result shows where rows went)."""
+    C, n_valid, n_blocks, seg_levels, n_evict = EVICT_CASES[name]
+    rng = np.random.default_rng(len(name))
+    blocks = rng.integers(-3, 3, (n_blocks, 3))
+    which = rng.integers(0, n_blocks, C)
+    pos = (blocks[which] * BLOCK_MM
+           + rng.uniform(-4000, 4000, (C, 3))).astype(np.float32)
+    pos = _snap(pos)
+    valid = np.arange(C) < n_valid
+    seg = rng.integers(0, seg_levels, C).astype(np.float32) / seg_levels
+    return dict(
+        positions=np.where(valid[:, None], pos, 0).astype(np.float32),
+        descriptors=_words(rng, C),
+        seg_ratios=np.where(valid, seg, 0).astype(np.float32),
+        blocks=np.where(valid[:, None], np.round(pos / BLOCK_MM), 0).astype(np.int32),
+        valid=valid,
+        cursor=np.int32(n_valid),
+        frame_born=np.where(valid, np.arange(C), -1).astype(np.int32),
+        n_dropped=np.int32(5),
+    ), n_evict
+
+
+def keyframe_pair(seed: int, K: int = 600) -> tuple:
+    """Two keyframes of one place, (kp, desc, mask) of each: b sees a's
+    keypoints moved by a rigid transform plus 40 mm noise, 30% replaced by
+    outliers, descriptors with three flipped bits, rows shuffled."""
+    rng = np.random.default_rng(seed)
+    kp_a = rng.uniform(-2e4, 2e4, (K, 3)).astype(np.float32)
+    desc_a = _words(rng, K)
+    th = 0.2
+    R = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0],
+                  [0, 0, 1]])
+    kp_b = (kp_a @ R.T + np.array([1500.0, -800.0, 30.0])
+            + rng.normal(0, 40, (K, 3))).astype(np.float32)
+    desc_b = desc_a.copy()
+    for _ in range(3):
+        col = rng.integers(0, 11, K)
+        desc_b[np.arange(K), col] ^= (1 << rng.integers(0, 32, K)).astype(np.uint32)
+    out = rng.random(K) < 0.3
+    kp_b[out] = rng.uniform(-2e4, 2e4, (out.sum(), 3))
+    desc_b[out] = _words(rng, int(out.sum()))
+    perm = rng.permutation(K)
+    mask_a, mask_b = rng.random(K) > 0.05, rng.random(K) > 0.05
+    return kp_a, desc_a, mask_a, kp_b[perm], desc_b[perm], mask_b
