@@ -10,7 +10,8 @@ Libraries are keyed by a hash of the sources and the flags, so an edited
 kernel rebuilds and an unchanged one loads at once.  Nothing builds at
 import time: `library(name)` builds on the first CUDA launch, and
 `build_all()` builds every source at once, one nvcc process each, all
-started together.
+started together.  `start_build` / `finish_build` also build the host C++
+library of `io/native_decoder.py` with g++.
 """
 
 from __future__ import annotations
@@ -48,35 +49,51 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _target(name: str) -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+def _target(source: pathlib.Path, deps, flags, build_dir: pathlib.Path) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in [source, *deps]:
         h.update(path.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return build_dir / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """Start nvcc for one source; returns (process or None, target, tmp)."""
-    target = _target(name)
+def start_build(compiler, source: pathlib.Path, deps, flags,
+                build_dir: pathlib.Path, libs=()):
+    """Start compiling `source` (plus the headers `deps`) into
+    build_dir/<stem>-<hash of flags and sources>.so; returns (process or
+    None when the library is already built, target, temporary name).
+    `compiler()` names the compiler; it is asked only when a build starts.
+    Each process writes its own temporary file and renames it into place,
+    so processes building the same library at once do not collide."""
+    target = _target(source, deps, flags, build_dir)
     if target.exists():
         return None, target, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [compiler(), *flags, "-o", str(tmp), str(source), *libs]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     return proc, target, tmp
 
 
-def _finish(name: str, proc, target: pathlib.Path, tmp) -> None:
+def finish_build(what: str, proc, target: pathlib.Path, tmp) -> ctypes.CDLL:
+    """Wait for a build from `start_build` and load its library; raises with
+    the compiler's output when the build failed."""
     if proc is not None:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed for csrc/{name}.cu:\n{out.decode(errors='replace')}"
+                f"building {what} failed:\n{out.decode(errors='replace')}"
             )
         os.replace(tmp, target)
-    lib = ctypes.CDLL(str(target))
-    _LIBS[name] = lib
+    return ctypes.CDLL(str(target))
+
+
+def _start(name: str):
+    return start_build(_nvcc, CSRC / f"{name}.cu", sorted(CSRC.glob("*.cuh")),
+                       NVCC_FLAGS, BUILD_DIR)
+
+
+def _finish(name: str, proc, target: pathlib.Path, tmp) -> None:
+    _LIBS[name] = finish_build(f"csrc/{name}.cu with nvcc", proc, target, tmp)
 
 
 def build_all() -> float:

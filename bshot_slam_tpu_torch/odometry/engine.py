@@ -2,9 +2,11 @@
 
 Port of `bshot_slam_tpu.odometry.engine` (host-preprocess ingest): each
 sweep is binned into a range image, classified and extracted on the host
-(numpy), padded to the smallest cloud bucket that holds it, and stepped on
-the device.  The synchronous engine fetches each frame's packed diagnostics
-at once.  The pipelined engine (`pipelined=True`) dispatches each frame
+(the native C++ library of `io.native_decoder`, as the reference does when
+its library is built; `ops.preprocess_host` is its plain version), padded
+to the smallest cloud bucket that holds it, and stepped on the device.
+The synchronous engine fetches each frame's packed diagnostics at once.
+The pipelined engine (`pipelined=True`) dispatches each frame
 without a host sync (`pipeline.odometry_step_deferred`) and fetches the
 rows of `fetch_every` frames in one device-to-host copy; a frame whose
 match or dedup window overflowed aborts on the device, and at the drain it
@@ -35,9 +37,9 @@ import torch
 from bshot_slam_tpu_torch.backend import keyframes as kf_mod
 from bshot_slam_tpu_torch.config import SlamConfig
 from bshot_slam_tpu_torch.device import resolve_device, upload
+from bshot_slam_tpu_torch.io import native_decoder
 from bshot_slam_tpu_torch.io.velodyne import LaserSweep
 from bshot_slam_tpu_torch.odometry import mapstore, pipeline
-from bshot_slam_tpu_torch.ops import preprocess_host as ph
 from bshot_slam_tpu_torch.ops.rangeimage import RangeImage, build_range_image
 
 
@@ -49,6 +51,20 @@ def pick_bucket(n_valid: int, cfg: SlamConfig) -> int:
         if n_valid <= b <= cap:
             return b
     return cap
+
+
+def host_cloud(range_mm: np.ndarray, azimuth_rad: np.ndarray,
+               vert_rad: np.ndarray, selected: Optional[np.ndarray],
+               cfg: SlamConfig):
+    """The engine's host ingest of one range image: native classify + compact
+    extract, padded with zeros to the smallest bucket holding the kept
+    points.  Returns (points (bucket, 3) float32, n_valid)."""
+    pts, nv, _ = native_decoder.preprocess_extract_native(
+        range_mm, azimuth_rad, vert_rad, cfg.preprocess, selected,
+        cfg.preprocess.max_points)
+    points = np.zeros((pick_bucket(nv, cfg), 3), np.float32)
+    points[:nv] = pts
+    return points, nv
 
 
 @dataclasses.dataclass
@@ -105,6 +121,7 @@ class SlamEngine:
         self.cfg = cfg
         self.tile = tile
         self.device = resolve_device(device)
+        self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._draws = iter(draws) if draws is not None else None
         self.state = pipeline.init_state(cfg, device=self.device)
@@ -152,6 +169,13 @@ class SlamEngine:
         self.last_corr: Optional[dict] = None
         self._prev_kp_world: Optional[np.ndarray] = None
 
+    def _place_state(self) -> None:
+        """Re-derive what the engine keeps on the host about a state assigned
+        from outside (a resume): the pipelined engine's cursor bound.  (The
+        reference also re-commits a sharded state here; the port runs on
+        one device.)"""
+        self._cursor_ub = int(self.state.map.cursor) if self.pipelined else None
+
     # -- ingest -------------------------------------------------------------
 
     def process_sweep(self, sweep: LaserSweep,
@@ -171,16 +195,10 @@ class SlamEngine:
     def process_range_image(self, range_mm: np.ndarray, azimuth_rad: np.ndarray,
                             vert_rad: np.ndarray,
                             selected: Optional[np.ndarray] = None):
-        """Host classify + extract (numpy), then one compact device step at
-        the smallest bucket holding the kept points."""
-        classes, xyz, valid = ph.preprocess_host(range_mm, azimuth_rad, vert_rad,
-                                                 self.cfg.preprocess)
-        pts, nv = ph.extract_cloud_host(classes, xyz, valid, selected,
-                                        self.cfg.preprocess.max_points)
-        b = pick_bucket(nv, self.cfg)
-        points = np.zeros((b, 3), np.float32)
-        points[:nv] = pts
-        return self.process_compact(points, nv)
+        """Host classify + extract (`host_cloud`, native), then one compact
+        device step at the smallest bucket holding the kept points."""
+        return self.process_compact(*host_cloud(range_mm, azimuth_rad, vert_rad,
+                                                selected, self.cfg))
 
     def process_compact(self, points: np.ndarray, n_valid: int):
         """One frame from a host-preprocessed compact cloud: points
@@ -188,14 +206,15 @@ class SlamEngine:
         return self._step(upload(np.asarray(points, np.float32), self.device),
                           None, int(n_valid))
 
-    def process_cloud(self, points, pmask, n_valid=None):
+    def process_cloud(self, points, pmask, n_valid_dev=None):
         """One frame from a (bucket, 3) cloud and its (bucket,) mask (host
-        arrays or tensors); `n_valid` defaults to the mask's count."""
+        arrays or tensors); `n_valid_dev`, the count of valid points (an int
+        or a 0-d tensor), defaults to the mask's count."""
         points = self._as_device(points, np.float32)
         pmask = self._as_device(pmask, np.bool_)
-        if n_valid is None:
-            n_valid = torch.sum(pmask.to(torch.int32))
-        return self._step(points, pmask, n_valid)
+        if n_valid_dev is None:
+            n_valid_dev = torch.sum(pmask.to(torch.int32))
+        return self._step(points, pmask, n_valid_dev)
 
     def _as_device(self, x, dtype) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -528,20 +547,24 @@ class SlamEngine:
         kf_opt = self.optimized_keyframe_poses.astype(np.float32)
         kf_raw = self.keyframes.poses[:n_kf].cpu().numpy()
         corr_kf = kf_opt @ np.linalg.inv(kf_raw)
-        F = len(self.records)
-        frame0 = int(self.state.frame_idx) - F
-        kf_frames = self.keyframes.frame_idx[:n_kf].cpu().numpy() - frame0
+        # Corrections for every frame since the run began: after a resume the
+        # records hold only the frames since, but landmarks born before it
+        # move by their own frame's correction, as in the uninterrupted run
+        # (the reference clamps them to the first record's).
+        n_frames = int(self.state.frame_idx)
+        frame0 = n_frames - len(self.records)  # the first record's frame
+        kf_frames = self.keyframes.frame_idx[:n_kf].cpu().numpy()
         dev = self.device
         corr_t = corr_mod.interpolate_corrections(
             torch.from_numpy(corr_kf.astype(np.float32)).to(dev),
             torch.from_numpy(kf_frames.astype(np.int32)).to(dev),
-            torch.arange(F, dtype=torch.int32, device=dev))
-        corr = corr_t.cpu().numpy()
+            torch.arange(n_frames, dtype=torch.int32, device=dev))
+        corr = corr_t.cpu().numpy()[frame0:]
         for f, r in enumerate(self.records):
             r.pose = (corr[f] @ r.pose).astype(np.float32)
         ref_pose = (corr[-1] @ self.state.ref_pose.cpu().numpy()).astype(np.float32)
         self.state = self.state._replace(
-            map=corr_mod.reanchor_map(self.state.map, corr_t, frame0, self.cfg.map),
+            map=corr_mod.reanchor_map(self.state.map, corr_t, 0, self.cfg.map),
             ref_pose=torch.from_numpy(ref_pose).to(dev),
         )
         # The store's poses become the optimised ones so the next graph

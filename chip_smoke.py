@@ -42,14 +42,30 @@ Phases, one line each:
      quality guard; then kernels C and D at the loop-verification shape
      (two of the drive's keyframes, 600 against 600) against their plain
      versions, as in phase [3];
-  5. one JSON line of per-kernel results (`launches` counts the main path,
+  5. host ingest over the 129 frames: the range image, the numpy plain
+     version of classify + extract (`ops.preprocess_host`) and the engine's
+     native one (`io.native_decoder`), ms/frame each; classes cell-exact,
+     kept counts equal and points within 0.05 mm in every frame; then a
+     PCAP round trip: the first 24 frames encoded as Velodyne packets,
+     written, read back by `NativeSweepStream` and run through the
+     synchronous engine (prefilled map), its poses against phase [4]'s;
+  5b. checkpoint on the card: phase [4d]'s run is saved
+     (`checkpoint.save_state` / `save_backend`) right after its backend pass
+     at frame 64, a fresh engine resumes from the files and drives frames
+     64-128; its records, keyframe store and loop edges must equal the
+     uninterrupted run's bit for bit;
+  6. the bench: `bench_torch`'s engine pass (pipelined, `fetch_every=64`,
+     64k prefill) over the 129 rendered frames, one warm pass and one timed
+     pass; its JSON line, and its quality guard must hold;
+  7. one JSON line of per-kernel results (`launches` counts the main path,
      phase [4]'s engine run of `frames` frames, `launches_per_frame`
      divides it; `launches_by_path` counts each later path alone, from 0;
      C's and D's `loop_verification` the 600 x 600 check), the card line
      again, and the result line {"ok": true, "device": {...}}.
 
 The drive is rendered once, in a pool of worker processes; the script's
-wall time is printed before the JSON lines.
+wall time is printed before the JSON lines.  Checkpoints and the PCAP go
+to the git-ignored `build/chip_smoke/` beside the script.
 
 Any failed phase exits non-zero.  Without a visible CUDA device, or without
 the `bshot_slam_tpu_torch` package beside it, the script exits non-zero
@@ -60,6 +76,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import copy
 import dataclasses
 import functools
 import json
@@ -86,6 +103,7 @@ H100_DISPATCH_LANES = 128
 H100_BYTES_PER_S = 3.35e12
 N_FRAMES = 24
 N_DRIVE = 129  # bench.py's drive, one full circle
+RESUME_AT = 64  # phase [5b] saves after this many frames (a backend pass)
 PREFILL = 65536
 FETCH_EVERY = 8
 BACKEND_EVERY = 32
@@ -258,19 +276,13 @@ def render_drive(cfg, n: int | None = None):
 
 
 def frame_cloud(cfg, sweep):
-    """Host preprocess of one sweep: (points (bucket, 3), n_valid)."""
-    from bshot_slam_tpu_torch.odometry.engine import pick_bucket
-    from bshot_slam_tpu_torch.ops import preprocess_host as ph
+    """The engine's host preprocess of one sweep: (points (bucket, 3),
+    n_valid)."""
+    from bshot_slam_tpu_torch.odometry.engine import host_cloud
     from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
 
     ri = build_range_image(sweep, cfg.sensor)
-    cl, xyz, valid = ph.preprocess_host(ri.range_mm, ri.azimuth_rad,
-                                        ri.vert_rad, cfg.preprocess)
-    pts, nv = ph.extract_cloud_host(cl, xyz, valid, None,
-                                    cfg.preprocess.max_points)
-    points = np.zeros((pick_bucket(nv, cfg), 3), np.float32)
-    points[:nv] = pts
-    return points, nv
+    return host_cloud(ri.range_mm, ri.azimuth_rad, ri.vert_rad, ri.selected, cfg)
 
 
 def prefilled_map(cfg, device, n: int | None = None, far=(1.9e6, 2.1e6)):
@@ -744,16 +756,23 @@ def eviction_phase(cfg, sweeps, dev) -> dict:
                 tail_inliers=[r.n_inliers for r in eng.records[-4:]])
 
 
-def backend_phase(cfg, sweeps, gt, dev) -> dict:
+def backend_engine(cfg, dev):
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+
+    return SlamEngine(cfg, seed=0, device=dev, pipelined=True, fetch_every=FETCH_EVERY,
+                      enable_backend=True, backend_every=BACKEND_EVERY)
+
+
+def backend_phase(cfg, sweeps, gt, dev, ckpt: str) -> dict:
     """Phase [4d]: the whole drive with the backend, each pass timed and its
-    kernel launches counted."""
+    kernel launches counted; saved to `ckpt` after RESUME_AT frames (phase
+    [5b], the save's time not counted in the drive's)."""
     import torch
 
-    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+    from bshot_slam_tpu_torch import checkpoint, convert
     from bshot_slam_tpu_torch.utils.metrics import ate_rmse
 
-    eng = SlamEngine(cfg, seed=0, device=dev, pipelined=True, fetch_every=FETCH_EVERY,
-                     enable_backend=True, backend_every=BACKEND_EVERY)
+    eng = backend_engine(cfg, dev)
     eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
     passes = []
     optimize = eng.optimize_backend
@@ -770,13 +789,30 @@ def backend_phase(cfg, sweeps, gt, dev) -> dict:
         return out
 
     eng.optimize_backend = timed_optimize
+    saved = {}
+
+    def run():
+        for i, sw in enumerate(sweeps):
+            eng.process_sweep(sw)
+            if i + 1 == RESUME_AT:
+                t0 = time.perf_counter()
+                saved.update(passes=len(passes), pending=len(eng._pending))
+                checkpoint.save_state(ckpt, eng.state, eng.poses)
+                checkpoint.save_backend(ckpt, eng)
+                saved["s"] = time.perf_counter() - t0
+        eng.flush()
+
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         t0 = time.perf_counter()
-        _, launches = counted(lambda: [eng.process_sweep(sw) for sw in sweeps]
-                              + [eng.flush()])
+        _, launches = counted(run)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 - saved["s"]
+    # The uninterrupted run as phase [5b] compares it, before the final pass.
+    uninterrupted = dict(records=copy.deepcopy(eng.records),
+                         keyframes=convert.keyframes_to_numpy(eng.keyframes),
+                         state=convert.state_to_numpy(eng.state),
+                         edges=list(eng.loop_edges))
     gt_pos = (np.linalg.inv(gt[0])[None] @ gt)[:, :3, 3]
     path = float(np.linalg.norm(np.diff(gt_pos, axis=0), axis=1).sum())
     ate_before = float(ate_rmse(eng.trajectory, gt_pos, align=False))
@@ -787,6 +823,7 @@ def backend_phase(cfg, sweeps, gt, dev) -> dict:
     final_ms = (time.perf_counter() - t0) * 1e3
     ate_after = float(ate_rmse(eng.trajectory, gt_pos, align=False))
     return dict(eng=eng, passes=passes, launches=launches, wall_s=wall,
+                saved=saved, uninterrupted=uninterrupted,
                 fps=len(sweeps) / wall, path_mm=path, ate_before=ate_before,
                 ate_after=ate_after, final_ms=final_ms, correction=corr,
                 keyframes=eng._kf_count, map_size=eng.records[-1].map_size,
@@ -842,6 +879,109 @@ def check_loop_kernels(eng, dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 5-6: host ingest, checkpoint / resume, the bench
+
+
+def ingest_phase(cfg, sweeps) -> dict:
+    """Phase [5], host side: each frame's range image, the numpy plain
+    version of classify + extract and the native one, timed apart (ms per
+    frame), and compared: classes cell-exact, kept counts equal, points."""
+    from bshot_slam_tpu_torch.io import native_decoder as nd
+    from bshot_slam_tpu_torch.ops import preprocess_host as ph
+    from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
+
+    mp, pcfg = cfg.preprocess.max_points, cfg.preprocess
+    t_ri = t_np = t_nat = 0.0
+    cls_bad = count_bad = 0
+    max_pt = 0.0
+    for sw in sweeps:
+        t0 = time.perf_counter()
+        ri = build_range_image(sw, cfg.sensor)
+        t1 = time.perf_counter()
+        cl, xyz, valid = ph.preprocess_host(ri.range_mm, ri.azimuth_rad, ri.vert_rad, pcfg)
+        pts, nv = ph.extract_cloud_host(cl, xyz, valid, ri.selected, mp)
+        t2 = time.perf_counter()
+        pts_n, nv_n, cl_n = nd.preprocess_extract_native(
+            ri.range_mm, ri.azimuth_rad, ri.vert_rad, pcfg, ri.selected, mp)
+        t3 = time.perf_counter()
+        t_ri, t_np, t_nat = t_ri + t1 - t0, t_np + t2 - t1, t_nat + t3 - t2
+        cls_bad += int((cl_n != cl).sum())
+        count_bad += int(nv_n != nv)
+        if nv_n == nv and nv:
+            max_pt = max(max_pt, float(np.abs(pts_n - pts).max()))
+    n = len(sweeps)
+    return dict(frames=n, range_image_ms=t_ri / n * 1e3, numpy_ms=t_np / n * 1e3,
+                native_ms=t_nat / n * 1e3, class_cells_differ=cls_bad,
+                frames_count_differs=count_bad, max_point_mm=max_pt)
+
+
+def pcap_phase(cfg, sweeps, sync_eng, dev, path: str) -> dict:
+    """Phase [5], PCAP round trip: the sweeps encoded as Velodyne packets,
+    written, read back by NativeSweepStream and run through the synchronous
+    engine on the prefilled map; poses against phase [4]'s run."""
+    from bshot_slam_tpu_torch.io import native_decoder as nd
+    from bshot_slam_tpu_torch.io import pcap, velodyne
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+
+    pcap.write_udp_payloads(path, velodyne.encode_packets(sweeps, cfg.sensor))
+    eng = SlamEngine(cfg, seed=0, device=dev)
+    eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
+    with nd.NativeSweepStream(path, cfg.sensor) as stream:
+        _, launches = counted(lambda: [eng.process_frame(ri) for ri in stream])
+    n = len(eng.records)
+    got = np.stack([r.pose for r in eng.records])
+    want = np.stack([r.pose for r in sync_eng.records[:n]])
+    return dict(frames=n, launches=launches,
+                max_mm=float(np.abs(got[:, :3, 3] - want[:, :3, 3]).max()),
+                max_rot=float(np.abs(got[:, :3, :3] - want[:, :3, :3]).max()),
+                tail_inliers=[r.n_inliers for r in eng.records[-8:]],
+                map_size=eng.records[-1].map_size)
+
+
+def resume_phase(cfg, sweeps, bk: dict, dev, ckpt: str) -> dict:
+    """Phase [5b]: a fresh engine resumed from phase [4d]'s checkpoint drives
+    the rest of the drive; compared with the uninterrupted run."""
+    from bshot_slam_tpu_torch import checkpoint, convert
+
+    eng = backend_engine(cfg, dev)
+    eng.state, prior = checkpoint.load_state(ckpt, device=dev)
+    eng._place_state()
+    if not checkpoint.load_backend(ckpt, eng):
+        raise SmokeError("no backend checkpoint was written")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        _, launches = counted(lambda: [eng.process_sweep(sw) for sw in sweeps[RESUME_AT:]]
+                              + [eng.flush()])
+    want = bk["uninterrupted"]
+    kf = convert.keyframes_to_numpy(eng.keyframes)
+    st = convert.state_to_numpy(eng.state)
+
+    def edge(e):
+        return (e.kf_i, e.kf_j, e.n_inliers, e.rmse_mm, np.asarray(e.z).tobytes())
+
+    return dict(
+        prior=len(prior), frames=len(eng.records), launches=launches,
+        records_equal=records_equal(eng.records, want["records"][RESUME_AT:]),
+        keyframes_equal=all(np.array_equal(kf[f], want["keyframes"][f]) for f in kf),
+        state_equal=all(np.array_equal(st[f], want["state"][f]) for f in st),
+        edges_equal=[edge(e) for e in eng.loop_edges] == [edge(e) for e in want["edges"]],
+        closures=len(eng.loop_edges))
+
+
+def bench_phase(cfg, sweeps, gt, dev) -> dict:
+    """Phase [6]: bench_torch's engine pass over the rendered drive, one warm
+    pass and one timed pass."""
+    import bench_torch
+
+    bench_torch.engine_pass(cfg, sweeps, dev)
+    (fps, eng), launches = counted(lambda: bench_torch.engine_pass(cfg, sweeps, dev))
+    q = bench_torch.quality(cfg, eng, gt)
+    return dict(line=bench_torch.headline(fps, q), launches=launches, fps=fps, **q,
+                map_size=eng.records[-1].map_size, inliers=eng.records[-1].n_inliers,
+                redispatched=eng.n_redispatched)
+
+
 def main() -> int:
     try:
         import torch
@@ -858,14 +998,21 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing ({e})", file=sys.stderr)
         return 2
     from bshot_slam_tpu_torch import default_config
+    from bshot_slam_tpu_torch.io import native_decoder
     from bshot_slam_tpu_torch.kernels import build_all
     from bshot_slam_tpu_torch.odometry.engine import pick_bucket
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    work = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
     card = card_line()
     print(f"[1] card: {card}", flush=True)
-    print(f"[1] kernels built in {build_all():.2f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:  # g++ beside nvcc
+        native = pool.submit(native_decoder.is_available)
+        print(f"[1] kernels built in {build_all():.2f} s", flush=True)
+        native.result()
+    print(f"[1] native host library built: {native_decoder.BUILD_DIR}", flush=True)
 
     cfg = default_config()
     t0 = time.perf_counter()
@@ -956,7 +1103,8 @@ def main() -> int:
     if not ev["n_evicted"] or not ev["exact"]:
         raise SmokeError("eviction did not run, or the card differs from the CPU")
 
-    bk = backend_phase(cfg, drive_sweeps, drive_gt, dev)
+    ckpt = str(work / "checkpoint")
+    bk = backend_phase(cfg, drive_sweeps, drive_gt, dev, ckpt)
     for i, ps in enumerate(bk["passes"]):
         print(f"[4d] backend pass {i}: {ps['keyframes']} keyframes, "
               f"{ps['verified']} pairs verified, {ps['closures']} closures, best "
@@ -992,8 +1140,58 @@ def main() -> int:
         if r["device_launches_per_call"] > MAX_DEVICE_LAUNCHES.get(name, 1):
             raise SmokeError(f"{name} made {r['device_launches_per_call']} device "
                              "launches per call at the loop-verification shape")
+    ing = ingest_phase(cfg, drive_sweeps)
+    print(f"[5] host ingest over {ing['frames']} frames: range image "
+          f"{ing['range_image_ms']:.2f} ms/frame, then classify + extract: numpy "
+          f"(plain) {ing['numpy_ms']:.2f} ms/frame, native {ing['native_ms']:.2f} "
+          f"ms/frame; class cells differing {ing['class_cells_differ']}, frames whose "
+          f"kept count differs {ing['frames_count_differs']}, largest point "
+          f"difference {ing['max_point_mm']:.6f} mm", flush=True)
+    if ing["class_cells_differ"] or ing["frames_count_differs"] or ing["max_point_mm"] > 0.05:
+        raise SmokeError("native classify + extract differs from the numpy plain version")
+    if not ing["native_ms"] < ing["numpy_ms"]:
+        raise SmokeError("native host ingest is not faster than numpy")
+    pc = pcap_phase(cfg, sweeps, sync_eng, dev, str(work / "drive.pcap"))
+    print(f"[5] PCAP round trip: {len(sweeps)} frames encoded and written, "
+          f"{pc['frames']} read back by NativeSweepStream and run through the "
+          f"engine; largest pose difference from the sweeps path [4]: "
+          f"{pc['max_mm']:.3f} mm, {pc['max_rot']:.2e} in rotation; tail inliers "
+          f"{pc['tail_inliers']}, map {pc['map_size']}; launches {pc['launches']}",
+          flush=True)
+    if pc["frames"] < len(sweeps) - 1 or max(pc["tail_inliers"]) < cfg.match.gate_min_inliers:
+        raise SmokeError("the PCAP round trip lost frames or matching collapsed")
+    print(f"[5] engine records on the native path ([4]): frames {len(sync_eng.records)}, "
+          f"inliers {[r.n_inliers for r in sync_eng.records]}, map sizes "
+          f"{sync_eng.records[0].map_size}..{sync_eng.records[-1].map_size}", flush=True)
+
+    rs = resume_phase(cfg, drive_sweeps, bk, dev, ckpt)
+    print(f"[5b] checkpoint at frame {RESUME_AT} (after backend pass "
+          f"{bk['saved']['passes']}, {bk['saved']['pending']} frames in flight, saved "
+          f"in {bk['saved']['s']:.2f} s; prior poses {rs['prior']}); resumed engine "
+          f"drove {rs['frames']} frames: records bit-identical to the uninterrupted "
+          f"run {rs['records_equal']}, keyframe store {rs['keyframes_equal']}, state "
+          f"{rs['state_equal']}, loop edges {rs['edges_equal']} ({rs['closures']} "
+          f"closures); launches {rs['launches']}", flush=True)
+    if bk["saved"]["pending"] or rs["prior"] != RESUME_AT:
+        raise SmokeError("the checkpoint was not taken on a drained engine")
+    if not (rs["records_equal"] and rs["keyframes_equal"] and rs["state_equal"]
+            and rs["edges_equal"]):
+        raise SmokeError("the resumed run differs from the uninterrupted run")
+
+    bench = bench_phase(cfg, drive_sweeps, drive_gt, dev)
+    print(f"[6] bench_torch: {json.dumps(bench['line'])}", flush=True)
+    print(f"[6] bench_torch engine pass: {len(drive_sweeps)} frames, {bench['fps']:.3f} "
+          f"frames/s (one warm pass, one timed), final map {bench['map_size']}, "
+          f"inliers {bench['inliers']}, redispatched {bench['redispatched']}, ATE "
+          f"{bench['ate_mm']:.1f} mm on a {bench['path_mm']:.0f} mm path, tail inliers "
+          f"{bench['tail_inliers']}; launches {bench['launches']}", flush=True)
+    if not bench["quality_ok"]:
+        raise SmokeError("bench_torch's quality guard failed")
+
     paths = {"sync_24": res["launches"], "pipelined_24": pipe["launches"],
-             "eviction_8": ev["launches"], "backend_129": bk["launches"]}
+             "eviction_8": ev["launches"], "backend_129": bk["launches"],
+             "pcap_native_stream": pc["launches"], "resume_65": rs["launches"],
+             "bench_129": bench["launches"]}
     idle = {p: [k for k, n in c.items() if n == 0] for p, c in paths.items()}
     idle = {p: ks for p, ks in idle.items() if ks}
     if idle or not all(loop_cd.values()):
@@ -1019,7 +1217,7 @@ def main() -> int:
                 shapes=lr["shapes"], launches=loop_cd[r["name"]],
                 passes=len(bk["passes"]))
         kernels.append(k)
-    print(f"[5] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[7] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
