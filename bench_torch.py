@@ -20,9 +20,13 @@ Prints bench.py's JSON line first, with its keys and metric name
 limit (nvidia-smi), the final map size, inliers and re-dispatched frames.
 The quality guard is bench.py's: ATE against ground truth below 10% of the
 path and at least the pose gate's inliers on one of the last 8 frames, else
-exit 1.  `--full` then times the odometry step alone over the clouds the
-engine's host path prepares (the device preprocess is not ported yet).
-Rendering the drive (in a pool of worker processes) is not timed.
+exit 1.  `--full` then times the odometry step alone over prepared clouds,
+in two forms: the clouds the engine's host path prepares
+(`odometry_step_compact`), and, as bench.py's step-only pass does, the
+clouds of the device preprocess (`ops.preprocess` + `extract_cloud` at
+`max_points`, sliced to `pick_bucket` of the kept count; `odometry_step`
+with the mask).  Rendering the drive (in a pool of worker processes) is
+not timed.
 """
 
 from __future__ import annotations
@@ -165,13 +169,11 @@ def device_line(device) -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def step_only_fps(cfg, sweeps, device) -> float:
-    """Frames/s of the odometry step alone (`odometry_step_compact`) over
-    the clouds the engine's host path prepares, uploaded beforehand, after
-    a warm pass over every distinct bucket."""
+def host_clouds(cfg, sweeps, device) -> list:
+    """The engine's host preprocess of each sweep, uploaded: [(points
+    (bucket, 3), None, n_valid)]."""
     import torch
 
-    from bshot_slam_tpu_torch.odometry import pipeline
     from bshot_slam_tpu_torch.odometry.engine import host_cloud
     from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
 
@@ -179,19 +181,61 @@ def step_only_fps(cfg, sweeps, device) -> float:
     for sw in sweeps:
         ri = build_range_image(sw, cfg.sensor)
         pts, nv = host_cloud(ri.range_mm, ri.azimuth_rad, ri.vert_rad, None, cfg)
-        clouds.append((torch.as_tensor(pts, device=device), nv))
+        clouds.append((torch.as_tensor(pts, device=device), None, nv))
+    return clouds
+
+
+def device_clouds(cfg, sweeps, device) -> list:
+    """bench.py's step-only clouds: each sweep's device preprocess
+    (`preprocess` + `extract_cloud` at max_points, with the range image's
+    select list), sliced to the bucket of its kept count: [(points, pmask,
+    None)]."""
+    import torch
+
+    from bshot_slam_tpu_torch.odometry.engine import pick_bucket
+    from bshot_slam_tpu_torch.ops import preprocess as pp
+    from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
+
+    clouds = []
+    for sw in sweeps:
+        ri = build_range_image(sw, cfg.sensor)
+        r, az, v, sel = (torch.as_tensor(x, device=device) for x in
+                         (ri.range_mm, ri.azimuth_rad, ri.vert_rad, ri.selected))
+        res = pp.preprocess(r, az, v, cfg.preprocess)
+        pts, pmask = pp.extract_cloud(res, sel, cfg.preprocess.max_points)
+        b = pick_bucket(int(torch.sum(pmask)), cfg)
+        clouds.append((pts[:b], pmask[:b], None))
+    return clouds
+
+
+def step_only_fps(cfg, clouds, device) -> float:
+    """Frames/s of the odometry step alone over prepared clouds on the
+    device, after a warm pass over every distinct bucket:
+    `odometry_step_compact` where a cloud has no mask (n_valid given),
+    `odometry_step` with its mask otherwise."""
+    import torch
+
+    from bshot_slam_tpu_torch.odometry import pipeline
+
     state = pipeline.init_state(cfg, device=device)._replace(
         map=_prefilled_map(cfg, cfg.map.capacity, device=device))
     gen = torch.Generator(device=device).manual_seed(0)
+
+    def step(state, cloud):
+        pts, pmask, nv = cloud
+        if pmask is None:
+            return pipeline.odometry_step_compact(state, pts, nv, gen, cfg)[0]
+        return pipeline.odometry_step(state, pts, pmask, gen, cfg)[0]
+
     warmed = set()
-    for pts, nv in clouds:
-        if pts.shape[0] not in warmed:
-            warmed.add(pts.shape[0])
-            state, _ = pipeline.odometry_step_compact(state, pts, nv, gen, cfg)
+    for cloud in clouds:
+        if cloud[0].shape[0] not in warmed:
+            warmed.add(cloud[0].shape[0])
+            state = step(state, cloud)
     _wait(device)
     t0 = time.perf_counter()
-    for pts, nv in clouds:
-        state, _ = pipeline.odometry_step_compact(state, pts, nv, gen, cfg)
+    for cloud in clouds:
+        state = step(state, cloud)
     _wait(device)
     return len(clouds) / (time.perf_counter() - t0)
 
@@ -202,7 +246,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("n_frames", nargs="?", type=int, default=N_FRAMES)
     ap.add_argument("--full", action="store_true",
-                    help="also time the odometry step alone (stderr)")
+                    help="also time the odometry step alone over prepared "
+                         "clouds, host- and device-preprocessed (stderr)")
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch path on the CPU")
     args = ap.parse_args(argv)
@@ -237,9 +282,13 @@ def main(argv=None) -> int:
         return 1
     if args.full:
         print(f"# step-only (odometry_step_compact over host-preprocessed "
-              f"clouds, uploaded beforehand; the device preprocess is not "
-              f"ported): {step_only_fps(cfg, sweeps, device):.3f} frames/s",
-              file=sys.stderr, flush=True)
+              f"clouds, uploaded beforehand): "
+              f"{step_only_fps(cfg, host_clouds(cfg, sweeps, device), device):.3f} "
+              f"frames/s", file=sys.stderr, flush=True)
+        print(f"# step-only (odometry_step over device-preprocessed clouds, "
+              f"prepared beforehand): "
+              f"{step_only_fps(cfg, device_clouds(cfg, sweeps, device), device):.3f} "
+              f"frames/s", file=sys.stderr, flush=True)
     return 0
 
 

@@ -35,7 +35,9 @@
 //      only when one of its 32 queries is in radius, and then without a
 //      divergent branch: acc = fma(w, feat, acc) with w in {0, 1} rounds
 //      exactly like acc + feat.  The splits put several blocks on every one
-//      of the 132 SMs.  Each block writes its partial sums to scratch; the
+//      of the 132 SMs; their number is fixed (SPLITS in kernels/
+//      neighborhood.py), so a row's sum does not depend on how far the
+//      cloud is padded.  Each block writes its partial sums to scratch; the
 //      last block of a query block to finish (a counter behind
 //      __threadfence) adds the partials in ascending split order and writes
 //      the result.  No float atomics: the same inputs give the same bits.

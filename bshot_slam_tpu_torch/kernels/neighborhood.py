@@ -46,10 +46,13 @@ from bshot_slam_tpu_torch.kernels import (
 MAX_FEAT = 16  # feature columns the CUDA kernel accumulates in registers
 MAX_ROWS = 131072  # rows the CUDA kernels take: a block lists at most 1024 tiles
 TILE = 128  # queries per block and candidates per tile of the CUDA kernels
-# Kernels A and B spread a query block's kept tiles over so many blocks that
-# about ACCUMULATE_BLOCKS blocks of 4 warps are in flight on the 132 SMs.
-ACCUMULATE_BLOCKS = 768
-MAX_SPLIT = 16  # ... but no more than this many per query block
+# Kernels A and B deal a query block's kept tiles in turn to SPLITS blocks
+# at every cloud size, so a row's sum is the same at any padded size that
+# holds the cloud: the pipelined fused engine runs a frame at a predicted
+# cloud bucket, the synchronous engine at the exact one, and their records
+# agree bit for bit.  At the main path's 12288 rows that is ~768 blocks of
+# 4 warps in flight on the 132 SMs.
+SPLITS = 8
 # f32 instructions per pair (csrc/neighborhood.cu says how they are counted)
 RADIUS_TEST_F32 = 8
 SEGRATIO_IN_RADIUS_F32 = 10
@@ -112,8 +115,7 @@ neighborhood_accumulate.launches = 0
 
 def _tiles_and_splits(n: int):
     """(tiles of TILE rows, blocks that share a query block's kept tiles)."""
-    ntiles = max(1, -(-n // TILE))
-    return ntiles, min(MAX_SPLIT, max(1, -(-ACCUMULATE_BLOCKS // ntiles)))
+    return max(1, -(-n // TILE)), SPLITS
 
 
 def _accumulate_scratch(dev, stream: int, n: int, nf: int):

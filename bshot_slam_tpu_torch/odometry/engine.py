@@ -1,10 +1,18 @@
 """Host-side SLAM engine: sweeps in, poses out.
 
-Port of `bshot_slam_tpu.odometry.engine` (host-preprocess ingest): each
-sweep is binned into a range image, classified and extracted on the host
-(the native C++ library of `io.native_decoder`, as the reference does when
-its library is built; `ops.preprocess_host` is its plain version), padded
-to the smallest cloud bucket that holds it, and stepped on the device.
+Port of `bshot_slam_tpu.odometry.engine`.  By default each sweep is
+binned into a range image, classified and extracted on the host (the
+native C++ library of `io.native_decoder`, as the reference does when its
+library is built; `ops.preprocess_host` is its plain version), padded to
+the smallest cloud bucket that holds it, and stepped on the device.  With
+`host_preprocess=False` the range image goes to the device and is
+classified and extracted there (`ops.preprocess`, kernel F's ground walk):
+the synchronous engine reads the kept count (one sync per frame) to pick
+the exact bucket; the pipelined engine reads it once, on the first frame,
+and then predicts each frame's bucket from the counts in the fetched rows
+(`runtime.bucket_headroom`, a floor decaying by `bucket_floor_decay`); a
+frame whose kept points overflow the predicted bucket aborts on the device
+and is re-run at its exact bucket.
 The synchronous engine fetches each frame's packed diagnostics at once.
 The pipelined engine (`pipelined=True`) dispatches each frame
 without a host sync (`pipeline.odometry_step_deferred`) and fetches the
@@ -20,9 +28,8 @@ pose graph and map re-anchoring (every `backend_every` frames, or when
 asked); `build_ba_problem` assembles a bundle adjustment.
 
 Runs on the card unless the caller asks for the CPU: `device=None` means
-"cuda", and raises when no card is visible.  Not ported yet (they raise
-NotImplementedError): the fused device preprocess (`host_preprocess=False`)
-and multi-device meshes.
+"cuda", and raises when no card is visible.  Not ported yet (it raises
+NotImplementedError): multi-device meshes.
 """
 
 from __future__ import annotations
@@ -81,14 +88,16 @@ class FrameRecord:
 
 class _Pending(NamedTuple):
     """One in-flight pipelined frame awaiting its diagnostics drain, with
-    what a re-run needs: its cloud and its RANSAC draws."""
+    what a re-run needs: its cloud (or, for a frame preprocessed on the
+    device, its range image) and its RANSAC draws."""
 
     diag: pipeline.StepDiagnostics  # device tensors (features for keyframes)
-    points: torch.Tensor  # (bucket, 3) cloud on the device
+    points: Optional[torch.Tensor]  # (bucket, 3) cloud on the device
     pmask: Optional[torch.Tensor]  # None: front-compacted, iota < n_valid
     n_valid: object  # int or () device tensor
     draws: torch.Tensor  # (H, 3) RANSAC draws
     map_cap: int  # map capacity at dispatch (the tail block's offset)
+    image: Optional[tuple] = None  # (range_az, vert, sel) on the device
 
 
 class SlamEngine:
@@ -113,12 +122,10 @@ class SlamEngine:
                  pipelined: bool = False, fetch_every: int = 1,
                  host_preprocess: bool = True, keep_corr: bool = False,
                  mesh=None):
-        unported = {"host_preprocess=False": not host_preprocess,
-                    "mesh": mesh is not None}
-        for name, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"SlamEngine({name}) is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("SlamEngine(mesh) is not ported yet")
         self.cfg = cfg
+        self.host_preprocess = host_preprocess
         self.tile = tile
         self.device = resolve_device(device)
         self.seed = seed
@@ -146,7 +153,13 @@ class SlamEngine:
         self._ok = torch.ones((), dtype=torch.bool, device=self.device)
         self._cursor_ub: Optional[int] = None  # host bound on map.cursor
         self._frames_in = 0  # frames dispatched
-        self.n_redispatched = 0  # frames re-run after a window overflow
+        self.n_redispatched = 0  # frames re-run after a window or bucket overflow
+        # Device preprocess: the vertical angles kept on the device by their
+        # bytes, and the pipelined engine's predicted cloud bucket (None
+        # until the first frame's count is read) and its decaying floor.
+        self._vert_cache: dict = {}
+        self._next_bucket: Optional[int] = None
+        self._bucket_floor = 0
         # Backend.
         self.enable_backend = enable_backend
         self.backend_every = backend_every
@@ -195,10 +208,72 @@ class SlamEngine:
     def process_range_image(self, range_mm: np.ndarray, azimuth_rad: np.ndarray,
                             vert_rad: np.ndarray,
                             selected: Optional[np.ndarray] = None):
-        """Host classify + extract (`host_cloud`, native), then one compact
-        device step at the smallest bucket holding the kept points."""
-        return self.process_compact(*host_cloud(range_mm, azimuth_rad, vert_rad,
-                                                selected, self.cfg))
+        """One frame from a range image.  Host preprocess: classify + extract
+        on the host (`host_cloud`, native), then one compact device step at
+        the smallest bucket holding the kept points.  Device preprocess:
+        the image goes to the device; synchronous, the kept count is read to
+        slice the cloud to its exact bucket; pipelined, the fused step runs
+        at the predicted bucket without a sync."""
+        if self.host_preprocess:
+            return self.process_compact(*host_cloud(
+                range_mm, azimuth_rad, vert_rad, selected, self.cfg))
+        range_az = upload(np.stack([np.asarray(range_mm, np.float32),
+                                    np.asarray(azimuth_rad, np.float32)]),
+                          self.device)
+        vert = self._device_vert(vert_rad)
+        # An all-True select list selects what None does: skip its upload.
+        sel = None
+        if selected is not None and not np.all(selected):
+            sel = upload(np.asarray(selected, np.bool_), self.device)
+        if self.pipelined:
+            return self._dispatch_fused((range_az, vert, sel))
+        return self.process_cloud(*self._exact_cloud((range_az, vert, sel)))
+
+    def _device_vert(self, vert_rad: np.ndarray) -> torch.Tensor:
+        """The (per-sensor constant) vertical angles on the device, uploaded
+        once for each distinct value."""
+        key = np.asarray(vert_rad, np.float32).tobytes()
+        dev = self._vert_cache.get(key)
+        if dev is None:
+            dev = self._vert_cache[key] = upload(
+                np.frombuffer(key, np.float32).copy(), self.device)
+        return dev
+
+    def _exact_cloud(self, image):
+        """A range image's device cloud at the exact bucket: one sync on the
+        kept count.  Returns (points, pmask, n_valid as a 0-d tensor)."""
+        range_az, vert, sel = image
+        pcfg = self.cfg.preprocess
+        points, pmask, n_valid = pipeline.ingest(range_az[0], range_az[1], vert,
+                                                 sel, pcfg, pcfg.max_points)
+        b = pick_bucket(int(n_valid), self.cfg)
+        return points[:b], pmask[:b], n_valid
+
+    def _dispatch_fused(self, image) -> Optional[FrameRecord]:
+        """The pipelined device-preprocess frame: one fused deferred step at
+        the predicted bucket.  The first frame reads its kept count once to
+        start the prediction."""
+        if self._next_bucket is None:
+            _, _, n_valid = self._exact_cloud(image)
+            self._feed_bucket(int(n_valid))
+        self._maybe_grow_map()
+        cap = self.state.map.positions.shape[0]
+        draws = self._next_draws()
+        range_az, vert, sel = image
+        self.state, self._ok, diag = pipeline.odometry_step_fused(
+            self.state, self._ok, range_az, vert, sel, self.cfg.preprocess,
+            self.cfg, self._next_bucket, draws, self.tile)
+        return self._enqueue(_Pending(diag, None, None, None, draws, cap, image))
+
+    def _feed_bucket(self, n_valid: int) -> None:
+        """Predict the next frame's cloud bucket from this count: headroom
+        over it, floored by a decaying maximum of recent counts, so one
+        spike does not inflate every later bucket and repeated overflows
+        are damped."""
+        rt = self.cfg.runtime
+        self._bucket_floor = max(n_valid, int(self._bucket_floor * rt.bucket_floor_decay))
+        self._next_bucket = pick_bucket(
+            max(int(rt.bucket_headroom * n_valid), self._bucket_floor), self.cfg)
 
     def process_compact(self, points: np.ndarray, n_valid: int):
         """One frame from a host-preprocessed compact cloud: points
@@ -334,16 +409,22 @@ class SlamEngine:
 
     def _redispatch(self, stalled: List[_Pending]) -> Optional[FrameRecord]:
         """Re-run the stalled frames in order through the synchronous step
-        with the clouds and draws they were dispatched with.  The aborted
-        steps left the state untouched and drew nothing more, so this is
-        the run the synchronous engine makes."""
+        with the clouds and draws they were dispatched with; a frame
+        preprocessed on the device is re-ingested at its exact bucket, as
+        the synchronous engine ingests it.  The aborted steps left the state
+        untouched and drew nothing more, so this is the run the synchronous
+        engine makes."""
         self._ok = torch.ones((), dtype=torch.bool, device=self.device)
         self._cursor_ub = None
         self.n_redispatched += len(stalled)
         rec = None
         for e in stalled:
             self._maybe_grow_map(exact=True)
-            rec = self._run_sync(e.points, e.pmask, e.n_valid, e.draws,
+            if e.image is None:
+                points, pmask, n_valid = e.points, e.pmask, e.n_valid
+            else:
+                points, pmask, n_valid = self._exact_cloud(e.image)
+            rec = self._run_sync(points, pmask, n_valid, e.draws,
                                  self.state.map.positions.shape[0])
         return rec
 
@@ -352,6 +433,8 @@ class SlamEngine:
     def _finalize(self, diag, pk: np.ndarray, map_cap: int,
                   can_backend: bool = True) -> FrameRecord:
         P = pipeline
+        if self._next_bucket is not None and pk.shape[0] > P.PACKED_LEN:
+            self._feed_bucket(int(pk[P.IDX_N_VALID]))  # the pipelined fused path
         rec = FrameRecord(
             pose=pk[:16].reshape(4, 4).astype(np.float32),
             n_inliers=int(pk[P.IDX_N_INLIERS]),

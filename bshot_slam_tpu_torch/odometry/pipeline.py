@@ -16,6 +16,9 @@ the pipelined engine's) never syncs: it always runs the compact windows,
 computes on the device whether both fit, and commits its state only then
 (commit-or-abort, as the reference's fused step does for its cloud
 bucket); the engine re-runs an aborted frame through the synchronous step.
+The fused step (`odometry_step_fused`) puts the device preprocess of a
+range image in front of the deferred step, and aborts as well when the kept
+points overflow the cloud bucket the engine predicted.
 `rng` takes the place of the reference's PRNG key: a `torch.Generator`, or
 the (H, 3) RANSAC draws.
 """
@@ -32,6 +35,7 @@ from bshot_slam_tpu_torch.device import resolve_device
 from bshot_slam_tpu_torch.geometry import se3
 from bshot_slam_tpu_torch.odometry import mapstore
 from bshot_slam_tpu_torch.ops import bshot, hamming
+from bshot_slam_tpu_torch.ops import preprocess as pp
 from bshot_slam_tpu_torch.ops.icp import icp_point_to_point
 from bshot_slam_tpu_torch.ops.keypoints import (
     extract_keypoints, keypoints_from_scores, neighborhood_moments,
@@ -354,3 +358,34 @@ def odometry_step_deferred(state: OdometryState, ok: torch.Tensor,
         pmask = torch.arange(points.shape[0], device=points.device) < n_valid
     return _odometry_step_impl(state, points, pmask, rng, cfg, tile,
                                n_valid=n_valid, ok=ok)
+
+
+def ingest(range_mm: torch.Tensor, azimuth_rad: torch.Tensor,
+           vert_rad: torch.Tensor, selected: torch.Tensor | None, pcfg,
+           bucket: int):
+    """Device preprocess + cloud extraction at `pcfg.max_points` + the slice
+    to `bucket` + the kept count (a 0-d int32 tensor), with no host sync
+    (the reference's `engine._ingest`).  `selected=None` selects every
+    cell.  Returns (points (bucket, 3), pmask (bucket,), n_valid)."""
+    res = pp.preprocess(range_mm, azimuth_rad, vert_rad, pcfg)
+    points, pmask = pp.extract_cloud(res, selected, pcfg.max_points)
+    n_valid = torch.sum(pmask, dtype=torch.int32)
+    return points[:bucket], pmask[:bucket], n_valid
+
+
+def odometry_step_fused(state: OdometryState, ok: torch.Tensor,
+                        range_az: torch.Tensor, vert_rad: torch.Tensor,
+                        selected: torch.Tensor | None, pcfg, cfg: SlamConfig,
+                        bucket: int, rng, tile: int = 2048):
+    """The pipelined engine's whole frame from a range image, with no host
+    sync: `ingest` (range_az (2, R, A) is [range_mm, azimuth_rad]) at the
+    predicted cloud `bucket`, then the deferred step.  It commits only when
+    `ok` holds, the kept points fit the bucket (n_valid <= bucket) and the
+    match and dedup windows fit; otherwise `state` passes through unchanged
+    and the packed row's committed flag is 0, while its tail still carries
+    the real n_valid and the bucket.  `rng` is the (H, 3) RANSAC draws.
+    Returns (state', committed, diag)."""
+    points, pmask, n_valid = ingest(range_az[0], range_az[1], vert_rad,
+                                    selected, pcfg, bucket)
+    return odometry_step_deferred(state, ok & (n_valid <= bucket), points, pmask,
+                                  n_valid, rng, cfg, tile)

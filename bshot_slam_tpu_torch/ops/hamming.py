@@ -3,9 +3,10 @@
 Port of `bshot_slam_tpu.ops.hamming`.  Mutual-nearest-neighbour
 correspondences with the reference's strict-< first-minimum scans (ties to
 the lowest index), on kernel C (`kernels.mapops.hamming_nn_bounded`) on the
-card and its plain XOR-popcount version on the CPU.  Both paths give the
-kernel-path outputs: `distances` is the best distance on mutual rows and
-2^30 elsewhere.
+card and its plain XOR-popcount version on the CPU, where `mutual_nn` can
+also take the distances as a product of unpacked bits (`matmul_distances`,
+the reference's MXU form).  Every path gives the kernel-path outputs:
+`distances` is the best distance on mutual rows and 2^30 elsewhere.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ from typing import NamedTuple
 
 import torch
 
+from bshot_slam_tpu_torch.kernels import BIG, on_cpu
 from bshot_slam_tpu_torch.kernels.mapops import (  # noqa: F401  (re-export)
     hamming_nn_bounded, popcount_distances,
 )
+from bshot_slam_tpu_torch.ops.bshot import unpack_bits
 
 _BIG = 2**30
 
@@ -40,7 +43,11 @@ def mutual_nn_bounded(
     amin, aarg, _, barg = hamming_nn_bounded(
         a_words, a_mask, b_words, b_mask, n_valid_b, tail_start=tail_start
     )
-    ar = torch.arange(a_words.shape[0], dtype=torch.int32, device=a_words.device)
+    return _mutual(amin, aarg, barg, a_mask)
+
+
+def _mutual(amin, aarg, barg, a_mask) -> MutualMatches:
+    ar = torch.arange(aarg.shape[0], dtype=torch.int32, device=aarg.device)
     mutual = (barg[aarg.long()] == ar) & a_mask & (amin < 1e30)
     return MutualMatches(
         src_to_ref=aarg,
@@ -49,6 +56,29 @@ def mutual_nn_bounded(
     )
 
 
-def mutual_nn(a_words, a_mask, b_words, b_mask) -> MutualMatches:
-    """Mutual-NN correspondences over every candidate row."""
-    return mutual_nn_bounded(a_words, a_mask, b_words, b_mask, b_words.shape[0])
+def matmul_distances(a_bits: torch.Tensor, b_bits: torch.Tensor) -> torch.Tensor:
+    """(Na, 352) x (Nb, 352) {0,1} bits -> (Na, Nb) int32 Hamming distances
+    as popcount(a) + popcount(b) - 2 a.b, the cross term one float32
+    product (exact: every sum is at most 352; TF32 is off, `_precision`)."""
+    cross = a_bits.to(torch.float32) @ b_bits.to(torch.float32).T
+    pa = torch.sum(a_bits.to(torch.int32), dim=-1)
+    pb = torch.sum(b_bits.to(torch.int32), dim=-1)
+    return (pa[:, None] + pb[None, :] - 2.0 * cross).to(torch.int32)
+
+
+def mutual_nn(a_words, a_mask, b_words, b_mask,
+              use_matmul: bool = True) -> MutualMatches:
+    """Mutual-NN correspondences over every candidate row.  On the CPU
+    `use_matmul` takes the distances as `matmul_distances` of the unpacked
+    bits, else as kernel C's plain XOR-popcount; both are exact, so the
+    matches are the same.  On the card the call goes through kernel C."""
+    if not (use_matmul and on_cpu(a_words, b_words)
+            and a_words.shape[0] and b_words.shape[0]):
+        return mutual_nn_bounded(a_words, a_mask, b_words, b_mask,
+                                 b_words.shape[0])
+    d = matmul_distances(unpack_bits(a_words), unpack_bits(b_words))
+    d = torch.where(a_mask[:, None] & b_mask[None, :], d.to(torch.float32), BIG)
+    aarg = torch.argmin(d, dim=1)  # first (lowest-index) minimum
+    amin = torch.gather(d, 1, aarg[:, None])[:, 0]
+    barg = torch.argmin(d, dim=0).to(torch.int32)
+    return _mutual(amin, aarg.to(torch.int32), barg, a_mask)

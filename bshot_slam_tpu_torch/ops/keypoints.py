@@ -1,8 +1,9 @@
 """Segmentation-ratio saliency keypoints.
 
-Port of `bshot_slam_tpu.ops.keypoints` (the main-path part): per-point
-radius-neighbourhood moments (kernel A), seg-ratio counts and sums
-(kernel B) and the top-k keypoint selection.  The reference's formulas:
+Port of `bshot_slam_tpu.ops.keypoints`: per-point radius-neighbourhood
+moments (kernel A), seg-ratio counts and sums (kernel B) and the top-k
+keypoint selection; and for evaluation the ISS detector (kernel A at the
+salient radius) and keypoint repeatability.  The reference's formulas:
 
   CV   = 1 - min(pos, neg)/max(pos, neg)
   CVS  = |sum dot(ctvec, p-sp)| / n
@@ -18,6 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from bshot_slam_tpu_torch.config import KeypointConfig
+from bshot_slam_tpu_torch.geometry.eig3 import eigvalsh3
 from bshot_slam_tpu_torch.kernels import fma_dot3  # noqa: F401  (re-export)
 from bshot_slam_tpu_torch.kernels import pair_d2 as _pair_d2  # noqa: F401
 from bshot_slam_tpu_torch.kernels.neighborhood import (
@@ -156,3 +158,48 @@ def extract_keypoints(
     scores = seg_ratio_scores(points, mask, cfg, tile)
     top_scores, top_idx = top_k(scores, cfg.top_k)
     return keypoints_from_scores(points, top_scores, top_idx)
+
+
+def iss_keypoints(points: torch.Tensor, mask: torch.Tensor, cfg: KeypointConfig,
+                  tile: int = 4096, max_out: int = 1024) -> Keypoints:
+    """ISS-style detector for repeatability evaluation (reference:
+    lidar_odometry.cpp:447-461; PCL ISSKeypoint3D semantics): eigenvalues
+    l1 >= l2 >= l3 of each point's neighbourhood scatter within the salient
+    radius; keep l2/l1 < g21 and l3/l2 < g32 with l3 > 0 and at least the
+    minimum neighbours; then non-max suppression on l3 within the non-max
+    radius, and the `max_out` largest, ties to the lowest index.
+
+    Kernel A takes at most 131072 rows (the reference has no such limit);
+    the clouds here hold at most `max_points` (49152) rows."""
+    cnt, psum, outer = neighborhood_moments(points, mask, cfg.iss_salient_radius_mm,
+                                            tile)
+    safe = torch.clamp(cnt, min=1.0)
+    mean = psum / safe[:, None]
+    cov = outer / safe[:, None, None] - mean[:, :, None] * mean[:, None, :]
+    l3, l2, l1 = eigvalsh3(cov).unbind(-1)  # ascending
+    good = (mask & (cnt >= cfg.iss_min_neighbors)
+            & (l2 / torch.clamp(l1, min=1e-12) < cfg.iss_gamma_21)
+            & (l3 / torch.clamp(l2, min=1e-12) < cfg.iss_gamma_32) & (l3 > 0))
+    saliency = torch.where(good, l3, _NEG_INF)
+    # Non-max suppression: i stays iff its l3 is the largest within the
+    # non-max radius, over tiles of candidates.
+    r2 = cfg.iss_nonmax_radius_mm ** 2
+    mx = torch.full_like(saliency, _NEG_INF)
+    for t0 in range(0, points.shape[0], tile):
+        within = (_pair_d2(points, points[t0:t0 + tile]) <= r2) & mask[None, t0:t0 + tile]
+        cand = torch.where(within, saliency[None, t0:t0 + tile], _NEG_INF)
+        mx = torch.maximum(mx, torch.max(cand, dim=1).values)
+    sal = torch.where(good & (saliency >= mx), saliency, _NEG_INF)
+    return keypoints_from_scores(points, *top_k(sal, max_out))
+
+
+def repeatability(src: torch.Tensor, src_mask: torch.Tensor, ref: torch.Tensor,
+                  ref_mask: torch.Tensor, hit_radius_mm: float = 30.0) -> torch.Tensor:
+    """Fraction of the valid src keypoints (masked, not at the origin) with
+    a ref keypoint within the hit radius (reference: lidar_odometry.cpp:
+    392-419, sqDistLimit = 30^2); a 0-d float32 tensor."""
+    d2 = torch.where(ref_mask[None, :], _pair_d2(src, ref), float("inf"))
+    nearest = torch.min(d2, dim=1).values
+    valid = src_mask & ~torch.all(src == 0, dim=-1)
+    hits = valid & (nearest <= hit_radius_mm * hit_radius_mm)
+    return torch.sum(hits) / torch.clamp(torch.sum(valid), min=1)

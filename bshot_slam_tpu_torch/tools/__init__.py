@@ -1,1 +1,2 @@
-"""Measurement scripts of the port (run on a machine with the card)."""
+"""The port's command-line tools and measurement scripts (on the card by
+default; `--cpu` runs a tool's plain PyTorch path where it offers one)."""

@@ -57,11 +57,31 @@ Phases, one line each:
   6. the bench: `bench_torch`'s engine pass (pipelined, `fetch_every=64`,
      64k prefill) over the 129 rendered frames, one warm pass and one timed
      pass; its JSON line, and its quality guard must hold;
-  7. one JSON line of per-kernel results (`launches` counts the main path,
-     phase [4]'s engine run of `frames` frames, `launches_per_frame`
-     divides it; `launches_by_path` counts each later path alone, from 0;
-     C's and D's `loop_verification` the 600 x 600 check), the card line
-     again, and the result line {"ok": true, "device": {...}}.
+  7. the device preprocess (`host_preprocess=False`): kernel F (the ground
+     walk) on every frame of the 129-frame drive against its plain version
+     on the card, classes cell-exact, and against itself over two runs; the
+     fused clouds (`pipeline.ingest`) against the native host ingest
+     (`host_cloud`), counts equal and points within 0.05 mm; F's times
+     against its bound and the fused ingest's time and device launches per
+     frame (at most 60); the synchronous and the pipelined fused engines on
+     [4]'s 24 frames and prefill: frames/s beside [4]'s and [4b]'s, poses
+     against [4]'s, records of the two bit-identical; then a full-width
+     kept-count spike (12 frames, 6000 kept points, 18000 at frame 4) whose
+     pipelined run aborts and re-runs frames, records bit-identical to the
+     synchronous fused run;
+  8. the evaluation ops on the card: two drive frames' clouds from the
+     device preprocess; kernel A at the ISS salient radius (60 mm) against
+     its plain version as in [3]; `iss_keypoints` against the CPU port's
+     (counts within 10%, at least 75% in common: their moments differ by
+     summation order, and the saliency tests compare the eigenvalues);
+     `repeatability` between the frames; `voxel_downsample` bit-identical
+     over two runs;
+  9. one JSON line of per-kernel results (`launches` counts the main path,
+     phase [4]'s engine run of `frames` frames for A-E, [7]'s synchronous
+     fused run for F; `launches_per_frame` divides it; `launches_by_path`
+     counts each later path alone, from 0; C's and D's `loop_verification`
+     the 600 x 600 check), the card line again, and the result line
+     {"ok": true, "device": {...}}.
 
 The drive is rendered once, in a pool of worker processes; the script's
 wall time is printed before the JSON lines.  Checkpoints and the PCAP go
@@ -108,6 +128,11 @@ PREFILL = 65536
 FETCH_EVERY = 8
 BACKEND_EVERY = 32
 OVERFLOW_WINDOW = 256  # phase [4b]'s window_cap, below the frames' windows
+# Phase [7]'s kept-count spike at full width: SPIKE_BASE kept points a
+# frame (bucket 8192 with the predictor's headroom), SPIKE at frame
+# SPIKE_AT (bucket 20480).
+SPIKE_BASE, SPIKE, SPIKE_FRAMES, SPIKE_AT = 6000, 18000, 12, 4
+FUSED_INGEST_MAX_LAUNCHES = 60  # device launches a frame's fused ingest may make
 REPEATS = 25
 # The bound of A and B counts the radius tests that a box prune at this
 # grain (query rows x candidate rows) leaves: a property of the cloud, fixed
@@ -590,7 +615,7 @@ PORT_KERNELS = ("pack_cloud_kernel", "accumulate_kernel", "segratio_kernel",
                 "hamming_kernel", "euclid_kernel", "dedup_kernel")
 # Most device launches a call of a wrapper may make.
 MAX_DEVICE_LAUNCHES = {"segratio_accumulate": 2, "hamming_nn_bounded": 2,
-                       "dedup_blocked_bounded": 1}
+                       "dedup_blocked_bounded": 1, "ground_walk": 1}
 
 
 def profile_engine(cfg, sweeps, dev, n: int = 6):
@@ -623,7 +648,7 @@ def profile_engine(cfg, sweeps, dev, n: int = 6):
 
 
 def kernel_wrappers():
-    from bshot_slam_tpu_torch.kernels import mapops, neighborhood
+    from bshot_slam_tpu_torch.kernels import mapops, neighborhood, preprocess
 
     return {
         "neighborhood_accumulate": neighborhood.neighborhood_accumulate,
@@ -631,6 +656,7 @@ def kernel_wrappers():
         "hamming_nn_bounded": mapops.hamming_nn_bounded,
         "euclid_nn_bounded": mapops.euclid_nn_bounded,
         "dedup_blocked_bounded": mapops.dedup_blocked_bounded,
+        "ground_walk": preprocess.ground_walk,
     }
 
 
@@ -982,6 +1008,194 @@ def bench_phase(cfg, sweeps, gt, dev) -> dict:
                 redispatched=eng.n_redispatched)
 
 
+# ---------------------------------------------------------------------------
+# Phases 7-8: the device preprocess, the evaluation ops
+
+
+def walk_phase(cfg, sweeps, dev) -> dict:
+    """Phase [7], kernel F over the drive: each frame's range image on the
+    card, F against its plain version run on the card (cell-exact) and
+    against itself (bit-identical); the fused clouds against the native
+    host ingest (`host_cloud`); then F's and the fused ingest's times on
+    frame 3."""
+    import torch
+
+    from bshot_slam_tpu_torch.kernels import preprocess as KF
+    from bshot_slam_tpu_torch.odometry import pipeline
+    from bshot_slam_tpu_torch.odometry.engine import host_cloud
+    from bshot_slam_tpu_torch.ops import preprocess as pp
+    from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
+
+    pcfg = cfg.preprocess
+    differ = not_identical = count_differs = max_err = 0
+    max_pt = 0.0
+    for i, sw in enumerate(sweeps):
+        ri = build_range_image(sw, cfg.sensor)
+        r, az, v = (torch.as_tensor(x, device=dev)
+                    for x in (ri.range_mm, ri.azimuth_rad, ri.vert_rad))
+        xyz, p0 = pp.polar_to_xyz(r, az, v), pp.ground_point(az, pcfg)
+        got = KF.ground_walk(r, xyz, p0, pcfg)
+        want = KF.ground_walk_plain(r, xyz, p0, pcfg)
+        differ += int_mismatch(got, want)
+        max_err = max(max_err, int((got - want).abs().max()))
+        not_identical += int(not torch.equal(got, KF.ground_walk(r, xyz, p0, pcfg)))
+        pts, _, nv = pipeline.ingest(r, az, v, None, pcfg, pcfg.max_points)
+        host, nv_host = host_cloud(ri.range_mm, ri.azimuth_rad, ri.vert_rad, None, cfg)
+        if int(nv) != nv_host:
+            count_differs += 1
+        elif nv_host:
+            max_pt = max(max_pt, float((pts[:nv_host].cpu()
+                                        - torch.from_numpy(host[:nv_host])).abs().max()))
+        if i == 3:
+            frame3 = (r, az, v, xyz, p0)
+    r, az, v, xyz, p0 = frame3
+    R, A = r.shape
+    b_ms, b_by = bound(R * A * 20 + A * 12, scaled(KF.GROUND_WALK_CELL_OPS, R * A))
+
+    def ingest():
+        return pipeline.ingest(r, az, v, None, pcfg, pcfg.max_points)
+
+    ingest_device_ms, ingest_launches = device_profile(ingest)
+    row = dict(name="ground_walk", shapes=f"range ({R},{A}), xyz ({R},{A},3), p0 ({A},3)",
+               source="bshot_slam_tpu_torch/csrc/preprocess.cu",
+               replaces="bshot_slam_tpu/ops/preprocess.py:152 (lax.scan; no pallas_call)",
+               max_abs_err=float(max_err),
+               **measure(lambda: KF.ground_walk(r, xyz, p0, pcfg),
+                         lambda: KF.ground_walk_plain(r, xyz, p0, pcfg)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return dict(frames=len(sweeps), cells=R * A * len(sweeps), cells_differ=differ,
+                not_identical=not_identical, count_differs=count_differs,
+                max_point_mm=max_pt, row=row, ingest_ms=time_ms(ingest),
+                ingest_device_ms=ingest_device_ms, ingest_launches=ingest_launches)
+
+
+def fused_phase(cfg, sweeps, sync_eng, dev) -> dict:
+    """Phase [7], the engine with the device preprocess on [4]'s frames and
+    prefill: synchronous (poses against [4]'s run) and pipelined
+    (`fetch_every=8`, records bit-identical to the synchronous ones),
+    frames/s of both, the kernels' launches."""
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+
+    def fresh(pipelined):
+        eng = SlamEngine(cfg, seed=0, device=dev, host_preprocess=False,
+                         pipelined=pipelined, fetch_every=FETCH_EVERY)
+        eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
+        return eng
+
+    sync, pipe = fresh(False), fresh(True)
+    fps, launches = counted(lambda: drive(sync, sweeps))
+    pipe_fps, pipe_launches = counted(lambda: drive(pipe, sweeps))
+    got = np.stack([r.pose for r in sync.records])
+    want = np.stack([r.pose for r in sync_eng.records])
+    return dict(fps=fps, pipe_fps=pipe_fps, launches=launches,
+                pipe_launches=pipe_launches,
+                equal=records_equal(pipe.records, sync.records),
+                redispatched=pipe.n_redispatched,
+                max_mm=float(np.abs(got[:, :3, 3] - want[:, :3, 3]).max()),
+                max_rot=float(np.abs(got[:, :3, :3] - want[:, :3, :3]).max()),
+                tail_inliers=[r.n_inliers for r in sync.records[-8:]])
+
+
+def spike_phase(cfg, dev) -> dict:
+    """Phase [7], a kept-count spike at full width: SPIKE_FRAMES range images
+    with SPIKE_BASE kept points and SPIKE at frame SPIKE_AT (walls on the
+    upper rings; the other frames pad with self-car returns), through the
+    synchronous and the pipelined (`fetch_every=4`) fused engines; the spike
+    overflows its predicted bucket, and the frames after it run at a
+    predicted bucket above their exact one."""
+    from bshot_slam_tpu_torch.odometry import pipeline
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+    from tests.torch_kernel_cases import overflow_sequence
+
+    frames = overflow_sequence(cfg, SPIKE_BASE, SPIKE, SPIKE_FRAMES, SPIKE_AT)
+    vert = np.deg2rad(np.sort(np.asarray(cfg.sensor.vertical_angles_deg))).astype(np.float32)
+    buckets = []
+    fused = pipeline.odometry_step_fused
+
+    def recording(*args):
+        buckets.append(args[7])
+        return fused(*args)
+
+    runs, launches = [], {}
+    for pipelined in (False, True):
+        eng = SlamEngine(cfg, seed=0, device=dev, host_preprocess=False,
+                         pipelined=pipelined, fetch_every=4)
+        pipeline.odometry_step_fused = recording
+        try:
+            _, launches[pipelined] = counted(
+                lambda: [eng.process_range_image(r, az, vert) for r, az in frames]
+                + [eng.flush()])
+        finally:
+            pipeline.odometry_step_fused = fused
+        runs.append(eng)
+    return dict(frames=len(frames), equal=records_equal(runs[1].records, runs[0].records),
+                redispatched=runs[1].n_redispatched, buckets=buckets,
+                launches=launches[True], map_size=runs[0].records[-1].map_size)
+
+
+def eval_phase(cfg, sweeps, dev) -> dict:
+    """Phase [8]: two drive frames' clouds from the device preprocess at
+    their exact buckets; kernel A at the ISS salient radius against its
+    plain version on CPU copies (as phase [3]); `iss_keypoints` on the card
+    against the CPU port's; `repeatability` between the frames, card and
+    CPU; `voxel_downsample` twice on the card and once on the CPU."""
+    import torch
+
+    from bshot_slam_tpu_torch.kernels import neighborhood as K
+    from bshot_slam_tpu_torch.odometry import pipeline
+    from bshot_slam_tpu_torch.odometry.engine import pick_bucket
+    from bshot_slam_tpu_torch.ops import keypoints, voxelgrid
+    from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
+
+    pcfg, kcfg = cfg.preprocess, cfg.keypoints
+    clouds = []
+    for sw in sweeps:
+        ri = build_range_image(sw, cfg.sensor)
+        pts, pmask, nv = pipeline.ingest(
+            *(torch.as_tensor(x, device=dev) for x in (ri.range_mm, ri.azimuth_rad,
+                                                      ri.vert_rad)),
+            None, pcfg, pcfg.max_points)
+        b = pick_bucket(int(nv), cfg)
+        clouds.append((pts[:b], pmask[:b]))
+    pts, mask = clouds[0]
+    r = kcfg.iss_salient_radius_mm
+    x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+    feat = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y, x * z,
+                        y * y, y * z, z * z], dim=-1).contiguous()
+    out = K.neighborhood_accumulate(pts, mask, feat, r)
+    pts_c, mask_c, feat_c = cpu(pts, mask, feat)
+    ref = K.neighborhood_accumulate_plain(pts_c, mask_c, feat_c, r)
+    cnt = ref[:, 0]
+    scale = cnt[:, None] * feat_c.abs().max(dim=0).values[None, :]
+    atol = torch.tensor([0.0, 1e-2, 1e-2, 1e-2] + [100.0] * 6)
+    err = (out.cpu() - ref).abs()
+    kps, launches = counted(lambda: [keypoints.iss_keypoints(p, m, kcfg) for p, m in clouds])
+    kps_cpu = [keypoints.iss_keypoints(*cpu(p, m), kcfg) for p, m in clouds]
+    n_card = [int(k.mask.sum()) for k in kps]
+    n_cpu = [int(k.mask.sum()) for k in kps_cpu]
+    common = [len(np.intersect1d(k.indices[:n].cpu().numpy(), c.indices[:m].numpy()))
+              for k, c, n, m in zip(kps, kps_cpu, n_card, n_cpu)]
+    rep = float(keypoints.repeatability(kps[1].positions, kps[1].mask, kps[0].positions,
+                                        kps[0].mask, kcfg.repeat_radius_mm))
+    rep_cpu = float(keypoints.repeatability(kps_cpu[1].positions, kps_cpu[1].mask,
+                                            kps_cpu[0].positions, kps_cpu[0].mask,
+                                            kcfg.repeat_radius_mm))
+    vox = [voxelgrid.voxel_downsample(pts, mask, 200.0) for _ in range(2)]
+    vox_cpu = voxelgrid.voxel_downsample(pts_c, mask_c, 200.0)
+    return dict(
+        shapes=f"points ({pts.shape[0]},3) n_valid {int(mask.sum())}, radius {r} mm",
+        count_mismatch=int_mismatch(out[:, 0], cnt),
+        float_out_of_tol=int((err > 1e-5 * scale + atol).any(dim=1).sum()),
+        in_radius=float(cnt.sum()),
+        a_ms=time_ms(lambda: K.neighborhood_accumulate(pts, mask, feat, r)),
+        a_plain_ms=time_ms(lambda: K.neighborhood_accumulate_plain(pts, mask, feat, r)),
+        iss_ms=time_ms(lambda: keypoints.iss_keypoints(pts, mask, kcfg), repeats=5),
+        n_card=n_card, n_cpu=n_cpu, common=common, repeat=rep, repeat_cpu=rep_cpu,
+        launches=launches, vox_identical=same_bits(vox[0], vox[1]),
+        vox_equal_cpu=all(torch.equal(a.cpu(), b) for a, b in zip(vox[0], vox_cpu)),
+        voxels=int(vox[0][1].sum()))
+
+
 def main() -> int:
     try:
         import torch
@@ -1188,11 +1402,79 @@ def main() -> int:
     if not bench["quality_ok"]:
         raise SmokeError("bench_torch's quality guard failed")
 
+    walk = walk_phase(cfg, drive_sweeps, dev)
+    wr = walk["row"]
+    print(f"[7] kernel F (ground_walk) over {walk['frames']} frames ({walk['cells']} "
+          f"cells): class cells differing from the plain version on the card "
+          f"{walk['cells_differ']}, frames not bit-identical over two runs "
+          f"{walk['not_identical']}; fused clouds against host_cloud: frames whose "
+          f"count differs {walk['count_differs']}, largest point difference "
+          f"{walk['max_point_mm']:.6f} mm; F at {wr['shapes']}: kernel {wr['ms']:.4f} ms "
+          f"(device only {wr['device_ms']:.4f} ms in {wr['device_launches_per_call']:.0f} "
+          f"launches, host {wr['host_us_per_call']:.1f} us per call), plain "
+          f"{wr['plain_ms']:.4f} ms, bound {wr['bound_ms']:.6f} ms ({wr['bound_by']}); "
+          f"the fused ingest (preprocess + extract + count) {walk['ingest_ms']:.4f} ms "
+          f"(device only {walk['ingest_device_ms']:.4f} ms in "
+          f"{walk['ingest_launches']:.0f} launches) per frame", flush=True)
+    if walk["cells_differ"] or walk["not_identical"]:
+        raise SmokeError("kernel F differs from its plain version, or from itself")
+    if walk["count_differs"] or walk["max_point_mm"] > 0.05:
+        raise SmokeError("the fused clouds differ from the host ingest's")
+    if (walk["ingest_launches"] > FUSED_INGEST_MAX_LAUNCHES
+            or wr["device_launches_per_call"] > MAX_DEVICE_LAUNCHES["ground_walk"]):
+        raise SmokeError("the fused ingest makes more device launches than allowed")
+    fu = fused_phase(cfg, sweeps, sync_eng, dev)
+    print(f"[7] fused engine ({N_FRAMES} frames, prefill): synchronous {fu['fps']:.3f} "
+          f"frames/s (host preprocess [4]: {res['fps']:.3f}), pipelined "
+          f"{fu['pipe_fps']:.3f} (host preprocess [4b]: {pipe['fps']:.3f}); pipelined "
+          f"records bit-identical to the synchronous ones: {fu['equal']} "
+          f"({fu['redispatched']} re-run); largest pose difference from [4]: "
+          f"{fu['max_mm']:.3f} mm, {fu['max_rot']:.2e} in rotation; tail inliers "
+          f"{fu['tail_inliers']}; launches synchronous {fu['launches']}, pipelined "
+          f"{fu['pipe_launches']}", flush=True)
+    if not fu["equal"]:
+        raise SmokeError("pipelined fused records differ from the synchronous ones")
+    if fu["max_mm"] > 10.0 or fu["max_rot"] > 1e-3:
+        raise SmokeError("the fused engine's poses part from the host-preprocess run")
+    sp = spike_phase(cfg, dev)
+    print(f"[7] full-width spike ({sp['frames']} frames, {SPIKE_BASE} kept points, "
+          f"{SPIKE} at frame {SPIKE_AT}): pipelined fused buckets {sp['buckets']}, "
+          f"{sp['redispatched']} frames re-run; records bit-identical to the "
+          f"synchronous fused engine: {sp['equal']}; map {sp['map_size']}; launches "
+          f"{sp['launches']}", flush=True)
+    if not (sp["equal"] and sp["redispatched"]):
+        raise SmokeError("the spike did not abort, or its re-run differs")
+    evl = eval_phase(cfg, drive_sweeps[:2], dev)
+    print(f"[8] kernel A at the ISS salient radius: {evl['shapes']}; count mismatches vs "
+          f"CPU plain {evl['count_mismatch']}, float out of tolerance "
+          f"{evl['float_out_of_tol']} (phase [3]'s), {evl['in_radius']:.0f} pairs in "
+          f"radius; kernel {evl['a_ms']:.4f} ms, plain {evl['a_plain_ms']:.4f} ms; "
+          f"iss_keypoints {evl['iss_ms']:.3f} ms on the card; keypoints card "
+          f"{evl['n_card']} / CPU {evl['n_cpu']}, in common {evl['common']}; "
+          f"repeatability of frame 1 on frame 0: card {evl['repeat']:.4f}, CPU "
+          f"{evl['repeat_cpu']:.4f}; voxel_downsample (200 mm): {evl['voxels']} voxels, "
+          f"two runs bit-identical {evl['vox_identical']}, equal to the CPU "
+          f"{evl['vox_equal_cpu']}; launches {evl['launches']}", flush=True)
+    if evl["count_mismatch"] or evl["float_out_of_tol"] or not evl["vox_identical"]:
+        raise SmokeError("the evaluation ops disagree on the card")
+    if not all(b > 0 and abs(a - b) <= 0.1 * b and c >= 0.75 * b
+               for a, b, c in zip(evl["n_card"], evl["n_cpu"], evl["common"])):
+        raise SmokeError("ISS keypoints on the card part from the CPU port's")
+
     paths = {"sync_24": res["launches"], "pipelined_24": pipe["launches"],
              "eviction_8": ev["launches"], "backend_129": bk["launches"],
              "pcap_native_stream": pc["launches"], "resume_65": rs["launches"],
-             "bench_129": bench["launches"]}
-    idle = {p: [k for k, n in c.items() if n == 0] for p, c in paths.items()}
+             "bench_129": bench["launches"], "fused_sync_24": fu["launches"],
+             "fused_pipelined_24": fu["pipe_launches"], "fused_spike": sp["launches"],
+             "iss_2": evl["launches"]}
+
+    def runs(path):  # the kernels a path runs
+        if path == "iss_2":
+            return ["neighborhood_accumulate"]
+        return [k for k in kernel_wrappers()
+                if k != "ground_walk" or path.startswith("fused")]
+
+    idle = {p: [k for k in runs(p) if not c.get(k)] for p, c in paths.items()}
     idle = {p: ks for p, ks in idle.items() if ks}
     if idle or not all(loop_cd.values()):
         raise SmokeError(f"kernels never launched on a path: {idle}, loop "
@@ -1202,12 +1484,14 @@ def main() -> int:
             "bound_by", "library_ms", "max_abs_err", "device_ms",
             "device_launches_per_call", "host_us_per_call")
     kernels = []
-    for r in rows:
+    for r in rows + [wr]:
         k = {key: r[key] for key in keys}
-        n = res["launches"][r["name"]]  # over the whole engine run
+        # over the whole engine run of its main path: [4] for A-E, [7]'s
+        # synchronous fused run for F
+        n = fu["launches"]["ground_walk"] if r is wr else res["launches"][r["name"]]
         k.update(route="cuda", launches=n, frames=N_FRAMES,
                  launches_per_frame=n / N_FRAMES,
-                 launches_by_path={p: c[r["name"]] for p, c in paths.items()})
+                 launches_by_path={p: c.get(r["name"], 0) for p, c in paths.items()})
         if r["name"] in loop:
             lr = loop[r["name"]]
             k["loop_verification"] = dict(
@@ -1217,7 +1501,7 @@ def main() -> int:
                 shapes=lr["shapes"], launches=loop_cd[r["name"]],
                 passes=len(bk["passes"]))
         kernels.append(k)
-    print(f"[7] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[9] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

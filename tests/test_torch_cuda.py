@@ -8,7 +8,11 @@ to E also run every edge case of `tests/torch_kernel_cases.py`, twice: the
 two runs must be bit-identical.  Map eviction on the card equals the same
 call on CPU copies exactly; C and D at the loop-verification shape (600
 against 600) equal their plain versions; the pipelined engine with the
-backend equals the synchronous one on the card.
+backend equals the synchronous one on the card.  Kernel F (the ground
+walk) runs its edge cases likewise, classes cell-exact; the pipelined
+engine with the device preprocess equals the synchronous one through a
+bucket overflow; the evaluation ops (ISS through kernel A, repeatability,
+the voxel grid, `mutual_nn(use_matmul=True)`) agree with the CPU.
 """
 
 import numpy as np
@@ -23,8 +27,9 @@ from bshot_slam_tpu_torch.odometry import mapstore as tmap
 from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 from tests.torch_kernel_cases import (
     A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES,
-    EVICT_CASES, accumulate_case, dedup_case, euclid_case, evict_case,
-    hamming_case, keyframe_pair, segratio_case,
+    EVICT_CASES, F_CASES, accumulate_case, dedup_case, euclid_case, evict_case,
+    hamming_case, iss_corners, keyframe_pair, overflow_sequence, segratio_case,
+    walk_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -286,3 +291,73 @@ def test_pipelined_engine_on_card(dev):
         runs.append(eng.records)
     for a, b in zip(*runs):
         assert np.array_equal(a.pose, b.pose) and a.map_size == b.map_size
+
+
+@pytest.mark.parametrize("name", F_CASES)
+def test_ground_walk_case_on_card(dev, name):
+    from bshot_slam_tpu_torch.kernels import preprocess as KF
+
+    cfg = tiny_config().preprocess
+    c = walk_case(name)
+    cpu = [torch.tensor(c[k]) for k in ("range_mm", "xyz", "p0")]
+    args = [x.to(dev) for x in cpu]
+    got, again = KF.ground_walk(*args, cfg), KF.ground_walk(*args, cfg)
+    assert got.dtype == torch.int32 and torch.equal(got, again)
+    assert torch.equal(got, KF.ground_walk_plain(*args, cfg))
+    assert torch.equal(got.cpu(), KF.ground_walk_plain(*cpu, cfg))
+
+
+def test_fused_engine_on_card(dev):
+    import dataclasses
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, cloud_buckets=(512, 1024, 2048)))
+    vert = np.deg2rad(np.sort(np.array(cfg.sensor.vertical_angles_deg))).astype(np.float32)
+    runs = []
+    for pipelined in (False, True):
+        eng = SlamEngine(cfg, seed=0, tile=cfg.runtime.point_tile, device=dev,
+                         host_preprocess=False, pipelined=pipelined, fetch_every=4)
+        for r, az in overflow_sequence(cfg, base=400, spike=1200):
+            eng.process_range_image(r, az, vert)
+        eng.flush()
+        runs.append(eng)
+    sync, pipe = runs
+    assert pipe.n_redispatched > 0
+    assert len(sync.records) == len(pipe.records) == 6
+    for a, b in zip(sync.records, pipe.records):
+        np.testing.assert_array_equal(a.pose, b.pose)
+        assert (a.n_inliers, a.n_mutual, a.map_size) == (b.n_inliers, b.n_mutual, b.map_size)
+
+
+def test_eval_ops_on_card(dev):
+    from bshot_slam_tpu_torch.ops import hamming, keypoints, voxelgrid
+
+    cfg = tiny_config().keypoints
+    pts, mask = iss_corners()
+    want = keypoints.iss_keypoints(torch.tensor(pts), torch.tensor(mask), cfg, 1024, 256)
+    got = keypoints.iss_keypoints(torch.tensor(pts, device=dev),
+                                  torch.tensor(mask, device=dev), cfg, 1024, 256)
+    n_c, n_g = int(want.mask.sum()), int(got.mask.sum())
+    common = np.intersect1d(want.indices[:n_c].numpy(), got.indices[:n_g].cpu().numpy())
+    assert n_c > 20 and abs(n_g - n_c) <= 0.1 * n_c and len(common) >= 0.75 * n_c
+    flipped = (torch.flip(want.positions, [0]), torch.flip(want.mask, [0]))
+    r_c = keypoints.repeatability(want.positions, want.mask, *flipped)
+    r_g = keypoints.repeatability(*(x.to(dev) for x in (want.positions, want.mask,
+                                                        *flipped)))
+    assert float(r_g) == float(r_c) == 1.0
+    t, m = torch.tensor(pts, device=dev), torch.tensor(mask, device=dev)
+    c1, v1 = voxelgrid.voxel_downsample(t, m, 50.0, 4096)
+    c2, v2 = voxelgrid.voxel_downsample(t, m, 50.0, 4096)
+    cc, vc = voxelgrid.voxel_downsample(torch.tensor(pts), torch.tensor(mask), 50.0, 4096)
+    assert torch.equal(c1, c2) and torch.equal(v1, v2) and torch.equal(v1.cpu(), vc)
+    torch.testing.assert_close(c1.cpu(), cc, rtol=0, atol=1e-3)
+    rng = np.random.default_rng(6)
+    a = torch.tensor(rng.integers(-2**31, 2**31, (300, 11), dtype=np.int64).astype(np.int32))
+    b = torch.tensor(rng.integers(-2**31, 2**31, (280, 11), dtype=np.int64).astype(np.int32))
+    b[:40] = a[:40]
+    am, bm = torch.ones(300, dtype=torch.bool), torch.ones(280, dtype=torch.bool)
+    want_m = hamming.mutual_nn(a, am, b, bm, use_matmul=True)
+    got_m = hamming.mutual_nn(a.to(dev), am.to(dev), b.to(dev), bm.to(dev), use_matmul=True)
+    for x, y in zip(want_m, got_m):
+        assert torch.equal(x, y.cpu())

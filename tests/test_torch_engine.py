@@ -17,13 +17,14 @@
     and, through them, a few matches.  Measured: counts within 3, map sizes
     within 1, poses within 0.37 mm, ATE 133.58 vs 133.62 mm.  Held: counts
     within 5, poses within 2 mm and 1e-4 rad, ATE within 5 mm.
-(b) Every module of the port imports, and one CPU step runs, with `jax`
-    and `bshot_slam_tpu` made unimportable; so do the pipelined engine with
+(b) Every module of the port imports, and one CPU step runs (also through
+    the pipelined device preprocess), with `jax` and `bshot_slam_tpu` made
+    unimportable; so do the pipelined engine with
     the backend (keyframes, loop closure, pose graph, corrections) and a
     bundle adjustment over its keyframes.
-(c) `SlamEngine()` without a device raises when no card is visible; the
-    two modes not ported yet (fused device preprocess, meshes) raise
-    NotImplementedError.
+(c) `SlamEngine()` without a device raises when no card is visible, with
+    the device preprocess too, which constructs on the CPU; the mode not
+    ported yet (meshes) raises NotImplementedError.
 (d) Importing the port builds nothing and creates no build directory.
 """
 
@@ -163,6 +164,9 @@ sweeps, _ = synthetic.render_sequence(1, cfg.sensor, seed=3,
                                       n_firings=cfg.sensor.n_azimuth)
 rec = SlamEngine(cfg, device="cpu", tile=256).process_sweep(sweeps[0])
 assert rec.map_size > 0 and np.allclose(rec.pose, np.eye(4))
+fused = SlamEngine(cfg, device="cpu", tile=256, host_preprocess=False, pipelined=True)
+fused.process_sweep(sweeps[0])
+assert fused.flush().map_size > 0
 from bshot_slam_tpu_torch.backend.ba import ba_solve
 eng = SlamEngine(cfg, device="cpu", tile=256, pipelined=True, fetch_every=2,
                  enable_backend=True, keep_corr=True)
@@ -188,8 +192,10 @@ def test_engine_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tengine.SlamEngine(tc.tiny_config())
-    with pytest.raises(NotImplementedError):
-        tengine.SlamEngine(tc.tiny_config(), device="cpu", host_preprocess=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tengine.SlamEngine(tc.tiny_config(), host_preprocess=False)
+    eng = tengine.SlamEngine(tc.tiny_config(), device="cpu", host_preprocess=False)
+    assert not eng.host_preprocess and eng.device.type == "cpu"
     with pytest.raises(NotImplementedError):
         tengine.SlamEngine(tc.tiny_config(), device="cpu", mesh=object())
 

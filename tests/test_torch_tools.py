@@ -9,8 +9,14 @@ frame on one thread, most of it the plain Hamming scan of a 16384-row map):
     reference's `load_state` reads the port's file;
 (b) a PCAP input (the native stream) with `--frames`;
 (c) `--sharded` raises NotImplementedError;
+(c2) the evaluation CLIs: `run_preprocess_eval` (with a select list and PLY
+    export) and `show_pointcloud` print what the reference's tools print on
+    the same arguments; `run_kp_eval` and the three `run_analysis`
+    experiments write their lines, JSON and charts, the `ground`
+    experiment's accuracies equal to the reference's;
 (d) `bench_torch._prefilled_map` equals `bench.py`'s array by array; a CPU
-    run of `bench_torch.main` prints bench.py's JSON keys first;
+    run of `bench_torch.main` prints bench.py's JSON keys first; `--full`'s
+    host and device-preprocess clouds hold the same points and both step;
 (e) the viz copies write the reference's bytes; `LiveView` draws a port
     engine; `utils.profiling` times and traces.
 Slow (subprocesses at the full config with few azimuth bins, as
@@ -19,6 +25,7 @@ with periodic passes and BA, `--live` with `--step`, and `--udp`.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -100,6 +107,81 @@ def test_cli_sharded_raises():
         run_odometry.main(["--synthetic", "2", "--cpu", "--sharded", "2"])
 
 
+# -- (c2) the evaluation CLIs --------------------------------------------------
+
+
+def _run_main(mod, *args) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert mod.main([str(a) for a in args]) == 0
+    return out.getvalue()
+
+
+def _reference_tool(name, monkeypatch, *args) -> str:
+    """The reference's `tools/<name>.py` in process, on the CPU."""
+    import runpy
+
+    monkeypatch.setattr(sys, "argv", [name, *map(str, args)])
+    main = runpy.run_path(str(ROOT / "tools" / f"{name}.py"))["main"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert main() == 0
+    return out.getvalue()
+
+
+def test_preprocess_eval_cli_matches_reference(tmp_path, tiny, monkeypatch):
+    from bshot_slam_tpu_torch.tools import run_preprocess_eval
+
+    sel = tmp_path / "sel.txt"
+    sel.write_text(" ".join(str(i) for i in range(0, 3000, 7)) + "\n1 2 3\n")
+    args = ("--synthetic", 2, "--n-azimuth", 128, "--select", sel, "--cpu")
+    got = _run_main(run_preprocess_eval, *args, "--ply-out", tmp_path / "ply")
+    want = _reference_tool("run_preprocess_eval", monkeypatch, *args)
+    assert got == want and got.count("accuracy=") == 2
+    assert len(list((tmp_path / "ply").glob("frame_*.ply"))) == 2
+
+
+def test_show_pointcloud_cli_matches_reference(tmp_path, monkeypatch):
+    from bshot_slam_tpu_torch.tools import show_pointcloud
+
+    got = _run_main(show_pointcloud, "--synthetic", 2, "--n-azimuth", 128, "--cpu",
+               "--out", tmp_path / "port")
+    want = _reference_tool("show_pointcloud", monkeypatch, "--synthetic", 2,
+                           "--n-azimuth", 128, "--out", tmp_path / "ref")
+    assert got.replace("port", "ref") == want and want.count("returns") == 2
+    head = (tmp_path / "port" / "sweep_00000.ply").read_text().split("end_header")[0]
+    assert head == (tmp_path / "ref" / "sweep_00000.ply").read_text().split("end_header")[0]
+
+
+def test_kp_eval_cli(tiny):
+    from bshot_slam_tpu_torch.tools import run_kp_eval
+
+    out = _run_main(run_kp_eval, "--synthetic", 2, "--n-azimuth", 256, "--cpu")
+    lines = out.strip().splitlines()
+    assert len(lines) == 2 and "SR n=" in lines[0] and "ISS n=" in lines[0]
+    assert "repeat SR=" in lines[1]
+
+
+@pytest.mark.parametrize("experiment", ["ground", "repeatability", "correspondences"])
+def test_analysis_cli(tmp_path, tiny, experiment):
+    from bshot_slam_tpu_torch.tools import run_analysis
+
+    args = (experiment, "--synthetic", 2, "--n-azimuth", 128, "--vert-inits=-0.6,-0.9",
+            "--cpu", "--out")
+    out = _run_main(run_analysis, *args, tmp_path / "port")
+    assert "stats ->" in out and list((tmp_path / "port").glob("*.svg"))
+    got = json.loads((tmp_path / "port" / f"{experiment}.json").read_text())
+    assert len(got["frame"]) == 2
+    if experiment == "ground":  # the classes alone decide: any max_points
+        ref = ROOT / "tools" / "run_analysis.py"
+        proc = subprocess.run([sys.executable, str(ref), *map(str, args),
+                               str(tmp_path / "ref")], capture_output=True, text=True,
+                              env=dict(os.environ, JAX_PLATFORMS="cpu"), timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        want = json.loads((tmp_path / "ref" / "ground.json").read_text())
+        assert got == want
+
+
 # -- (d) the bench -------------------------------------------------------------
 
 
@@ -131,6 +213,26 @@ def test_bench_cpu_run_prints_the_reference_line(tiny, monkeypatch, capsys):
     assert line["metric"] == "engine_frames_per_sec_per_chip" and line["value"] > 0
     assert rc == (0 if line["quality_ok"] else 1)
     assert "# cpu" in err and "redispatched=" in err
+
+
+def test_bench_step_only_forms():
+    """`--full`'s two step-only passes: the host clouds and the device
+    preprocess's masked clouds hold the same points; both step."""
+    import bench_torch
+
+    cfg = tc.tiny_config()
+    sweeps, _ = synthetic.render_sequence(2, cfg.sensor, step_mm=300.0, noise_mm=10.0,
+                                          seed=11, n_firings=cfg.sensor.n_azimuth)
+    host = bench_torch.host_clouds(cfg, sweeps, "cpu")
+    dev = bench_torch.device_clouds(cfg, sweeps, "cpu")
+    for (hp, _, nv), (dp, dm, _) in zip(host, dev):
+        assert int(dm.sum()) == nv and dp.shape == hp.shape
+        torch.testing.assert_close(dp[:nv], hp[:nv], rtol=0, atol=0.05)
+    small = dataclasses.replace(cfg, map=dataclasses.replace(cfg.map, capacity=4096))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bench_torch, "PREFILL_LANDMARKS", 500)
+        assert bench_torch.step_only_fps(small, dev, "cpu") > 0
+        assert bench_torch.step_only_fps(small, host, "cpu") > 0
 
 
 # -- (e) viz and profiling -----------------------------------------------------

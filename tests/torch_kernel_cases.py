@@ -1,8 +1,9 @@
-"""Seeded edge cases for the port's kernels A to E, map eviction and loop
+"""Seeded edge cases for the port's kernels A to F, map eviction and loop
 verification (numpy only).
 
-`tests/test_torch_kernel_cases.py` and `tests/test_torch_backend.py` run
-them through the port's plain versions against the reference on the CPU;
+`tests/test_torch_kernel_cases.py`, `tests/test_torch_backend.py` and (for
+F, the ground walk) `tests/test_torch_preprocess.py` run them through the
+port's plain versions against the reference on the CPU;
 `tests/test_torch_cuda.py` runs the CUDA kernels (and eviction on the card)
 against the plain versions.  A case is a dict of numpy arrays and scalars,
 made from a fixed seed by name.
@@ -405,3 +406,133 @@ def keyframe_pair(seed: int, K: int = 600) -> tuple:
     perm = rng.permutation(K)
     mask_a, mask_b = rng.random(K) > 0.05, rng.random(K) > 0.05
     return kp_a, desc_a, mask_a, kp_b[perm], desc_b[perm], mask_b
+
+
+# Kernel F, the ground walk: a rendered sweep and synthetic column profiles.
+F_CASES = ("drive", "random", "lost_runs", "zero_columns", "selfcar", "restart")
+HDL32E_RINGS = 32
+
+
+def _p0(azimuth_rad: np.ndarray, vert_init: float = -0.6,
+        height: float = 2450.0) -> np.ndarray:
+    """The walk's virtual ground point per column, at row 0's azimuth."""
+    h = np.float32(height)
+    horiz0 = -h / np.tan(np.float32(vert_init))
+    az0 = azimuth_rad[0]
+    return np.stack([horiz0 * np.sin(az0), horiz0 * np.cos(az0),
+                     np.full_like(az0, -h)], axis=-1).astype(np.float32)
+
+
+def _profiles(rng, R: int, A: int, curbs: float, walls: float):
+    """Columns walking outward over flat ground (z = -2450 mm) with random
+    curbs (100-450 mm up: the walk sets a threshold point there, and the
+    ground behind a curb restarts) and walls (1-3 m up)."""
+    az = np.broadcast_to(np.linspace(0, 2 * np.pi, A, endpoint=False), (R, A))
+    horiz = 3000.0 + np.cumsum(rng.uniform(300, 1500, (R, A)), axis=0)
+    z = -2450.0 + rng.normal(0, 10, (R, A))
+    u = rng.random((R, A))
+    z = np.where(u < curbs, z + rng.uniform(100, 450, (R, A)), z)
+    z = np.where(u > 1 - walls, z + rng.uniform(1000, 3000, (R, A)), z)
+    return az, horiz, z
+
+
+def walk_case(name: str) -> dict:
+    """Inputs of kernel F (`ground_walk`) and of `_ground_scan`: range_mm
+    (R, A), azimuth_rad (R, A), vert_rad (R,) and xyz (R, A, 3), float32,
+    and p0 (A, 3), the virtual ground point of each column.  The synthetic
+    profiles give points directly (the walk reads xyz as given) and their
+    norms as ranges."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    R, A = HDL32E_RINGS, 256
+    vert = np.deg2rad(np.linspace(-30.67, 10.67, R)).astype(np.float32)
+    if name == "drive":
+        from bshot_slam_tpu_torch.config import SensorConfig
+        from bshot_slam_tpu_torch.io import synthetic
+        from bshot_slam_tpu_torch.ops.preprocess_host import polar_to_xyz_host
+        from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
+
+        sensor = SensorConfig(n_azimuth=A)
+        sweeps, _ = synthetic.render_sequence(1, sensor, noise_mm=20.0, seed=3,
+                                              n_firings=A, adversarial=True)
+        ri = build_range_image(sweeps[0], sensor)
+        r, az, vert = ri.range_mm, ri.azimuth_rad, ri.vert_rad
+        xyz = polar_to_xyz_host(r, az, vert)
+    elif name == "random":  # dropouts and extreme ranges on the rays
+        from bshot_slam_tpu_torch.ops.preprocess_host import polar_to_xyz_host
+
+        r = rng.uniform(0, 40000, (R, A)).astype(np.float32)
+        r[rng.random((R, A)) < 0.3] = 0.0
+        az = np.broadcast_to(np.linspace(0, 2 * np.pi, A, endpoint=False,
+                                         dtype=np.float32), (R, A)).copy()
+        xyz = polar_to_xyz_host(r, az, vert)
+    else:
+        az, horiz, z = _profiles(rng, R, A, curbs=0.15 if name == "restart" else 0.05,
+                                 walls=0.05)
+        if name == "selfcar":  # returns off the car's own body: in the crop box
+            car = rng.random((R, A)) < 0.2
+            horiz = np.where(car, rng.uniform(0, 800, (R, A)), horiz)
+            z = np.where(car, rng.uniform(-2000, 100, (R, A)), z)
+        xyz = np.stack([horiz * np.sin(az), horiz * np.cos(az), z], axis=-1)
+        lost = np.zeros((R, A), bool)
+        if name == "lost_runs":  # runs of lost returns, from the ground up too
+            for a in range(A):
+                start = rng.integers(0, R)
+                lost[start:start + rng.integers(1, 6), a] = True
+            lost[0, ::7] = True
+            lost[-3:, ::5] = True
+        if name == "zero_columns":  # whole columns without a return
+            lost[:, rng.choice(A, 12, replace=False)] = True
+            lost |= rng.random((R, A)) < 0.1
+        xyz[lost] = 0.0
+        r = np.sqrt(np.sum(xyz.astype(np.float32) ** 2, axis=-1))
+    az = np.asarray(az, np.float32)
+    return dict(range_mm=np.asarray(r, np.float32), azimuth_rad=az,
+                vert_rad=np.asarray(vert, np.float32),
+                xyz=np.ascontiguousarray(xyz, np.float32), p0=_p0(az))
+
+
+def overflow_sequence(cfg, base: int, spike: int, n_frames: int = 6, spike_at: int = 3):
+    """tests/test_odometry_e2e.py's range images for a kept-count spike:
+    `base` wall returns on the upper rings in every frame and `spike` at
+    frame `spike_at`; every frame has `spike` returns (the others pad with
+    returns inside the self-car box, classified out before extraction), so
+    the spike comes from the classes alone.  Returns [(range_mm,
+    azimuth_rad)] for a config's (rings, azimuth bins)."""
+    rng = np.random.default_rng(7)
+    R, A = cfg.sensor.n_rings, cfg.sensor.n_azimuth
+    az = np.broadcast_to(np.linspace(0, 2 * np.pi, A, endpoint=False,
+                                     dtype=np.float32), (R, A)).copy()
+    hi_rings = np.arange(23 * R // 32, R)
+    lo_rings = np.arange(0, 8)
+    frames = []
+    for f in range(n_frames):
+        n_wall = spike if f == spike_at else base
+        r = np.zeros((R, A), np.float32)
+        cells = rng.choice(len(hi_rings) * A, n_wall, replace=False)
+        ring, col = hi_rings[cells // A], cells % A
+        rr = 20000.0 + 8000.0 * np.sin(col * 0.37) + rng.normal(0, 5, n_wall)
+        r[ring, col] = rr.astype(np.float32)
+        if f != spike_at:
+            ccells = rng.choice(len(lo_rings) * A, spike - n_wall, replace=False)
+            r[lo_rings[ccells // A], ccells % A] = 800.0
+        frames.append((r, az))
+    return frames
+
+
+def iss_corners(seed: int = 1, n: int = 8, side: float = 400.0, step: float = 20.0):
+    """A cloud for the ISS detector: n noisy corners (three orthogonal
+    planes of `side` mm on a `step` mm grid, 2 mm noise) at random
+    orientations within 1.5 m of the origin; (points, mask with 5% masked)."""
+    rng = np.random.default_rng(seed)
+    g = np.arange(0, side + 1e-3, step)
+    a, b = (x.ravel() for x in np.meshgrid(g, g, indexing="ij"))
+    z = np.zeros_like(a)
+    one = np.concatenate([np.stack([a, b, z], 1), np.stack([a, z, b], 1),
+                          np.stack([z, a, b], 1)])
+    parts = []
+    for _ in range(n):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        parts.append(one @ q.T + rng.uniform(-1500, 1500, 3))
+    pts = np.concatenate(parts).astype(np.float32)
+    pts += rng.normal(0, 2.0, pts.shape).astype(np.float32)
+    return pts, rng.random(len(pts)) > 0.05
