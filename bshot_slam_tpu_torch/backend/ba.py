@@ -11,6 +11,8 @@ S dx = b with preconditioned conjugate gradients whose matvec never forms
 S.  Every per-observation sum is an `index_add_` over ids sorted once per
 solve (the reference's sorted `segment_sum`).  Jacobians are closed form:
 Jl = R^T, Jp = [-I, [p_s]x] for the right perturbation T exp(xi).
+`reduce`, when given, finishes every per-observation sum (the sharded
+solve's all-reduce over ranks that each hold some observations).
 """
 
 from __future__ import annotations
@@ -70,7 +72,8 @@ def _prepare(poses, landmarks, prob: BAProblem, kf, lm):
 
 
 def ba_solve(prob: BAProblem, gn_iterations: int = 5, cg_iterations: int = 20,
-             lm_lambda: float = 1.0e-4, anchor_weight: float = 1.0e6) -> BAResult:
+             lm_lambda: float = 1.0e-4, anchor_weight: float = 1.0e6,
+             reduce=None) -> BAResult:
     s = 1.0 / 1000.0  # solve in metres (see backend.posegraph)
     dev = prob.poses.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -81,9 +84,12 @@ def ba_solve(prob: BAProblem, gn_iterations: int = 5, cg_iterations: int = 20,
     M, L = prob.poses.shape[0], prob.landmarks.shape[0]
     kf, lm = prob.obs_kf.long(), prob.obs_lm.long()
 
+    def total(x):
+        return x if reduce is None else reduce(x)
+
     def cost(poses, landmarks):
         r, _, _ = _prepare(poses, landmarks, prob, kf, lm)
-        return 0.5 * torch.sum(r * r)
+        return total(0.5 * torch.sum(r * r))
 
     # Each reduction axis sorted once per solve.
     perm_kf = torch.argsort(kf, stable=True)
@@ -92,10 +98,12 @@ def ba_solve(prob: BAProblem, gn_iterations: int = 5, cg_iterations: int = 20,
     ids_lm = lm[perm_lm]
 
     def seg_kf(x):
-        return torch.zeros((M,) + x.shape[1:], **f32).index_add_(0, ids_kf, x[perm_kf])
+        return total(torch.zeros((M,) + x.shape[1:], **f32)
+                     .index_add_(0, ids_kf, x[perm_kf]))
 
     def seg_lm(x):
-        return torch.zeros((L,) + x.shape[1:], **f32).index_add_(0, ids_lm, x[perm_lm])
+        return total(torch.zeros((L,) + x.shape[1:], **f32)
+                     .index_add_(0, ids_lm, x[perm_lm]))
 
     eye3 = torch.eye(3, **f32)
     eye6 = torch.eye(6, **f32)

@@ -16,6 +16,11 @@ belongs to) and still writes `rng_key` as `[0, seed]` (uint32), which is
 what `jax.random.PRNGKey(seed)` holds: the reference loading a port file
 restarts its stream from the engine's seed.  A file the reference wrote has
 no generator state; loading it leaves the port's generator as seeded.
+
+On a mesh (`mesh=`), `save_state` gathers the sharded map (a collective:
+every rank calls it) and rank 0 writes the file in the same format, and
+`load_state` places the map's rows on the ranks; `save_backend` writes from
+rank 0 (the backend is every rank's alike).
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ import numpy as np
 import torch
 
 from bshot_slam_tpu_torch import convert
+from bshot_slam_tpu_torch.odometry.mapstore import MapShard
 from bshot_slam_tpu_torch.odometry.pipeline import OdometryState
+from bshot_slam_tpu_torch.parallel import comm
 
 # v2 adds map_frame_born / map_n_dropped (MapState provenance + saturation
 # fields); v1 checkpoints load with frame_born=-1, n_dropped=0 defaults.
@@ -38,21 +45,38 @@ _STATE_KEYS = ([f"map.{f}" for f in convert.MAP_FIELDS]
                + [f"ref.{f}" for f in convert.REF_FIELDS] + ["ref_pose", "frame_idx"])
 
 
-def save_state(path: str, state: OdometryState, poses: np.ndarray) -> None:
-    """Write state + (n, 4, 4) pose history to `path`/slam_state.npz."""
-    os.makedirs(path, exist_ok=True)
-    d = convert.state_to_numpy(state)
-    np.savez_compressed(
-        os.path.join(path, "slam_state.npz"),
-        version=_FORMAT_VERSION,
-        **{k.replace(".", "_"): v for k, v in d.items()},
-        poses=np.asarray(poses),
-    )
+def save_state(path: str, state: OdometryState, poses: np.ndarray,
+               mesh=None, map_axis: str = "map") -> None:
+    """Write state + (n, 4, 4) pose history to `path`/slam_state.npz; a
+    sharded state needs its `mesh` (and `map_axis`)."""
+    if isinstance(state.map, MapShard):
+        if mesh is None:
+            raise ValueError("a sharded state is saved with its mesh")
+        from bshot_slam_tpu_torch.parallel import sharded
+
+        state = sharded.gather_state(state, mesh, map_axis)
+    if comm.is_writer():
+        os.makedirs(path, exist_ok=True)
+        d = convert.state_to_numpy(state)
+        np.savez_compressed(
+            os.path.join(path, "slam_state.npz"),
+            version=_FORMAT_VERSION,
+            **{k.replace(".", "_"): v for k, v in d.items()},
+            poses=np.asarray(poses),
+        )
+    comm.writer_done("checkpoint written")
 
 
-def load_state(path: str, device=None) -> Tuple[OdometryState, np.ndarray]:
-    """Read back (OdometryState, poses); `device=None` means the card.
+def load_state(path: str, device=None, mesh=None,
+               map_axis: str = "map") -> Tuple[OdometryState, np.ndarray]:
+    """Read back (OdometryState, poses); `device=None` means the card (with
+    `mesh`: the rank's device, the map's rows placed along `map_axis`).
     Raises on a version it does not know."""
+    if mesh is not None:
+        from bshot_slam_tpu_torch.parallel import sharded
+
+        state, poses = load_state(path, device="cpu")
+        return sharded.shard_state(state, mesh, map_axis, device), poses
     with np.load(os.path.join(path, "slam_state.npz")) as z:
         version = int(z["version"])
         if version not in (1, 2):
@@ -68,7 +92,14 @@ def load_state(path: str, device=None) -> Tuple[OdometryState, np.ndarray]:
 
 def save_backend(path: str, engine) -> None:
     """Persist a SlamEngine's KeyframeStore, verified loop edges,
-    keyframe-policy counters and random state to `path`/backend_state.npz."""
+    keyframe-policy counters and random state to `path`/backend_state.npz
+    (on a process group, rank 0 writes)."""
+    if comm.is_writer():
+        _write_backend(path, engine)
+    comm.writer_done("checkpoint written")
+
+
+def _write_backend(path: str, engine) -> None:
     os.makedirs(path, exist_ok=True)
     kf = convert.keyframes_to_numpy(engine.keyframes)
     edges = getattr(engine, "loop_edges", [])

@@ -225,7 +225,8 @@ __global__ void __launch_bounds__(kThreads)
 accumulate_kernel(const float4* __restrict__ cand, const float* __restrict__ featp,
                   const float* __restrict__ boxes, const float* __restrict__ r2row,
                   float4* __restrict__ part, int* __restrict__ counters,
-                  float* __restrict__ out, int n, int nf, int ntiles, float r2) {
+                  float* __restrict__ out, int q0, int q1, int nf, int ntiles,
+                  float r2) {
   constexpr int kF4 = NFP / 4;  // float4 chunks of a feature row
   __shared__ __align__(16) float4 sc[kStages][kTile];
   __shared__ __align__(16) float4 sf[kStages][kTile * kF4];
@@ -234,20 +235,20 @@ accumulate_kernel(const float4* __restrict__ cand, const float* __restrict__ fea
   __shared__ int last;
 
   const int tid = threadIdx.x;
-  const int qb = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
-  const int i = qb * kTile + tid;
+  const int qb = q0 / kTile + blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int i = qb * kTile + tid;  // the query row; out holds rows [q0, q1)
 
   float qbox[8];
   load_box(boxes, qb, qbox);
   if (!(qbox[0] <= qbox[3])) {  // no valid query in this block: zeros
-    if (split == 0 && i < n)
-      for (int f = 0; f < nf; ++f) out[(size_t)i * nf + f] = 0.0f;
+    if (split == 0 && i < q1)
+      for (int f = 0; f < nf; ++f) out[(size_t)(i - q0) * nf + f] = 0.0f;
     return;
   }
   const int mine = list_kept_tiles(boxes, qbox, ntiles, r2, list, wcount);
 
   const float4 q = cand[i];  // a masked query is inert too
-  const float r2q = (r2row != nullptr && i < n) ? r2row[i] : r2;
+  const float r2q = (r2row != nullptr && i < q1) ? r2row[i] : r2;
   float acc[NFP];
 #pragma unroll
   for (int f = 0; f < NFP; ++f) acc[f] = 0.0f;
@@ -294,7 +295,8 @@ accumulate_kernel(const float4* __restrict__ cand, const float* __restrict__ fea
   // Partial sums to scratch; the last block of this query block adds them
   // in ascending split order.
   const size_t stride = (size_t)gridDim.x * kTile * kF4;  // float4 per split
-  float4* mypart = part + split * stride + (size_t)i * kF4;
+  const size_t row = (size_t)(i - q0);  // this block's rows in part
+  float4* mypart = part + split * stride + row * kF4;
 #pragma unroll
   for (int c = 0; c < kF4; ++c)
     mypart[c] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
@@ -309,17 +311,17 @@ accumulate_kernel(const float4* __restrict__ cand, const float* __restrict__ fea
   for (int s = 0; s < nsplit; ++s) {
 #pragma unroll
     for (int c = 0; c < kF4; ++c) {
-      const float4 v = __ldcg(part + s * stride + (size_t)i * kF4 + c);
+      const float4 v = __ldcg(part + s * stride + row * kF4 + c);
       acc[4 * c] += v.x;
       acc[4 * c + 1] += v.y;
       acc[4 * c + 2] += v.z;
       acc[4 * c + 3] += v.w;
     }
   }
-  if (i < n) {
+  if (i < q1) {
 #pragma unroll
     for (int f = 0; f < NFP; ++f)
-      if (f < nf) out[(size_t)i * nf + f] = acc[f];
+      if (f < nf) out[row * nf + f] = acc[f];
   }
   if (tid == 0) counters[qb] = 0;  // ready for the next call on this stream
 }
@@ -333,20 +335,22 @@ __global__ void __launch_bounds__(kThreads)
 segratio_kernel(const float4* __restrict__ cand, const float* __restrict__ boxes,
                 const float* __restrict__ ctvec, const float* __restrict__ r2row,
                 float4* __restrict__ part, int* __restrict__ counters,
-                float* __restrict__ out, int n, int ntiles, float r2) {
+                float* __restrict__ out, int q0, int q1, int ntiles, float r2) {
   __shared__ __align__(16) float4 sc[kStages][kTile];
   __shared__ uint16_t list[kMaxTiles];
   __shared__ int wcount[kWarps];
   __shared__ int last;
 
   const int tid = threadIdx.x;
-  const int qb = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
-  const int i = qb * kTile + tid;
+  const int qb = q0 / kTile + blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int i = qb * kTile + tid;  // the query row; ctvec and out hold rows [q0, q1)
+  const int row = i - q0;
 
   float qbox[8];
   load_box(boxes, qb, qbox);
   if (!(qbox[0] <= qbox[3])) {  // no valid query in this block: zeros
-    if (split == 0 && i < n) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = 0.0f;
+    if (split == 0 && i < q1)
+      out[3 * row] = out[3 * row + 1] = out[3 * row + 2] = 0.0f;
     return;
   }
   const int mine = list_kept_tiles(boxes, qbox, ntiles, r2, list, wcount);
@@ -354,10 +358,10 @@ segratio_kernel(const float4* __restrict__ cand, const float* __restrict__ boxes
   // A masked query is inert (q.w = +inf): it passes no radius test, so its
   // three sums stay 0 whatever its ctvec holds.
   const float4 q = cand[i];
-  const float r2q = (r2row != nullptr && i < n) ? r2row[i] : r2;
-  const float vx = i < n ? ctvec[3 * i] : 0.0f;
-  const float vy = i < n ? ctvec[3 * i + 1] : 0.0f;
-  const float vz = i < n ? ctvec[3 * i + 2] : 0.0f;
+  const float r2q = (r2row != nullptr && i < q1) ? r2row[i] : r2;
+  const float vx = i < q1 ? ctvec[3 * row] : 0.0f;
+  const float vy = i < q1 ? ctvec[3 * row + 1] : 0.0f;
+  const float vz = i < q1 ? ctvec[3 * row + 2] : 0.0f;
   const float vq = dot3(vx, vy, vz, q.x, q.y, q.z);
   const float vnorm = NORMALIZED ? sqrtf(norm2(vx, vy, vz)) : 0.0f;
   float pos = 0.0f, neg = 0.0f, ssum = 0.0f;
@@ -394,7 +398,7 @@ segratio_kernel(const float4* __restrict__ cand, const float* __restrict__ boxes
   // Partial sums to scratch; the last block of this query block adds them
   // in ascending split order.
   const size_t stride = (size_t)gridDim.x * kTile;  // float4 per split
-  part[split * stride + i] = make_float4(pos, neg, ssum, 0.0f);
+  part[split * stride + row] = make_float4(pos, neg, ssum, 0.0f);
   __threadfence();
   __syncthreads();
   if (tid == 0) last = atomicAdd(&counters[qb], 1) == nsplit - 1;
@@ -403,17 +407,26 @@ segratio_kernel(const float4* __restrict__ cand, const float* __restrict__ boxes
   __threadfence();
   pos = neg = ssum = 0.0f;
   for (int s = 0; s < nsplit; ++s) {
-    const float4 v = __ldcg(part + s * stride + i);
+    const float4 v = __ldcg(part + s * stride + row);
     pos += v.x;
     neg += v.y;
     ssum += v.z;
   }
-  if (i < n) {
-    out[3 * i] = pos;
-    out[3 * i + 1] = neg;
-    out[3 * i + 2] = ssum;
+  if (i < q1) {
+    out[3 * row] = pos;
+    out[3 * row + 1] = neg;
+    out[3 * row + 2] = ssum;
   }
   if (tid == 0) counters[qb] = 0;  // ready for the next call on this stream
+}
+
+// The query rows [q0, q1) of A and B: q0 a multiple of 128, q1 one or n, so
+// each query block is the block of the launch over every row and its sums
+// come out bit for bit the same; every row stays a candidate.  out holds
+// (q1 - q0) rows, and so does B's ctvec.
+bool bad_rows(int n, int q0, int q1) {
+  return q0 < 0 || q0 > q1 || q1 > n || q0 % kTile != 0 ||
+         (q1 % kTile != 0 && q1 != n);
 }
 
 }  // namespace
@@ -428,22 +441,23 @@ int bshot_neighborhood_accumulate(const float* pts, const uint8_t* mask,
                                   const float* feat, const float* r2row,
                                   float* out, float* cand, float* featp,
                                   float* boxes, float* part, int* counters,
-                                  int n, int nf, int nsplit, float r2,
-                                  void* stream) {
-  if (n <= 0) return 0;
+                                  int n, int nf, int nsplit, float r2, int q0,
+                                  int q1, void* stream) {
+  if (n <= 0 || q0 == q1) return 0;
   const int ntiles = (n + kTile - 1) / kTile;
   const int nfp = (nf + 3) / 4 * 4;
-  if (nf < 1 || nfp > kMaxFeat || ntiles > kMaxTiles || nsplit < 1 || nsplit > 65535)
+  if (nf < 1 || nfp > kMaxFeat || ntiles > kMaxTiles || nsplit < 1 ||
+      nsplit > 65535 || bad_rows(n, q0, q1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float4* cand4 = reinterpret_cast<float4*>(cand);
   float4* part4 = reinterpret_cast<float4*>(part);
   pack_cloud_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, feat, cand4, featp,
                                                  boxes, n, nf, nfp);
-  const dim3 grid(ntiles, nsplit);
+  const dim3 grid((q1 - q0 + kTile - 1) / kTile, nsplit);
 #define BSHOT_ACCUMULATE(NFP)                                                  \
   accumulate_kernel<NFP><<<grid, kThreads, 0, st>>>(                          \
-      cand4, featp, boxes, r2row, part4, counters, out, n, nf, ntiles, r2)
+      cand4, featp, boxes, r2row, part4, counters, out, q0, q1, nf, ntiles, r2)
   switch (nfp) {
     case 4: BSHOT_ACCUMULATE(4); break;
     case 8: BSHOT_ACCUMULATE(8); break;
@@ -461,23 +475,23 @@ int bshot_segratio_accumulate(const float* pts, const uint8_t* mask,
                               const float* ctvec, const float* r2row, float* out,
                               float* cand, float* boxes, float* part,
                               int* counters, int n, int normalized, int nsplit,
-                              float r2, void* stream) {
-  if (n <= 0) return 0;
+                              float r2, int q0, int q1, void* stream) {
+  if (n <= 0 || q0 == q1) return 0;
   const int ntiles = (n + kTile - 1) / kTile;
-  if (ntiles > kMaxTiles || nsplit < 1 || nsplit > 65535)
+  if (ntiles > kMaxTiles || nsplit < 1 || nsplit > 65535 || bad_rows(n, q0, q1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float4* cand4 = reinterpret_cast<float4*>(cand);
   float4* part4 = reinterpret_cast<float4*>(part);
   pack_cloud_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, nullptr, cand4, nullptr,
                                                  boxes, n, 0, 0);
-  const dim3 grid(ntiles, nsplit);
+  const dim3 grid((q1 - q0 + kTile - 1) / kTile, nsplit);
   if (normalized)
     segratio_kernel<true><<<grid, kThreads, 0, st>>>(
-        cand4, boxes, ctvec, r2row, part4, counters, out, n, ntiles, r2);
+        cand4, boxes, ctvec, r2row, part4, counters, out, q0, q1, ntiles, r2);
   else
     segratio_kernel<false><<<grid, kThreads, 0, st>>>(
-        cand4, boxes, ctvec, r2row, part4, counters, out, n, ntiles, r2);
+        cand4, boxes, ctvec, r2row, part4, counters, out, q0, q1, ntiles, r2);
   return (int)cudaGetLastError();
 }
 

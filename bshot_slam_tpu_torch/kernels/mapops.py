@@ -112,8 +112,11 @@ def hamming_nn_bounded_plain(a_words, a_mask, b_words, b_mask, n_valid_b,
                                b_words.device)
     parts = []
     for c0 in range(0, b_words.shape[0], chunk):
-        d = popcount_distances(a_words, b_words[c0:c0 + chunk]).to(torch.float32)
         ok = a_mask[:, None] & ok_b[None, c0:c0 + chunk]
+        if not ok.any():  # dead rows (past the cursor): no distance to take
+            parts.append(torch.full(ok.shape, BIG, device=ok.device))
+            continue
+        d = popcount_distances(a_words, b_words[c0:c0 + chunk]).to(torch.float32)
         parts.append(torch.where(ok, d, BIG))
     d = torch.cat(parts, dim=1)
     a_min, a_arg = _min_argmin(d, 1)

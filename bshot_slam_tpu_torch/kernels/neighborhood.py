@@ -27,7 +27,19 @@ each kernel under a key of its own.  The work, in f32 instructions, is
 one add per feature column (A) or `SEGRATIO_IN_RADIUS_F32` (B);
 `chip_smoke.py` turns these counts into the bound at the main path's shapes.
 
-The plain versions mirror the reference's `lax.scan` path tile by tile.
+Both take a range of query rows, `rows=(q0, q1)` (the data axis of a mesh
+splits a cloud's queries this way), and return those rows only; every row of
+the cloud stays a candidate.  q0 is a multiple of TILE and q1 one too or the
+cloud's end, so each query block is the block of the launch over every row,
+its kept tiles are dealt over the same SPLITS, and its sums come out bit for
+bit the same.
+
+The plain versions mirror the reference's `lax.scan` path tile by tile,
+over query blocks of PLAIN_ROWS rows at multiples of PLAIN_ROWS: a block's
+sums are the same products in the same order whatever range holds it, at
+any number of CPU threads, so a range aligned to PLAIN_ROWS (as a data
+axis splits a cloud, `parallel.layout.data_rows`) gives the full call's
+rows bit for bit.
 Counts are exact between the two: the kernel reproduces the rounding of
 `kernels.pair_d2` step for step (see csrc/common.cuh).  Float sums differ
 by summation order only.
@@ -40,7 +52,7 @@ import math
 import torch
 
 from bshot_slam_tpu_torch.kernels import (
-    _build, fma_dot3, on_cpu, pair_d2, ptr, require, scratch, stream_arg,
+    _build, fma_dot3, on_cpu, ptr, require, scratch, stream_arg,
 )
 
 MAX_FEAT = 16  # feature columns the CUDA kernel accumulates in registers
@@ -53,38 +65,74 @@ TILE = 128  # queries per block and candidates per tile of the CUDA kernels
 # agree bit for bit.  At the main path's 12288 rows that is ~768 blocks of
 # 4 warps in flight on the 132 SMs.
 SPLITS = 8
+# Query rows per block of the plain versions (a multiple of TILE): a matrix
+# product's rounding may depend on its row count, so a row's sums are the
+# same in two calls only if both compute its block alike.
+PLAIN_ROWS = 1024
 # f32 instructions per pair (csrc/neighborhood.cu says how they are counted)
 RADIUS_TEST_F32 = 8
 SEGRATIO_IN_RADIUS_F32 = 10
 
 
+def query_rows(n: int, rows) -> tuple[int, int]:
+    """(q0, q1) of a query range (None: every row), checked as A and B
+    take it."""
+    q0, q1 = (0, n) if rows is None else (int(rows[0]), int(rows[1]))
+    if not (0 <= q0 <= q1 <= n and q0 % TILE == 0 and (q1 % TILE == 0 or q1 == n)):
+        raise ValueError(f"query rows ({q0}, {q1}) must lie in [0, {n}], start "
+                         f"on a multiple of {TILE} and end on one or at {n}")
+    return q0, q1
+
+
+def _block_d2(points, sq, b0: int, b1: int, t0: int, t1: int):
+    """`pair_d2(points[b0:b1], points[t0:t1])` with the squared norms `sq`
+    (`fma_dot3` of every row, taken once per call)."""
+    cross = points[b0:b1] @ points[t0:t1].T
+    return torch.clamp(sq[b0:b1, None] + sq[None, t0:t1] - 2.0 * cross, min=0.0)
+
+
+def _query_blocks(q0: int, q1: int):
+    """The plain versions' query blocks: [q0, q1) cut at the multiples of
+    PLAIN_ROWS."""
+    cuts = [q0, *range((q0 // PLAIN_ROWS + 1) * PLAIN_ROWS, q1, PLAIN_ROWS), q1]
+    return [(a, b) for a, b in zip(cuts, cuts[1:]) if a < b]
+
+
 def neighborhood_accumulate_plain(points, mask, feat, radius: float,
-                                  r2_row=None, tile: int = 4096):
+                                  r2_row=None, tile: int = 4096, rows=None):
     """Plain PyTorch version of kernel A (the reference's scan path)."""
     n = points.shape[0]
-    r2_col = radius * radius if r2_row is None else r2_row[:, None]
-    out = torch.zeros((n, feat.shape[1]), dtype=torch.float32,
+    q0, q1 = query_rows(n, rows)
+    out = torch.zeros((q1 - q0, feat.shape[1]), dtype=torch.float32,
                       device=points.device)
-    for t0 in range(0, n, tile):
-        rp, rm = points[t0:t0 + tile], mask[t0:t0 + tile]
-        d2 = pair_d2(points, rp)
-        within = (d2 <= r2_col) & rm[None, :] & mask[:, None]
-        out = out + within.to(torch.float32) @ feat[t0:t0 + tile]
+    sq = fma_dot3(points, points)
+    for b0, b1 in _query_blocks(q0, q1):
+        qm = mask[b0:b1]
+        r2_col = radius * radius if r2_row is None else r2_row[b0:b1, None]
+        acc = out[b0 - q0:b1 - q0]
+        for t0 in range(0, n, tile):
+            rm = mask[t0:t0 + tile]
+            d2 = _block_d2(points, sq, b0, b1, t0, t0 + tile)
+            within = (d2 <= r2_col) & rm[None, :] & qm[:, None]
+            acc = acc + within.to(torch.float32) @ feat[t0:t0 + tile]
+        out[b0 - q0:b1 - q0] = acc
     return out
 
 
 def neighborhood_accumulate(points: torch.Tensor, mask: torch.Tensor,
                             feat: torch.Tensor, radius: float,
                             r2_row: torch.Tensor | None = None,
-                            tile: int = 4096) -> torch.Tensor:
-    """(N, F) sums of in-radius features; masked rows give zeros.
+                            tile: int = 4096, rows=None) -> torch.Tensor:
+    """(q1 - q0, F) sums of in-radius features over the query rows
+    `rows=(q0, q1)` (default every row); masked rows give zeros.
 
-    `r2_row` optionally shrinks each query's ball (cap mode; <= radius^2),
-    `tile` is the plain version's candidate tile."""
+    `r2_row` (N,) optionally shrinks each query's ball (cap mode;
+    <= radius^2), `tile` is the plain version's candidate tile."""
     if on_cpu(points, mask, feat, r2_row):
         return neighborhood_accumulate_plain(points, mask, feat, radius,
-                                             r2_row, tile)
+                                             r2_row, tile, rows)
     n, nf = feat.shape
+    q0, q1 = query_rows(n, rows)
     if not 1 <= nf <= MAX_FEAT:
         raise ValueError(f"kernel A takes 1 to {MAX_FEAT} feature columns")
     if n > MAX_ROWS:
@@ -97,14 +145,16 @@ def neighborhood_accumulate(points: torch.Tensor, mask: torch.Tensor,
     if r2_row is not None:
         require(r2_row, "r2_row", torch.float32, (n,))
     dev = points.device
-    out = torch.empty((n, nf), dtype=torch.float32, device=dev)
+    out = torch.empty((q1 - q0, nf), dtype=torch.float32, device=dev)
+    if q0 == q1:  # no query row: nothing to launch
+        return out
     stream = stream_arg(dev)
     nsplit, bufs = _accumulate_scratch(dev, stream, n, nf)
     P, I = _build.P, _build.I
     fn = _build.bind("neighborhood", "bshot_neighborhood_accumulate",
-                     [P] * 10 + [I, I, I, _build.F, P])
+                     [P] * 10 + [I, I, I, _build.F, I, I, P])
     _build.check(fn(ptr(points), ptr(mask), ptr(feat), ptr(r2_row), ptr(out),
-                    *bufs, n, nf, nsplit, radius * radius, stream),
+                    *bufs, n, nf, nsplit, radius * radius, q0, q1, stream),
                  "neighborhood_accumulate")
     neighborhood_accumulate.launches += 1
     return out
@@ -139,61 +189,73 @@ def _accumulate_scratch(dev, stream: int, n: int, nf: int):
 
 def segratio_accumulate_plain(points, mask, ctvec, radius: float,
                               normalized: bool = False, r2_row=None,
-                              tile: int = 4096):
+                              tile: int = 4096, rows=None):
     """Plain PyTorch version of kernel B (the reference's scan path)."""
     n = points.shape[0]
-    r2_col = radius * radius if r2_row is None else r2_row[:, None]
-    vq = fma_dot3(ctvec, points)[:, None]
-    ct_norm = torch.linalg.norm(ctvec, dim=-1)
-    zeros = torch.zeros((n,), dtype=torch.float32, device=points.device)
-    pos, neg, ssum = zeros, zeros, zeros
-    for t0 in range(0, n, tile):
-        rp, rm = points[t0:t0 + tile], mask[t0:t0 + tile]
-        d2 = pair_d2(points, rp)
-        within = (d2 <= r2_col) & rm[None, :] & mask[:, None]
-        # dot(ctvec_i, p_j - sp_i) = p_j . ctvec_i - sp_i . ctvec_i
-        dots = ctvec @ rp.T - vq
-        w = within.to(torch.float32)
-        pos = pos + torch.sum(w * (dots > 0), dim=1)
-        neg = neg + torch.sum(w * (dots < 0), dim=1)
-        if normalized:  # CVSN: dots / (|ctvec| * |p - q|)
-            denom = ct_norm[:, None] * torch.sqrt(d2)
-            valid = within & (denom > 0)
-            terms = torch.where(valid, dots / torch.clamp(denom, min=1e-12), 0.0)
-        else:  # CVS
-            terms = torch.where(within & (d2 > 0), dots, 0.0)
-        ssum = ssum + torch.sum(terms, dim=1)
-    return torch.stack([pos, neg, ssum], dim=-1)
+    q0, q1 = query_rows(n, rows)
+    out = torch.zeros((q1 - q0, 3), dtype=torch.float32, device=points.device)
+    sq = fma_dot3(points, points)
+    for b0, b1 in _query_blocks(q0, q1):
+        qp, qm, cv = points[b0:b1], mask[b0:b1], ctvec[b0 - q0:b1 - q0]
+        r2_col = radius * radius if r2_row is None else r2_row[b0:b1, None]
+        vq = fma_dot3(cv, qp)[:, None]
+        ct_norm = torch.linalg.norm(cv, dim=-1)
+        zeros = torch.zeros((b1 - b0,), dtype=torch.float32, device=points.device)
+        pos, neg, ssum = zeros, zeros, zeros
+        for t0 in range(0, n, tile):
+            rp, rm = points[t0:t0 + tile], mask[t0:t0 + tile]
+            d2 = _block_d2(points, sq, b0, b1, t0, t0 + tile)
+            within = (d2 <= r2_col) & rm[None, :] & qm[:, None]
+            # dot(ctvec_i, p_j - sp_i) = p_j . ctvec_i - sp_i . ctvec_i
+            dots = cv @ rp.T - vq
+            w = within.to(torch.float32)
+            pos = pos + torch.sum(w * (dots > 0), dim=1)
+            neg = neg + torch.sum(w * (dots < 0), dim=1)
+            if normalized:  # CVSN: dots / (|ctvec| * |p - q|)
+                denom = ct_norm[:, None] * torch.sqrt(d2)
+                valid = within & (denom > 0)
+                terms = torch.where(valid, dots / torch.clamp(denom, min=1e-12), 0.0)
+            else:  # CVS
+                terms = torch.where(within & (d2 > 0), dots, 0.0)
+            ssum = ssum + torch.sum(terms, dim=1)
+        out[b0 - q0:b1 - q0] = torch.stack([pos, neg, ssum], dim=-1)
+    return out
 
 
 def segratio_accumulate(points: torch.Tensor, mask: torch.Tensor,
                         ctvec: torch.Tensor, radius: float,
                         normalized: bool = False,
                         r2_row: torch.Tensor | None = None,
-                        tile: int = 4096) -> torch.Tensor:
-    """(N, 3): [pos count, neg count, CVS(N) dot sum] per point."""
+                        tile: int = 4096, rows=None) -> torch.Tensor:
+    """(q1 - q0, 3): [pos count, neg count, CVS(N) dot sum] per point of
+    the query rows `rows=(q0, q1)` (default every row), whose ctvec
+    (q1 - q0, 3) holds."""
     if on_cpu(points, mask, ctvec, r2_row):
         return segratio_accumulate_plain(points, mask, ctvec, radius,
-                                         normalized, r2_row, tile)
+                                         normalized, r2_row, tile, rows)
     n = points.shape[0]
+    q0, q1 = query_rows(n, rows)
     if n > MAX_ROWS:
         raise ValueError(f"kernel B takes at most {MAX_ROWS} rows")
     if not math.isfinite(radius):
         raise ValueError("kernel B needs a finite radius")
     require(points, "points", torch.float32, (n, 3))
     require(mask, "mask", torch.bool, (n,))
-    require(ctvec, "ctvec", torch.float32, (n, 3))
+    require(ctvec, "ctvec", torch.float32, (q1 - q0, 3))
     if r2_row is not None:
         require(r2_row, "r2_row", torch.float32, (n,))
     dev = points.device
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    out = torch.empty((q1 - q0, 3), dtype=torch.float32, device=dev)
+    if q0 == q1:  # no query row: nothing to launch
+        return out
     stream = stream_arg(dev)
     nsplit, bufs = _segratio_scratch(dev, stream, n)
     P, I = _build.P, _build.I
     fn = _build.bind("neighborhood", "bshot_segratio_accumulate",
-                     [P] * 9 + [I, I, I, _build.F, P])
+                     [P] * 9 + [I, I, I, _build.F, I, I, P])
     _build.check(fn(ptr(points), ptr(mask), ptr(ctvec), ptr(r2_row), ptr(out),
-                    *bufs, n, int(normalized), nsplit, radius * radius, stream),
+                    *bufs, n, int(normalized), nsplit, radius * radius, q0, q1,
+                    stream),
                  "segratio_accumulate")
     segratio_accumulate.launches += 1
     return out

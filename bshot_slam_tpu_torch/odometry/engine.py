@@ -28,8 +28,19 @@ pose graph and map re-anchoring (every `backend_every` frames, or when
 asked); `build_ba_problem` assembles a bundle adjustment.
 
 Runs on the card unless the caller asks for the CPU: `device=None` means
-"cuda", and raises when no card is visible.  Not ported yet (it raises
-NotImplementedError): multi-device meshes.
+"cuda", and raises when no card is visible.
+
+With `mesh` (a `DeviceMesh` from `parallel.sharded.make_mesh` or
+`parallel.multihost.host_mesh`) the engine runs SPMD: every rank of the
+mesh runs this engine over the same input, the map's rows sharded along
+`map_axis` (a `mapstore.MapShard` on each rank) and each cloud's query rows
+along `data_axis`, with `mesh_runtime_overrides` applied; growth pads each
+shard, eviction gathers the map and shards it again, corrections are
+row-local, and records, keyframes and the backend are every rank's alike.
+The records equal those of one device with the same overrides, bit for
+bit.  `device=None` is then the rank's device.  As in the reference, the
+pipelined device-preprocess path (`host_preprocess=False,
+pipelined=True`) stays single-device.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from bshot_slam_tpu_torch.io import native_decoder
 from bshot_slam_tpu_torch.io.velodyne import LaserSweep
 from bshot_slam_tpu_torch.odometry import mapstore, pipeline
 from bshot_slam_tpu_torch.ops.rangeimage import RangeImage, build_range_image
+from bshot_slam_tpu_torch.parallel import comm, layout
 
 
 def pick_bucket(n_valid: int, cfg: SlamConfig) -> int:
@@ -121,9 +133,24 @@ class SlamEngine:
                  enable_backend: bool = False, backend_every: int = 0,
                  pipelined: bool = False, fetch_every: int = 1,
                  host_preprocess: bool = True, keep_corr: bool = False,
-                 mesh=None):
+                 mesh=None, data_axis: str = "data", map_axis: str = "map"):
+        self.mesh = mesh
+        self.axes = None
+        self._map_ranks = 1
         if mesh is not None:
-            raise NotImplementedError("SlamEngine(mesh) is not ported yet")
+            from bshot_slam_tpu_torch.parallel import sharded
+
+            if not host_preprocess and pipelined:
+                raise ValueError(
+                    "mesh mode requires the host-preprocess ingest "
+                    "(host_preprocess=True) in pipelined mode; the fused "
+                    "device-preprocess path is single-device-only")
+            self.axes = sharded.mesh_axes(mesh, data_axis, map_axis)
+            self._map_ranks = self.axes.map.size
+            cfg = sharded.mesh_runtime_overrides(cfg, self.axes.data.size)
+            if device is None:
+                device = sharded.mesh_device(mesh)
+        self.map_axis = map_axis
         self.cfg = cfg
         self.host_preprocess = host_preprocess
         self.tile = tile
@@ -138,9 +165,7 @@ class SlamEngine:
             [b for b in cfg.runtime.map_buckets if b <= cfg.map.capacity]
             or [cfg.map.capacity]
         )
-        self.state = self.state._replace(
-            map=mapstore.init_map(cfg.map, first, device=self.device)
-        )
+        self.state = self.state._replace(map=self._new_map(first))
         self.records: List[FrameRecord] = []
         self._warned_drop = False
         self._warned_evict = False
@@ -182,11 +207,28 @@ class SlamEngine:
         self.last_corr: Optional[dict] = None
         self._prev_kp_world: Optional[np.ndarray] = None
 
+    def _new_map(self, capacity: int) -> mapstore.MapState:
+        """An empty map of `capacity` rows (on a mesh, this rank's shard)."""
+        if self.axes is None:
+            return mapstore.init_map(self.cfg.map, capacity, device=self.device)
+        local = layout.local_capacity(capacity, self.axes.map)
+        return mapstore.MapShard(*mapstore.init_map(self.cfg.map, local,
+                                                    device=self.device))
+
+    def _capacity(self) -> int:
+        """The whole map's rows."""
+        return self.state.map.positions.shape[0] * self._map_ranks
+
     def _place_state(self) -> None:
-        """Re-derive what the engine keeps on the host about a state assigned
-        from outside (a resume): the pipelined engine's cursor bound.  (The
-        reference also re-commits a sharded state here; the port runs on
-        one device.)"""
+        """Take a state assigned from outside (a resume, a prefilled map):
+        on a mesh, a whole state (every rank assigns the same) is sharded
+        (a placed one stays as it is); and re-derive what the engine keeps
+        on the host about it, the pipelined engine's cursor bound."""
+        if self.mesh is not None:
+            from bshot_slam_tpu_torch.parallel import sharded
+
+            self.state = sharded.shard_state(self.state, self.mesh,
+                                             self.map_axis, self.device)
         self._cursor_ub = int(self.state.map.cursor) if self.pipelined else None
 
     # -- ingest -------------------------------------------------------------
@@ -257,7 +299,7 @@ class SlamEngine:
             _, _, n_valid = self._exact_cloud(image)
             self._feed_bucket(int(n_valid))
         self._maybe_grow_map()
-        cap = self.state.map.positions.shape[0]
+        cap = self._capacity()
         draws = self._next_draws()
         range_az, vert, sel = image
         self.state, self._ok, diag = pipeline.odometry_step_fused(
@@ -311,12 +353,12 @@ class SlamEngine:
 
     def _step(self, points: torch.Tensor, pmask: Optional[torch.Tensor], n_valid):
         self._maybe_grow_map()
-        cap = self.state.map.positions.shape[0]
+        cap = self._capacity()
         if self.pipelined:
             draws = self._next_draws()
             self.state, self._ok, diag = pipeline.odometry_step_deferred(
                 self.state, self._ok, points, pmask, n_valid, draws, self.cfg,
-                self.tile)
+                self.tile, axes=self.axes)
             return self._enqueue(_Pending(diag, points, pmask, n_valid, draws, cap))
         rng = self.generator if self._draws is None else self._next_draws()
         return self._run_sync(points, pmask, n_valid, rng, cap)
@@ -325,11 +367,12 @@ class SlamEngine:
         """The synchronous step (host-side window decisions) and its record."""
         if pmask is None:
             self.state, diag = pipeline.odometry_step_compact(
-                self.state, points, n_valid, rng, self.cfg, self.tile)
+                self.state, points, n_valid, rng, self.cfg, self.tile,
+                axes=self.axes)
         else:
             self.state, diag = pipeline.odometry_step(
                 self.state, points, pmask, rng, self.cfg, self.tile,
-                n_valid=n_valid)
+                n_valid=n_valid, axes=self.axes)
         return self._finalize(diag, diag.packed.cpu().numpy(), cap)
 
     # -- pipelined mode -----------------------------------------------------
@@ -425,7 +468,7 @@ class SlamEngine:
             else:
                 points, pmask, n_valid = self._exact_cloud(e.image)
             rec = self._run_sync(points, pmask, n_valid, e.draws,
-                                 self.state.map.positions.shape[0])
+                                 self._capacity())
         return rec
 
     # -- records ------------------------------------------------------------
@@ -491,17 +534,19 @@ class SlamEngine:
         inc = self.cfg.keypoints.top_k
         pipelined = self.pipelined and not exact
         if pipelined and (self._cursor_ub is None or self._cursor_ub + inc > min(
-                self.state.map.positions.shape[0], hard_cap)):
+                self._capacity(), hard_cap)):
             self._drain(keep=0)  # re-runs of aborted frames may grow the map
             self._cursor_ub = int(self.state.map.cursor)
-        cap = self.state.map.positions.shape[0]
+        cap = self._capacity()
         cursor = self._cursor_ub if pipelined else int(self.state.map.cursor)
         need = cursor + inc
         if need > cap:
             for b in sorted(set(self.cfg.runtime.map_buckets) | {hard_cap}):
                 if min(need, hard_cap) <= b <= hard_cap and b > cap:
+                    rows = b if self.axes is None else layout.local_capacity(
+                        b, self.axes.map)
                     self.state = self.state._replace(
-                        map=mapstore.grow_map(self.state.map, b))
+                        map=mapstore.grow_map(self.state.map, rows))
                     break
             else:
                 if need > hard_cap:
@@ -513,8 +558,8 @@ class SlamEngine:
         """Make room for one frame at the hard capacity (a fixed n_evict);
         returns the new cursor."""
         n_evict = min(2 * self.cfg.keypoints.top_k, self.cfg.map.capacity // 2)
-        self.state = self.state._replace(
-            map=mapstore.evict_keypoints(self.state.map, n_evict))
+        self.state = self.state._replace(map=mapstore.evict_keypoints(
+            self.state.map, n_evict, None if self.axes is None else self.axes.map))
         after = int(self.state.map.cursor)
         evicted = cursor - after
         self.n_evicted += evicted
@@ -659,7 +704,11 @@ class SlamEngine:
         self._last_kf_pose = (corr_kf[-1] @ self._last_kf_pose).astype(np.float32)
         self.optimized_keyframe_poses = None  # consumed
         m = self.state.map
-        n_moved = int(torch.sum(m.valid & (m.frame_born >= 0)))
+        n_moved = torch.sum((m.valid & (m.frame_born >= 0)).to(torch.int32))
+        if self.axes is not None:
+            n_moved = comm.all_reduce(n_moved, comm.SUM, self.axes.map,
+                                      "landmarks moved")
+        n_moved = int(n_moved)
         return {"max_correction_mm": float(np.max(np.linalg.norm(corr[:, :3, 3],
                                                                  axis=-1))),
                 "n_landmarks_moved": n_moved}
@@ -680,7 +729,11 @@ class SlamEngine:
         L = min(len(uniq), self.cfg.backend.ba_max_landmarks)
         keep = compact < L
         kf_idx, kp_idx, compact = kf_idx[keep], kp_idx[keep], compact[keep]
-        landmarks = self.state.map.positions.cpu().numpy()[uniq[:L]]
+        positions = self.state.map.positions
+        if self.axes is not None:
+            positions = layout.gather_rows(positions, self.axes.map,
+                                           "BA: map positions")
+        landmarks = positions.cpu().numpy()[uniq[:L]]
         dev = self.device
         return BAProblem(
             poses=self.keyframes.poses[:n].clone(),

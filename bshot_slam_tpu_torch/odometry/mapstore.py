@@ -8,6 +8,15 @@ lower-triangular test within the batch), then survivors are appended.  At
 the hard capacity `evict_keypoints` drops the weakest keypoints of the
 densest blocks and front-compacts the survivors.
 
+On a mesh the map is a `MapShard`: this rank's rows of the map, laid out
+cyclically along the map axis (`parallel.layout`), with the whole map's
+cursor and drop count.  `insert_keypoints` and `map_size` then take the
+axis: kernel E flags against the live local rows and one MAX (an OR)
+combines the flags, the in-batch dedup, the slots and the cursor are
+computed on every rank alike, and each rank writes the accepted rows whose
+slot it owns.  Eviction gathers the whole map (`gather_map`), runs as on one
+device and keeps this rank's rows (`shard_map`).
+
 Functions return new states and never modify their inputs in place.
 """
 
@@ -21,6 +30,7 @@ from bshot_slam_tpu_torch.config import MapConfig
 from bshot_slam_tpu_torch.device import resolve_device
 from bshot_slam_tpu_torch.kernels.mapops import dedup_blocked_bounded
 from bshot_slam_tpu_torch.ops.keypoints import _pair_d2
+from bshot_slam_tpu_torch.parallel import comm, layout
 
 
 class MapState(NamedTuple):
@@ -32,6 +42,35 @@ class MapState(NamedTuple):
     cursor: torch.Tensor  # () int32 next free slot
     frame_born: torch.Tensor  # (C,) int32 inserting frame, -1 for empty rows
     n_dropped: torch.Tensor  # () int32 insertions lost at capacity
+
+
+class MapShard(MapState):
+    """This rank's rows r::R of a map sharded along a mesh axis of R ranks
+    (see the module docstring); `cursor` and `n_dropped` are the whole
+    map's."""
+
+    __slots__ = ()
+
+
+# The fields with a row per map slot (a shard keeps rows r::R of each).
+ROW_FIELDS = ("positions", "descriptors", "seg_ratios", "blocks", "valid",
+              "frame_born")
+
+
+def shard_map(state: MapState, axis: comm.Axis, device=None) -> MapShard:
+    """This rank's shard of a whole map (every rank passes the same map)."""
+    layout.local_capacity(state.positions.shape[0], axis)
+    return MapShard(*[
+        (layout.keep_rows(x, axis) if f in ROW_FIELDS else x).to(device or x.device)
+        for f, x in zip(MapState._fields, state)])
+
+
+def gather_map(state: MapState, axis: comm.Axis) -> MapState:
+    """The whole map, on every rank, from the ranks' shards (a collective:
+    every rank of the axis calls it)."""
+    return MapState(*[
+        layout.gather_rows(x, axis, f"map gather: {f}") if f in ROW_FIELDS else x
+        for f, x in zip(MapState._fields, state)])
 
 
 def init_map(cfg: MapConfig, capacity: int | None = None,
@@ -52,7 +91,8 @@ def init_map(cfg: MapConfig, capacity: int | None = None,
 
 
 def grow_map(state: MapState, new_capacity: int) -> MapState:
-    """Zero-pad every map array to a larger capacity."""
+    """Zero-pad every map array to a larger capacity (a shard's: the new
+    capacity over the ranks; the cyclic layout moves no row)."""
     C = state.positions.shape[0]
     if new_capacity <= C:
         return state
@@ -62,7 +102,7 @@ def grow_map(state: MapState, new_capacity: int) -> MapState:
         return torch.cat([x, torch.full((p,) + x.shape[1:], fill, dtype=x.dtype,
                                         device=x.device)], dim=0)
 
-    return MapState(
+    return type(state)(
         positions=pad(state.positions),
         descriptors=pad(state.descriptors),
         seg_ratios=pad(state.seg_ratios),
@@ -114,13 +154,15 @@ def insert_keypoints(
     frame_idx=-1,  # () int32 provenance for frame_born
     window_cap: int | None = None,
     deferred: bool = False,
+    axis: comm.Axis | None = None,
 ):
     """Batched equivalent of K sequential `Map::addKeypoint` calls.
 
     With `deferred`, the dedup window is never checked on the host: the
     compact window always runs and the call returns (state, fits), `fits`
     a device bool that is False when the window overflowed `window_cap`
-    (the state is then wrong and the caller must discard it)."""
+    (the state is then wrong and the caller must discard it).  With `axis`
+    the state is a `MapShard` along it (no window)."""
     dev = pos.device
     pos = snap_positions(pos, cfg.snap_mm)
     blk = block_coords(pos, cfg.block_size_mm)
@@ -131,7 +173,15 @@ def insert_keypoints(
     # an exact superset of the possible blockers — unless they overflow it.
     C = state.positions.shape[0]
     fits = torch.ones((), dtype=torch.bool, device=dev)
-    if window_cap is not None and C > window_cap:
+    if axis is not None:
+        if window_cap is not None:
+            raise ValueError("a sharded map is deduplicated without a window")
+        local = _dedup_against(pos, blk, seg, state.positions, state.blocks,
+                               state.seg_ratios, state.valid,
+                               layout.local_live_rows(state.cursor, axis), cfg)
+        rejected_by_map = comm.all_reduce(local.to(torch.int32), comm.MAX, axis,
+                                          "E: flag or") > 0
+    elif window_cap is not None and C > window_cap:
         W = window_cap
         big = 2**30
         lo = torch.min(torch.where(kmask[:, None], blk, big), dim=0).values
@@ -176,19 +226,25 @@ def insert_keypoints(
     accept = kmask & ~rejected_by_map & ~rejected_in_batch
 
     # Cumsum scatter append; rows past the capacity are dropped and counted.
+    # A shard writes the rows whose slot it owns.
+    R = 1 if axis is None else axis.size
     offs = torch.cumsum(accept.to(torch.int32), dim=0) - 1
     slot = state.cursor + offs
-    ok = accept & (slot < C)
-    tgt = torch.where(ok, slot, C).long()
+    ok = accept & (slot < C * R)
+    if axis is None:
+        tgt = torch.where(ok, slot, C).long()
+    else:
+        mine = ok & (slot % R == axis.rank)
+        tgt = torch.where(mine, torch.div(slot, R, rounding_mode="floor"), C).long()
     n_ok = torch.sum(ok.to(torch.int32))
     fidx = torch.as_tensor(frame_idx, dtype=torch.int32, device=dev)
-    new_state = MapState(
+    new_state = type(state)(
         positions=_set_rows(state.positions, tgt, pos),
         descriptors=_set_rows(state.descriptors, tgt, desc),
         seg_ratios=_set_rows(state.seg_ratios, tgt, seg),
         blocks=_set_rows(state.blocks, tgt, blk),
         valid=_set_rows(state.valid, tgt, torch.ones_like(accept)),
-        cursor=torch.clamp(state.cursor + n_ok, max=C).to(torch.int32),
+        cursor=torch.clamp(state.cursor + n_ok, max=C * R).to(torch.int32),
         frame_born=_set_rows(state.frame_born, tgt, fidx.expand(K)),
         n_dropped=(state.n_dropped + torch.sum(accept.to(torch.int32))
                    - n_ok).to(torch.int32),
@@ -196,15 +252,19 @@ def insert_keypoints(
     return (new_state, fits) if deferred else new_state
 
 
-def evict_keypoints(state: MapState, n_evict: int) -> MapState:
+def evict_keypoints(state: MapState, n_evict: int,
+                    axis: comm.Axis | None = None) -> MapState:
     """Evict up to `n_evict` keypoints, lowest-seg-ratio-in-densest-block
     first, then front-compact the survivors so valid rows stay exactly
-    [0, cursor).  Evicted rows get `frame_born` -1.
+    [0, cursor).  Evicted rows get `frame_born` -1.  A `MapShard` along
+    `axis` is gathered whole, evicted on every rank alike and sharded again.
 
     Ties follow the reference exactly: its lexsort is three stable sorts
     (last key first), its float32 score `occ * 2C + (C - 1 - seg_rank)`
     rounds above 2^24 as it does there, and its top-k takes the lowest
     index among equal scores (a stable descending sort)."""
+    if axis is not None:
+        return shard_map(evict_keypoints(gather_map(state, axis), n_evict), axis)
     C = state.positions.shape[0]
     dev = state.positions.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -262,6 +322,7 @@ def query_mask(state: MapState, center: torch.Tensor, range_mm: float,
     return state.valid & inside
 
 
-def map_size(state: MapState) -> torch.Tensor:
-    """Number of stored keypoints."""
-    return torch.sum(state.valid.to(torch.int32))
+def map_size(state: MapState, axis: comm.Axis | None = None) -> torch.Tensor:
+    """Number of stored keypoints (of the whole map, with `axis`)."""
+    n = torch.sum(state.valid.to(torch.int32))
+    return n if axis is None else comm.all_reduce(n, comm.SUM, axis, "map size")

@@ -21,6 +21,17 @@ range image in front of the deferred step, and aborts as well when the kept
 points overflow the cloud bucket the engine predicted.
 `rng` takes the place of the reference's PRNG key: a `torch.Generator`, or
 the (H, 3) RANSAC draws.
+
+The synchronous, compact and deferred steps also run sharded
+(`axes`, a `parallel.sharded.MeshAxes`): every rank runs the step on the
+same inputs, with the map state a `mapstore.MapShard` along the map axis.
+Kernels A and B take the rank's query rows of the data axis and one
+all-gather assembles the per-row sums; C, D and E run on the rank's map
+rows and their results combine exactly (`parallel.layout`); everything else
+runs alike on every rank, so the records are the single-device step's bit
+for bit.  Mesh mode runs without window compaction
+(`parallel.sharded.mesh_runtime_overrides`); the fused step stays
+single-device.
 """
 
 from __future__ import annotations
@@ -37,13 +48,17 @@ from bshot_slam_tpu_torch.odometry import mapstore
 from bshot_slam_tpu_torch.ops import bshot, hamming
 from bshot_slam_tpu_torch.ops import preprocess as pp
 from bshot_slam_tpu_torch.ops.icp import icp_point_to_point
+from bshot_slam_tpu_torch.kernels.neighborhood import (
+    neighborhood_accumulate, segratio_accumulate,
+)
 from bshot_slam_tpu_torch.ops.keypoints import (
-    extract_keypoints, keypoints_from_scores, neighborhood_moments,
-    seg_ratio_scores,
+    _finalize_scores, extract_keypoints, keypoints_from_scores, moment_features,
+    moments_from_sums,
 )
 from bshot_slam_tpu_torch.ops.normals import normals_from_moments, surface_normals
 from bshot_slam_tpu_torch.ops.ransac import ransac_rigid
 from bshot_slam_tpu_torch.ops.shot import chunked_top_k, shot_descriptors
+from bshot_slam_tpu_torch.parallel import layout
 
 # Packed-diagnostics layout (StepDiagnostics.packed), identical to the
 # reference's.
@@ -113,11 +128,34 @@ def init_state(cfg: SlamConfig, device=None) -> OdometryState:
     )
 
 
+def _shared_sweep(points, pmask, kcfg, tile: int, data_axis=None):
+    """(count, sum, outer, saliency) of every point from one sweep of
+    kernel A at the keypoint radius and one of kernel B.  On a data axis
+    each rank sweeps its query rows and one all-gather assembles the
+    per-row sums."""
+    n = points.shape[0]
+    (q0, q1), per = layout.data_rows(n, data_axis)
+    acc = neighborhood_accumulate(points, pmask, moment_features(points),
+                                  kcfg.radius_mm, tile=tile, rows=(q0, q1))
+    ctvec = points[q0:q1] - acc[:, 1:4] / torch.clamp(acc[:, 0], min=1.0)[:, None]
+    sr = segratio_accumulate(points, pmask, ctvec, kcfg.radius_mm,
+                             normalized=(kcfg.sr_type == "CVSN"), tile=tile,
+                             rows=(q0, q1))
+    if data_axis is not None:
+        rows = layout.gather_query_rows(torch.cat([acc, sr], dim=1), n, per,
+                                        data_axis, "A+B: query rows")
+        acc, sr = rows[:, :10], rows[:, 10:]
+    cnt, psum, outer = moments_from_sums(acc)
+    scores = _finalize_scores(points, pmask, kcfg, cnt, sr[:, 0], sr[:, 1], sr[:, 2])
+    return cnt, psum, outer, scores
+
+
 def compute_features(points: torch.Tensor, pmask: torch.Tensor,
-                     cfg: SlamConfig, tile: int) -> FrameFeatures:
+                     cfg: SlamConfig, tile: int, data_axis=None) -> FrameFeatures:
     """extractKeypoints + computeDescriptors.  Saliency and normals need
     the same neighbourhood moments at the same radius, so one sweep of
-    kernel A feeds both."""
+    kernel A feeds both; on a `data_axis` that sweep is split over its ranks
+    (the other settings run alike on every rank)."""
     cap_mode = cfg.keypoints.neighbor_cap_mode
     share = (
         cfg.descriptor.use_surface_normals
@@ -125,11 +163,8 @@ def compute_features(points: torch.Tensor, pmask: torch.Tensor,
         and not cap_mode
     )
     if share:
-        cnt, psum, outer = neighborhood_moments(
-            points, pmask, cfg.keypoints.radius_mm, tile
-        )
-        scores = seg_ratio_scores(points, pmask, cfg.keypoints, tile,
-                                  moments=(cnt, psum))
+        cnt, psum, outer, scores = _shared_sweep(points, pmask, cfg.keypoints,
+                                                 tile, data_axis)
         top_scores, top_idx = chunked_top_k(scores, cfg.keypoints.top_k,
                                             cfg.runtime.topk_chunks)
         kps = keypoints_from_scores(points, top_scores, top_idx)
@@ -153,11 +188,11 @@ def compute_features(points: torch.Tensor, pmask: torch.Tensor,
 
 
 def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
-                        cfg: SlamConfig, deferred: bool = False):
+                        cfg: SlamConfig, deferred: bool = False, map_axis=None):
     """featureMatching + evaluateEstimation.  Also returns `fits`: with
     `deferred`, a device bool that is False when the match window overflowed
     (the compact window ran anyway and the results are to be discarded);
-    otherwise True."""
+    otherwise True.  With `map_axis` the map is a shard along it."""
     mcfg = cfg.match
     ref_pose = state.ref_pose
     center = se3.translation(ref_pose)
@@ -175,6 +210,9 @@ def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
     # on overflow the dense full-capacity scan runs instead (lossless).
     W = cfg.runtime.window_cap
     use_compact = cfg.runtime.window_compact and capacity > W
+    if map_axis is not None and cfg.runtime.window_compact:
+        raise ValueError("a sharded map is matched without window compaction "
+                         "(parallel.sharded.mesh_runtime_overrides)")
     fits = torch.ones((), dtype=torch.bool, device=dev)
     if use_compact:
         n_win = torch.sum(win.to(torch.int32))
@@ -198,10 +236,17 @@ def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
         cand_mask = torch.cat([win, state.ref.mask])
         n_live, tail = state.map.cursor, capacity
 
-    m = hamming.mutual_nn_bounded(src.descriptors, src.mask, cand_desc,
-                                  cand_mask, n_live, tail_start=tail)
+    if map_axis is None:
+        m = hamming.mutual_nn_bounded(src.descriptors, src.mask, cand_desc,
+                                      cand_mask, n_live, tail_start=tail)
+        corr_dst = cand_pos[m.src_to_ref.long()]
+    else:  # this rank's live map rows; indices come back global
+        n_live = layout.local_live_rows(state.map.cursor, map_axis)
+        m, corr_dst = hamming.mutual_nn_sharded(
+            src.descriptors, src.mask, cand_desc, cand_mask, cand_pos, n_live,
+            tail, map_axis)
     s2r = m.src_to_ref.long()
-    corr_dst, cmask = cand_pos[s2r], m.mutual
+    cmask = m.mutual
     if use_compact:
         # Compact indices back to the full-map index space [0, capacity + K).
         corr_index = torch.where(s2r < W, widx[torch.clamp(s2r, max=W - 1)],
@@ -231,7 +276,7 @@ def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
     icp = icp_point_to_point(
         src_est, src.mask, cand_pos, cand_mask,
         iterations=mcfg.icp_iterations, max_corr_dist=mcfg.icp_max_corr_dist_mm,
-        n_valid_dst=n_live, tail_start=tail,
+        n_valid_dst=n_live, tail_start=tail, axis=map_axis,
     )
     T_best = se3.compose(icp.transform, T_est) if mcfg.run_icp else T_j
     n_mutual = torch.sum(cmask.to(torch.int32))
@@ -255,18 +300,21 @@ def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
 
 def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
                         pmask: torch.Tensor, rng, cfg: SlamConfig,
-                        tile: int = 2048, n_valid=None, ok=None):
+                        tile: int = 2048, n_valid=None, ok=None, axes=None):
     """One full SLAM frame; `n_valid` (the cloud count) optionally rides in
     `packed` with the [n_valid, bucket, committed] tail.  With `ok` (a
     device bool: no earlier in-flight frame aborted) the step is deferred:
     it commits only when `ok` holds and both windows fit, passes `state`
-    through otherwise, and returns (state', committed, diag)."""
+    through otherwise, and returns (state', committed, diag).  `axes` (a
+    `parallel.sharded.MeshAxes`) runs it sharded."""
     dev = points.device
     deferred = ok is not None
-    src = compute_features(points, pmask, cfg, tile)
+    data_axis = None if axes is None else axes.data
+    map_axis = None if axes is None else axes.map
+    src = compute_features(points, pmask, cfg, tile, data_axis)
     (T_best, rr, corr_index, n_mutual, gate, h_diff, t_diff, icp_rmse,
      corr_stats, match_fits) = _match_and_estimate(rng, src, state, cfg,
-                                                   deferred)
+                                                   deferred, map_axis)
 
     # INITIAL frame: identity pose, no gating.
     is_initial = state.frame_idx == 0
@@ -281,7 +329,7 @@ def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
         frame_idx=state.frame_idx,
         window_cap=(cfg.runtime.window_cap if cfg.runtime.window_compact
                     else None),
-        deferred=deferred,
+        deferred=deferred, axis=map_axis,
     )
     committed = torch.ones((), dtype=torch.bool, device=dev)
     if deferred:
@@ -291,7 +339,7 @@ def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
                               frame_idx=state.frame_idx + 1)
     if deferred:  # abort: every field passes through unchanged
         new_state = _select(committed, new_state, state)
-    msize = mapstore.map_size(new_map)
+    msize = mapstore.map_size(new_map, map_axis)
     f32 = torch.float32
     parts = [
         T_best.reshape(16),
@@ -328,26 +376,29 @@ def _select(cond: torch.Tensor, a, b):
 
 def odometry_step(state: OdometryState, points: torch.Tensor,
                   pmask: torch.Tensor, rng, cfg: SlamConfig, tile: int = 2048,
-                  n_valid=None):
-    return _odometry_step_impl(state, points, pmask, rng, cfg, tile, n_valid)
+                  n_valid=None, axes=None):
+    return _odometry_step_impl(state, points, pmask, rng, cfg, tile, n_valid,
+                               axes=axes)
 
 
 odometry_step.__doc__ = _odometry_step_impl.__doc__
 
 
 def odometry_step_compact(state: OdometryState, points: torch.Tensor,
-                          n_valid: int, rng, cfg: SlamConfig, tile: int = 2048):
+                          n_valid: int, rng, cfg: SlamConfig, tile: int = 2048,
+                          axes=None):
     """Odometry step over a host-preprocessed compact cloud: points
     (bucket, 3) front-compacted, `n_valid` exact; the validity mask is
     `iota < n_valid`."""
     pmask = torch.arange(points.shape[0], device=points.device) < n_valid
     return _odometry_step_impl(state, points, pmask, rng, cfg, tile,
-                               n_valid=n_valid)
+                               n_valid=n_valid, axes=axes)
 
 
 def odometry_step_deferred(state: OdometryState, ok: torch.Tensor,
                            points: torch.Tensor, pmask: torch.Tensor | None,
-                           n_valid, rng, cfg: SlamConfig, tile: int = 2048):
+                           n_valid, rng, cfg: SlamConfig, tile: int = 2048,
+                           axes=None):
     """The pipelined engine's step: no host sync.  `pmask=None` means a
     front-compacted cloud (`iota < n_valid`).  Commits only when `ok` holds
     and the match and dedup windows fit `window_cap`; otherwise `state`
@@ -357,7 +408,7 @@ def odometry_step_deferred(state: OdometryState, ok: torch.Tensor,
     if pmask is None:
         pmask = torch.arange(points.shape[0], device=points.device) < n_valid
     return _odometry_step_impl(state, points, pmask, rng, cfg, tile,
-                               n_valid=n_valid, ok=ok)
+                               n_valid=n_valid, ok=ok, axes=axes)
 
 
 def ingest(range_mm: torch.Tensor, azimuth_rad: torch.Tensor,

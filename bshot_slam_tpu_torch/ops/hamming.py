@@ -7,6 +7,7 @@ card and its plain XOR-popcount version on the CPU, where `mutual_nn` can
 also take the distances as a product of unpacked bits (`matmul_distances`,
 the reference's MXU form).  Every path gives the kernel-path outputs:
 `distances` is the best distance on mutual rows and 2^30 elsewhere.
+`mutual_nn_sharded` matches against a map sharded along a mesh axis.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from bshot_slam_tpu_torch.kernels.mapops import (  # noqa: F401  (re-export)
     hamming_nn_bounded, popcount_distances,
 )
 from bshot_slam_tpu_torch.ops.bshot import unpack_bits
+from bshot_slam_tpu_torch.parallel import layout
+from bshot_slam_tpu_torch.parallel.comm import Axis
 
 _BIG = 2**30
 
@@ -44,6 +47,39 @@ def mutual_nn_bounded(
         a_words, a_mask, b_words, b_mask, n_valid_b, tail_start=tail_start
     )
     return _mutual(amin, aarg, barg, a_mask)
+
+
+def mutual_nn_sharded(a_words, a_mask, b_words, b_mask, b_pos, n_valid_b,
+                      tail_start: int, axis: Axis):
+    """`mutual_nn_bounded` against candidates whose map rows are sharded
+    cyclically along `axis`: this rank's rows [0, tail_start) (live up to
+    `n_valid_b`) and the tail every rank holds.  Kernel C scores the local
+    candidates; one MIN of packed keys gives each source its best global
+    candidate, ties to the lowest global index; the owner of that row holds
+    the row's own best source (the sources are on every rank), so it makes
+    the mutual test and sends the row's position, in one SUM.  Returns
+    (MutualMatches with global indices, (Na, 3) positions of the matched
+    candidates from `b_pos`), bit for bit the single-device results."""
+    amin, aarg, _, barg = hamming_nn_bounded(a_words, a_mask, b_words, b_mask,
+                                             n_valid_b, tail_start=tail_start)
+    g = layout.global_index(aarg, tail_start, axis)
+    amin, g = layout.argmin_combine(amin, g, axis, "C: key min")
+    ar = torch.arange(g.shape[0], dtype=torch.int32, device=g.device)
+    mine, local = layout.owner(g, tail_start, axis)
+    vals = torch.cat([b_pos[local].view(torch.int32),
+                      (barg[local] == ar).to(torch.int32)[:, None]], dim=1)
+    got = layout.sum_from_owners(vals, mine, axis, "C: owner rows")
+    tail = g >= tail_start * axis.size
+    t = torch.clamp(g - tail_start * axis.size + tail_start, tail_start,
+                    b_pos.shape[0] - 1)
+    pos = torch.where(tail[:, None], b_pos[t], got[:, :3].view(torch.float32))
+    back = torch.where(tail, barg[t] == ar, got[:, 3] > 0)
+    mutual = back & a_mask & (amin < 1e30)
+    return MutualMatches(
+        src_to_ref=g.to(torch.int32),
+        distances=torch.where(mutual, amin, float(_BIG)).to(torch.int32),
+        mutual=mutual,
+    ), pos
 
 
 def _mutual(amin, aarg, barg, a_mask) -> MutualMatches:

@@ -72,14 +72,25 @@ def neighborhood_moments(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-point neighbour (count (N,), sum (N, 3), sum of outer products
     (N, 3, 3)) within radius, the query itself included; masked points get
-    zeros.  One pass of kernel A over 10 features: 1, p, the 6 products."""
+    zeros.  One pass of kernel A over `moment_features`."""
+    acc = neighborhood_accumulate(points, mask, moment_features(points), radius,
+                                  r2_row=r2_row, tile=tile)
+    return moments_from_sums(acc)
+
+
+def moment_features(points: torch.Tensor) -> torch.Tensor:
+    """The (N, 10) features whose in-radius sums are the moments: 1, p and
+    the 6 products."""
     x, y, z = points[:, 0], points[:, 1], points[:, 2]
-    feat = torch.stack(
+    return torch.stack(
         [torch.ones_like(x), x, y, z, x * x, x * y, x * z, y * y, y * z, z * z],
         dim=-1,
     )
-    acc = neighborhood_accumulate(points, mask, feat, radius, r2_row=r2_row,
-                                  tile=tile)
+
+
+def moments_from_sums(acc: torch.Tensor):
+    """(count, sum, sum of outer products) from kernel A's sums of
+    `moment_features`."""
     return acc[:, 0], acc[:, 1:4], _outer_from6(acc[:, 4:10])
 
 

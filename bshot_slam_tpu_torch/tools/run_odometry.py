@@ -7,12 +7,17 @@ sweeps from a PCAP (the native stream, else the native decode, else the
 python decoder), a live UDP port or a synthetic drive go through
 `SlamEngine` on the card (`--cpu`: the plain PyTorch path on the CPU), and
 the trajectory, a checkpoint and a live view come out.  It takes the
-reference's arguments; `--sharded` raises NotImplementedError (the port has
-no multi-device engine yet).
+reference's arguments.  `--sharded N` runs the engine over N local ranks of
+a process group (`parallel.sharded`), each a spawned process on card
+r modulo the cards (or the CPU with `--cpu`); every rank reads the same
+input and rank 0 prints and writes the outputs.  Ranks that share a card
+need `--dist-backend gloo`.  `--sharded` takes neither `--udp`, `--live`,
+`--step` nor `--profile`.
 
 Examples:
   python3 bshot_slam_tpu_torch/tools/run_odometry.py capture.pcap --skip 686 --out traj.txt
   python3 bshot_slam_tpu_torch/tools/run_odometry.py --synthetic 20 --out traj.txt --gold gold.txt
+  python3 bshot_slam_tpu_torch/tools/run_odometry.py --synthetic 10 --sharded 2 --dist-backend gloo
   python3 -m bshot_slam_tpu_torch.tools.run_odometry --synthetic 2 --n-azimuth 128 --cpu
 """
 
@@ -21,6 +26,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import itertools
 import pathlib
 import sys
@@ -122,8 +128,13 @@ def _parser() -> argparse.ArgumentParser:
                     "with --backend — periodic backend passes drain the "
                     "pipeline first)")
     ap.add_argument("--sharded", type=int, default=0, metavar="N",
-                    help="run the engine over N devices (not ported yet: "
-                         "raises NotImplementedError)")
+                    help="run the engine over N ranks of a process group (map "
+                         "rows sharded over the map axis, clouds' query rows "
+                         "over the data axis), one spawned process each")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="with --sharded: the process-group backend (default: "
+                         "nccl with a card per rank, gloo on the CPU; ranks "
+                         "sharing a card need gloo)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the plain PyTorch path) instead of "
                          "the card")
@@ -133,10 +144,35 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: the port has no multi-device engine yet")
+    if not args.sharded:
+        return _run(args, ap)
+    bad = [f for f in ("udp", "live", "step", "profile") if getattr(args, f)]
+    if bad:
+        ap.error(f"--sharded takes no --{', --'.join(bad)}")
+    from bshot_slam_tpu_torch.parallel import multihost
 
+    sys.stdout.flush()
+    multihost.spawn_local(_sharded_rank, args.sharded, args=(argv,),
+                          backend=args.dist_backend,
+                          device="cpu" if args.cpu else "cuda", timeout=24 * 3600)
+    return 0
+
+
+def _sharded_rank(rank: int, argv) -> None:
+    """One rank of `--sharded`: the whole run over the mesh.  Rank 0
+    prints as it goes; the others' output is dropped."""
+    from bshot_slam_tpu_torch.parallel import sharded
+
+    ap = _parser()
+    args = ap.parse_args(argv)
+    with contextlib.redirect_stdout(sys.stdout if rank == 0 else io.StringIO()):
+        rc = _run(args, ap, mesh=sharded.make_mesh())
+    sys.stdout.flush()
+    if rc:
+        raise RuntimeError(f"rank {rank} exited with {rc}")
+
+
+def _run(args, ap, mesh=None) -> int:
     import numpy as np
     import torch
 
@@ -219,15 +255,19 @@ def main(argv=None) -> int:
                      backend_every=args.backend_every,
                      pipelined=pipelined,
                      fetch_every=16 if pipelined else 1,
-                     keep_corr=bool(args.live), device=device)
+                     keep_corr=bool(args.live), device=device, mesh=mesh)
     print(f"engine on {eng.device}"
           + (f" ({torch.cuda.get_device_name(eng.device)})"
-             if eng.device.type == "cuda" else ""))
+             if eng.device.type == "cuda" else "")
+          + ("" if mesh is None else
+             f", sharded over {mesh.mesh.numel()} ranks: mesh "
+             f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}"))
     prior_traj = None
     if args.resume:
         from bshot_slam_tpu_torch.checkpoint import load_backend, load_state
 
-        eng.state, prior_poses = load_state(args.resume, device=eng.device)
+        eng.state, prior_poses = load_state(args.resume, device=eng.device,
+                                            mesh=mesh)
         eng._place_state()
         prior_traj = prior_poses[:, :3, 3] if len(prior_poses) else None
         print(f"resumed from {args.resume}: map={int(eng.state.map.cursor)} "
@@ -338,18 +378,23 @@ def main(argv=None) -> int:
         # aligns frame 0 of the gold file with the true frame 0.
         full_traj = np.concatenate([prior_traj, full_traj], axis=0)
     if args.out:
-        traj_io.save_xyz(args.out, full_traj)
+        from bshot_slam_tpu_torch.parallel import comm
+
+        if comm.is_writer():
+            traj_io.save_xyz(args.out, full_traj)
         print(f"trajectory -> {args.out}")
     if args.gold:
         gold = traj_io.load_xyz(args.gold)
         print(f"ATE RMSE vs {args.gold}: {ate_rmse(full_traj, gold):.1f} mm")
         if args.ba:
             from bshot_slam_tpu_torch.backend.ba import ba_solve
+            from bshot_slam_tpu_torch.parallel.sharded import sharded_ba_solve
 
             prob = eng.build_ba_problem()
             n_obs = int(prob.obs_mask.sum())
             if n_obs:
-                res = ba_solve(prob, gn_iterations=8)
+                res = (ba_solve(prob, gn_iterations=8) if mesh is None
+                       else sharded_ba_solve(mesh, prob, gn_iterations=8))
                 print(f"BA: {prob.poses.shape[0]} keyframes, "
                       f"{prob.landmarks.shape[0]} landmarks, {n_obs} obs; "
                       f"cost {float(res.initial_cost):.1f} -> "
@@ -366,7 +411,7 @@ def main(argv=None) -> int:
             _, prior_poses = load_state(args.resume, device="cpu")
             if len(prior_poses):
                 all_poses = np.concatenate([prior_poses, all_poses], axis=0)
-        save_state(args.checkpoint, eng.state, all_poses)
+        save_state(args.checkpoint, eng.state, all_poses, mesh=mesh)
         if args.backend:
             save_backend(args.checkpoint, eng)
         print(f"checkpoint -> {args.checkpoint}")

@@ -76,12 +76,26 @@ Phases, one line each:
      summation order, and the saliency tests compare the eigenvalues);
      `repeatability` between the frames; `voxel_downsample` bit-identical
      over two runs;
-  9. one JSON line of per-kernel results (`launches` counts the main path,
+  9. the mesh on the card (`parallel.sharded`): the compute mode; kernels
+     A and B over each data rank's query range (2 and 4 ranges) of [3]'s
+     cloud, bit-identical to the launch over every row; single-device
+     references with `mesh_runtime_overrides`; then the engine over a
+     ("data", "map") mesh of 1 rank (NCCL), 2 ranks (gloo, map 2) and 4
+     ranks (gloo, data 2 x map 2), each rank a spawned process on cuda:0,
+     over [4]'s 24 frames and prefill, synchronous and pipelined
+     (`fetch_every=8`): records bit-identical to one device's, frames/s
+     (ranks share one card: overhead, not scaling), map and live rows per
+     rank, query rows per rank, A-E launches per rank, collective calls and
+     payload bytes per frame by call site, synchronising calls per frame
+     between drains (0 on NCCL); at 2 ranks also [4c]'s eviction drive
+     (records bit-identical) and the sharded bundle adjustment against the
+     dense solve (the reference's tolerances);
+  10. one JSON line of per-kernel results (`launches` counts the main path,
      phase [4]'s engine run of `frames` frames for A-E, [7]'s synchronous
      fused run for F; `launches_per_frame` divides it; `launches_by_path`
-     counts each later path alone, from 0; C's and D's `loop_verification`
-     the 600 x 600 check), the card line again, and the result line
-     {"ok": true, "device": {...}}.
+     counts each later path alone, from 0, the mesh paths on rank 0; C's
+     and D's `loop_verification` the 600 x 600 check), the card line again,
+     and the result line {"ok": true, "device": {...}}.
 
 The drive is rendered once, in a pool of worker processes; the script's
 wall time is printed before the JSON lines.  Checkpoints and the PCAP go
@@ -1196,6 +1210,200 @@ def eval_phase(cfg, sweeps, dev) -> dict:
         voxels=int(vox[0][1].sum()))
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the mesh on the card
+
+# (ranks, process-group backend) of phase [9]: ranks share cuda:0, where
+# NCCL refuses a duplicate GPU, so more than one rank runs gloo.
+MESH_RUNS = ((1, "nccl"), (2, "gloo"), (4, "gloo"))
+
+
+def record_bytes(eng) -> list:
+    """An engine's records as plain tuples, every float by its bits."""
+    return [(r.pose.tobytes(), r.n_inliers, r.n_mutual, r.gated, r.map_size,
+             np.float64(r.icp_rmse).tobytes(), r.corr_stats.tobytes(), r.n_dropped)
+            for r in eng.records]
+
+
+def ba_problem(seed: int = 9, M: int = 6, L: int = 40):
+    """A bundle adjustment of M keyframes on a circle observing L landmarks
+    (5 mm noise), from drifted poses and displaced landmarks (numpy)."""
+    rng = np.random.default_rng(seed)
+    th = 2 * np.pi * np.arange(M) / M
+    gt = np.tile(np.eye(4, dtype=np.float32), (M, 1, 1))
+    gt[:, 0, 0], gt[:, 0, 1], gt[:, 1, 0], gt[:, 1, 1] = (
+        np.cos(th), -np.sin(th), np.sin(th), np.cos(th))
+    gt[:, 0, 3], gt[:, 1, 3] = 8000.0 * (1 - np.cos(th)), 8000.0 * np.sin(th)
+    lm = rng.uniform(-15000, 15000, (L, 3)).astype(np.float32)
+    lm[:, 2] = rng.uniform(0, 4000, L)
+    kf, li = np.repeat(np.arange(M), L), np.tile(np.arange(L), M)
+    inv = np.linalg.inv(gt)
+    obs = (np.einsum("oij,oj->oi", inv[kf, :3, :3], lm[li]) + inv[kf, :3, 3]
+           + rng.normal(0, 5.0, (M * L, 3)))
+    noisy = gt.copy()
+    for i in range(1, M):  # drift: a small yaw and offset per step, integrated
+        a = rng.normal(0, 0.005)
+        d = np.eye(4)
+        d[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        d[:3, 3] = rng.normal(0, 80.0, 3)
+        noisy[i] = noisy[i - 1] @ (np.linalg.inv(gt[i - 1]) @ gt[i]) @ d
+    return dict(poses=noisy.astype(np.float32),
+                landmarks=(lm + rng.normal(0, 150.0, (L, 3))).astype(np.float32),
+                obs_kf=kf.astype(np.int32), obs_lm=li.astype(np.int32),
+                obs_p=obs.astype(np.float32), obs_mask=np.ones(M * L, bool))
+
+
+def mesh_rank(rank: int, cfg, sweeps, evict: bool, ba) -> dict:
+    """One rank of phase [9]: the engine over the mesh (`make_mesh` of the
+    process group) on the 24 frames and prefill, synchronous (kernel
+    launches, collectives and time counted) and pipelined (synchronising
+    calls between drains counted); with `evict`, [4c]'s eviction drive;
+    with `ba`, the sharded bundle adjustment of that problem."""
+    import torch
+
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+    from bshot_slam_tpu_torch.parallel import comm, layout, sharded
+
+    stage = [("start", time.perf_counter())]
+    mesh = sharded.make_mesh()
+    axes = sharded.mesh_axes(mesh)
+    cap, k = cfg.map.capacity, cfg.keypoints.top_k
+
+    def fresh(prefill=None, **kw):
+        eng = SlamEngine(cfg, seed=0, mesh=mesh, **kw)
+        if prefill is None:
+            prefill = prefilled_map(cfg, "cpu")
+        eng.state = eng.state._replace(map=prefill)
+        eng._place_state()
+        return eng
+
+    eng = fresh()
+    stage.append(("mesh and engine", time.perf_counter()))
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    comm.reset_counts()
+    times = []
+    for sw in sweeps:
+        t0 = time.perf_counter()
+        eng.process_sweep(sw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {n: w.launches for n, w in wrappers.items()}
+    coll = comm.counts()
+    bucket = frame_cloud(cfg, sweeps[-1])[0].shape[0]
+    out = dict(
+        mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+        backends={n: comm.Axis.of(mesh, n).backend for n in mesh.mesh_dim_names},
+        fps=(len(times) - 1) / sum(times[1:]), records=record_bytes(eng),
+        launches=launches, map_rows=eng.state.map.positions.shape[0],
+        live_rows=int(layout.local_live_rows(eng.state.map.cursor, axes.map)),
+        query_rows=layout.data_rows(bucket, axes.data)[0], bucket=bucket,
+        calls_per_frame=sum(c["calls"] for c in coll.values()) / len(sweeps),
+        bytes_per_frame=sum(c["bytes"] for c in coll.values()) / len(sweeps),
+        sites={n: (c["calls"] / len(sweeps), c["bytes"] / len(sweeps))
+               for n, c in coll.items()})
+    stage.append(("synchronous", time.perf_counter()))
+    census = fresh(pipelined=True, fetch_every=FETCH_EVERY)
+    calls, sites = sync_census(census, sweeps)
+    stage.append(("pipelined", time.perf_counter()))
+    between = [n for n, drained in calls[1:] if not drained]
+    out.update(pipe_records=record_bytes(census),
+               syncs_per_frame=sum(between) / max(1, len(between)),
+               sync_sites=dict(sites[1]))
+    if evict:
+        full = prefilled_map(cfg, "cpu", n=cap - k - 100, far=(1.9e6, 1.95e6))
+        ev = fresh(prefill=full, pipelined=True, fetch_every=FETCH_EVERY)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            drive(ev, sweeps[:8])
+        out.update(evict_records=record_bytes(ev), n_evicted=ev.n_evicted)
+        stage.append(("eviction", time.perf_counter()))
+    if ba is not None:
+        from bshot_slam_tpu_torch.backend.ba import BAProblem
+
+        dev = sharded.mesh_device(mesh)
+        prob = BAProblem(**{n: torch.from_numpy(v).to(dev) for n, v in ba.items()})
+        res = sharded.sharded_ba_solve(mesh, prob, gn_iterations=3, cg_iterations=15)
+        out["ba"] = {n: v.cpu().numpy() for n, v in res._asdict().items()}
+        stage.append(("BA", time.perf_counter()))
+    out["stage_s"] = {b[0]: b[1] - a[1] for a, b in zip(stage, stage[1:])}
+    out["started"] = time.time()
+    return out
+
+
+def mesh_phase(cfg, sweeps, dev) -> dict:
+    """Phase [9]: single-device references with `mesh_runtime_overrides`
+    (synchronous on the 24 frames and prefill, [4c]'s eviction drive, the
+    dense bundle adjustment); kernels A and B over each data rank's query
+    range at the main path's shapes against the launch over every row;
+    then `mesh_rank` on 1 (NCCL), 2 and 4 (gloo) ranks sharing cuda:0."""
+    import torch
+
+    from bshot_slam_tpu_torch.backend.ba import BAProblem, ba_solve
+    from bshot_slam_tpu_torch.kernels import neighborhood as nb
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+    from bshot_slam_tpu_torch.ops import keypoints
+    from bshot_slam_tpu_torch.parallel import multihost, sharded
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    one = sharded.mesh_runtime_overrides(cfg, 1)
+
+    def single(prefill, pipelined=False, frames=sweeps):
+        eng = SlamEngine(one, seed=0, device=dev, pipelined=pipelined,
+                         fetch_every=FETCH_EVERY)
+        eng.state = eng.state._replace(map=prefill)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            fps = drive(eng, frames)
+        return eng, fps
+
+    ref, ref_fps = single(prefilled_map(one, dev))
+    cap, k = cfg.map.capacity, cfg.keypoints.top_k
+    ref_ev, _ = single(prefilled_map(one, dev, n=cap - k - 100, far=(1.9e6, 1.95e6)),
+                       pipelined=True, frames=sweeps[:8])
+    ba = ba_problem()
+    dense = ba_solve(BAProblem(**{n: torch.from_numpy(v).to(dev) for n, v in ba.items()}),
+                     gn_iterations=3, cg_iterations=15)
+    dense = {n: v.cpu().numpy() for n, v in dense._asdict().items()}
+
+    points, nv = frame_cloud(cfg, sweeps[3])
+    pts = torch.from_numpy(points).to(dev)
+    mask = torch.arange(pts.shape[0], device=dev) < nv
+    feat = keypoints.moment_features(pts)
+    r = cfg.keypoints.radius_mm
+    full_a = nb.neighborhood_accumulate(pts, mask, feat, r)
+    ctvec = pts - full_a[:, 1:4] / torch.clamp(full_a[:, 0], min=1.0)[:, None]
+    full_b = nb.segratio_accumulate(pts, mask, ctvec, r)
+    n, ranges, equal = pts.shape[0], [], True
+    for parts in (2, 4):
+        per = -(-n // (nb.PLAIN_ROWS * parts)) * nb.PLAIN_ROWS
+        for q0 in range(0, n, per):
+            q1 = min(q0 + per, n)
+            a = nb.neighborhood_accumulate(pts, mask, feat, r, rows=(q0, q1))
+            b = nb.segratio_accumulate(pts, mask, ctvec[q0:q1].contiguous(), r,
+                                       rows=(q0, q1))
+            equal &= same_bits((a, b), (full_a[q0:q1], full_b[q0:q1]))
+            ranges.append((q0, q1))
+    torch.cuda.synchronize()
+
+    runs = {}
+    for ranks, backend in MESH_RUNS:
+        t0, wall0 = time.perf_counter(), time.time()
+        out = multihost.spawn_local(
+            mesh_rank, ranks, args=(cfg, sweeps, ranks == 2,
+                                    ba if ranks == 2 else None),
+            backend=backend, device="cuda", timeout=600)
+        runs[ranks] = dict(backend=backend, s=time.perf_counter() - t0, out=out,
+                           start_s=max(o["started"] - sum(o["stage_s"].values())
+                                       for o in out) - wall0)
+    return dict(compute_mode=mode, ref=record_bytes(ref), ref_fps=ref_fps,
+                ref_ev=record_bytes(ref_ev),
+                ref_evicted=ref_ev.n_evicted, dense=dense, range_equal=equal,
+                ranges=ranges, bucket=n, runs=runs)
+
+
 def main() -> int:
     try:
         import torch
@@ -1461,12 +1669,76 @@ def main() -> int:
                for a, b, c in zip(evl["n_card"], evl["n_cpu"], evl["common"])):
         raise SmokeError("ISS keypoints on the card part from the CPU port's")
 
+    ms = mesh_phase(cfg, sweeps, dev)
+    print(f"[9] one device with mesh_runtime_overrides (no window compaction), "
+          f"synchronous: {ms['ref_fps']:.3f} frames/s after the first (with it, [4]: "
+          f"{res['fps']:.3f})", flush=True)
+    print(f"[9] compute mode {ms['compute_mode']}; kernels A and B over the query "
+          f"ranges {ms['ranges']} of the {ms['bucket']}-row cloud bit-identical to "
+          f"the launch over every row: {ms['range_equal']}", flush=True)
+    if not ms["range_equal"]:
+        raise SmokeError("A or B over a query range differs from the full launch")
+    mesh_paths = {}
+    for ranks, run in ms["runs"].items():
+        out, r0 = run["out"], run["out"][0]
+        print(f"[9] {ranks} rank(s) on cuda:0 ({run['backend']}; mesh {r0['mesh']}, "
+              f"dims {r0['backends']}; spawn to finish {run['s']:.1f} s, of which "
+              f"process start {run['start_s']:.1f} s, then "
+              f"{', '.join(f'{n} {t:.1f} s' for n, t in r0['stage_s'].items())}): "
+              f"{min(o['fps'] for o in out):.3f} frames/s (ranks share one card: "
+              f"overhead, not scaling); map rows per rank {r0['map_rows']}, live rows "
+              f"per rank {[o['live_rows'] for o in out]}; query rows per rank "
+              f"{[o['query_rows'] for o in out]} of bucket {r0['bucket']}; launches per "
+              f"rank {[o['launches'] for o in out]}; collectives per frame "
+              f"{r0['calls_per_frame']:.2f} calls, {r0['bytes_per_frame']:.0f} bytes "
+              f"({', '.join(f'{n} {c:.2f}x {b:.0f} B' for n, (c, b) in r0['sites'].items())}); "
+              f"pipelined syncs per frame between drains {[o['syncs_per_frame'] for o in out]} "
+              f"({r0['sync_sites'] or 'none'})", flush=True)
+        same = all(o["records"] == ms["ref"] and o["pipe_records"] == ms["ref"]
+                   for o in out)
+        print(f"[9] {ranks} rank(s): synchronous and pipelined records bit-identical "
+              f"to one device with mesh_runtime_overrides ({len(ms['ref'])} frames): "
+              f"{same}", flush=True)
+        if not same:
+            raise SmokeError(f"the mesh's records at {ranks} rank(s) differ from "
+                             "one device's")
+        idle = [n for o in out for n in ("neighborhood_accumulate", "segratio_accumulate",
+                                         "hamming_nn_bounded", "euclid_nn_bounded",
+                                         "dedup_blocked_bounded") if not o["launches"][n]]
+        if idle:
+            raise SmokeError(f"kernels never launched on the mesh path: {idle}")
+        if run["backend"] == "nccl" and any(o["syncs_per_frame"] for o in out):
+            raise SmokeError("the pipelined engine syncs between drains on NCCL")
+        mesh_paths[f"mesh_{ranks}_ranks_24"] = r0["launches"]
+        if "n_evicted" in r0:
+            ev_same = all(o["evict_records"] == ms["ref_ev"] for o in out)
+            print(f"[9] {ranks} ranks: [4c]'s eviction drive evicted {r0['n_evicted']} "
+                  f"(one device {ms['ref_evicted']}); records bit-identical: "
+                  f"{ev_same}", flush=True)
+            if not (ev_same and r0["n_evicted"] == ms["ref_evicted"] > 0):
+                raise SmokeError("the sharded eviction differs from one device's")
+        if "ba" in r0:
+            d = ms["dense"]
+            err = [float(np.abs(o["ba"][f] - d[f]).max()) for o in out
+                   for f in ("poses", "landmarks")]
+            ok = all(o["ba"]["final_cost"] < o["ba"]["initial_cost"]
+                     and np.allclose(o["ba"]["poses"], d["poses"], rtol=1e-3, atol=1e-2)
+                     and np.allclose(o["ba"]["landmarks"], d["landmarks"], rtol=1e-3,
+                                     atol=1.0) for o in out)
+            print(f"[9] {ranks} ranks: sharded BA cost {float(r0['ba']['initial_cost']):.1f} "
+                  f"-> {float(r0['ba']['final_cost']):.4f} (dense "
+                  f"{float(d['final_cost']):.4f}); largest difference from the dense "
+                  f"solve (poses, landmarks) {err[:2]}; within rtol 1e-3 / atol 1e-2 "
+                  f"and 1.0: {ok}", flush=True)
+            if not ok:
+                raise SmokeError("the sharded bundle adjustment parts from the dense one")
+
     paths = {"sync_24": res["launches"], "pipelined_24": pipe["launches"],
              "eviction_8": ev["launches"], "backend_129": bk["launches"],
              "pcap_native_stream": pc["launches"], "resume_65": rs["launches"],
              "bench_129": bench["launches"], "fused_sync_24": fu["launches"],
              "fused_pipelined_24": fu["pipe_launches"], "fused_spike": sp["launches"],
-             "iss_2": evl["launches"]}
+             "iss_2": evl["launches"], **mesh_paths}
 
     def runs(path):  # the kernels a path runs
         if path == "iss_2":
@@ -1501,7 +1773,7 @@ def main() -> int:
                 shapes=lr["shapes"], launches=loop_cd[r["name"]],
                 passes=len(bk["passes"]))
         kernels.append(k)
-    print(f"[9] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[10] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,9 @@ backend equals the synchronous one on the card.  Kernel F (the ground
 walk) runs its edge cases likewise, classes cell-exact; the pipelined
 engine with the device preprocess equals the synchronous one through a
 bucket overflow; the evaluation ops (ISS through kernel A, repeatability,
-the voxel grid, `mutual_nn(use_matmul=True)`) agree with the CPU.
+the voxel grid, `mutual_nn(use_matmul=True)`) agree with the CPU.  A and B
+over a TILE-aligned range of query rows equal the launch over every row,
+bit for bit.
 """
 
 import numpy as np
@@ -189,6 +191,32 @@ def test_neighborhood_kernels(dev):
                                     3000.0, normalized).cpu()
         torch.testing.assert_close(got[:, :2], want[:, :2], rtol=0, atol=0)
         torch.testing.assert_close(got[:, 2], want[:, 2], rtol=1e-4, atol=1.0)
+
+
+@pytest.mark.parametrize("rows", [(0, 128), (128, 1536), (1536, 3000), (2944, 3000),
+                                  (256, 256)])
+def test_neighborhood_query_range_on_card(dev, rows):
+    """A and B over a TILE-aligned range of query rows (the data axis of a
+    mesh) equal the launch over every row bit for bit, and launch once."""
+    pts, mask = _cloud()
+    x, y, z = pts.unbind(-1)
+    feat = torch.stack([torch.ones_like(x), x, y, z, x * x, y * z], -1)
+    r2_row = torch.full((pts.shape[0],), 2500.0**2)
+    r2_row[::3] = 1800.0**2
+    q0, q1 = rows
+    d = [t.to(dev) for t in (pts, mask, feat, r2_row)]
+    full = K.neighborhood_accumulate(d[0], d[1], d[2], 3000.0, r2_row=d[3])
+    before = K.neighborhood_accumulate.launches
+    part = K.neighborhood_accumulate(d[0], d[1], d[2], 3000.0, r2_row=d[3], rows=rows)
+    assert K.neighborhood_accumulate.launches == before + (q1 > q0)
+    assert part.shape == (q1 - q0, feat.shape[1])
+    assert torch.equal(part.view(torch.int32), full[q0:q1].view(torch.int32))
+    ctvec = (d[0] - full[:, 1:4] / full[:, :1].clamp(min=1)).contiguous()
+    for normalized in (False, True):
+        whole = K.segratio_accumulate(d[0], d[1], ctvec, 3000.0, normalized)
+        got = K.segratio_accumulate(d[0], d[1], ctvec[q0:q1].contiguous(), 3000.0,
+                                    normalized, rows=rows)
+        assert torch.equal(got.view(torch.int32), whole[q0:q1].view(torch.int32))
 
 
 @pytest.mark.parametrize("tail", [-1, 1500])

@@ -196,8 +196,11 @@ def test_engine_defaults_to_the_card(monkeypatch):
         tengine.SlamEngine(tc.tiny_config(), host_preprocess=False)
     eng = tengine.SlamEngine(tc.tiny_config(), device="cpu", host_preprocess=False)
     assert not eng.host_preprocess and eng.device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        tengine.SlamEngine(tc.tiny_config(), device="cpu", mesh=object())
+    # a mesh takes every path but the pipelined device preprocess, as in the
+    # reference
+    with pytest.raises(ValueError, match="single-device"):
+        tengine.SlamEngine(tc.tiny_config(), device="cpu", mesh=object(),
+                           host_preprocess=False, pipelined=True)
 
 
 _NO_BUILD = r"""

@@ -102,9 +102,23 @@ def test_cli_reads_a_pcap(tmp_path, tiny):
     assert len(traj.read_text().strip().splitlines()) == 2
 
 
-def test_cli_sharded_raises():
-    with pytest.raises(NotImplementedError, match="sharded"):
-        run_odometry.main(["--synthetic", "2", "--cpu", "--sharded", "2"])
+def test_cli_sharded_raises(tmp_path, capfd):
+    """`--sharded` refuses the inputs and views one rank cannot serve alone
+    (a usage error), and otherwise runs over two gloo ranks on the CPU: the
+    trajectory file equals the single-process run's byte for byte (the
+    default config at 64 azimuth bins: the ranks re-import the CLI; rank 0
+    prints to the inherited stdout)."""
+    with pytest.raises(SystemExit):
+        run_odometry.main(["--synthetic", "2", "--cpu", "--sharded", "2",
+                           "--live", str(tmp_path / "live")])
+    args = ["--synthetic", "2", "--n-azimuth", "64", "--cpu"]
+    _cli(*args, "--out", tmp_path / "one.txt")
+    capfd.readouterr()
+    assert run_odometry.main([str(a) for a in args] + [
+        "--sharded", "2", "--out", str(tmp_path / "two.txt")]) == 0
+    out = capfd.readouterr().out
+    assert "sharded over 2 ranks" in out and out.count("frame ") == 2
+    assert (tmp_path / "two.txt").read_bytes() == (tmp_path / "one.txt").read_bytes()
 
 
 # -- (c2) the evaluation CLIs --------------------------------------------------
