@@ -38,7 +38,6 @@ import math
 import multiprocessing
 import os
 import pathlib
-import subprocess
 import sys
 import time
 
@@ -161,12 +160,9 @@ def device_line(device) -> str:
     """The card's name and power limit as nvidia-smi gives them, or "cpu"."""
     import torch
 
-    if torch.device(device).type != "cuda":
-        return "cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    from bshot_slam_tpu_torch.device import card_line
+
+    return card_line() if torch.device(device).type == "cuda" else "cpu"
 
 
 def host_clouds(cfg, sweeps, device) -> list:

@@ -84,6 +84,33 @@ def query_rows(n: int, rows) -> tuple[int, int]:
     return q0, q1
 
 
+def kept_tiles(points, mask, radius: float, tile: int = TILE):
+    """Host replay of the tile skips of kernels A and B over every query
+    row: `block_box` and `separated` of csrc/neighborhood.cu, in float32 as
+    the card computes them.  Query block qb walks candidate tile t unless
+    either holds no valid row or their boxes lie farther apart than the
+    radius (plus the kernels' margin) along some axis.  Returns (keep (nt,
+    nt) bool, valid rows per tile (nt,) int64) of the `tile`-row tiles;
+    points and mask are host arrays or CPU tensors."""
+    p = torch.as_tensor(points, dtype=torch.float32)
+    m = torch.as_tensor(mask, dtype=torch.bool)
+    n = p.shape[0]
+    nt = max(1, -(-n // tile))
+    p = torch.cat([p, p.new_zeros((nt * tile - n, 3))]).view(nt, tile, 3)
+    m = torch.cat([m, m.new_zeros(nt * tile - n)]).view(nt, tile)
+    inf = torch.tensor(float("inf"))
+    lo = torch.where(m[..., None], p, inf).amin(1)
+    hi = torch.where(m[..., None], p, -inf).amax(1)
+    n2 = torch.where(m, fma_dot3(p, p), 0.0).amax(1)
+    rows = m.sum(1)
+    r2 = torch.tensor(radius * radius, dtype=torch.float32)
+    lim = r2 + (n2[:, None] + n2[None, :] + r2) * 2.0 ** -18
+    gap = torch.maximum(lo[:, None] - hi[None, :], lo[None, :] - hi[:, None])
+    far = ((gap > 0) & (gap * gap > lim[..., None])).any(-1)
+    live = rows > 0
+    return live[:, None] & live[None, :] & ~far, rows
+
+
 def _block_d2(points, sq, b0: int, b1: int, t0: int, t1: int):
     """`pair_d2(points[b0:b1], points[t0:t1])` with the squared norms `sq`
     (`fma_dot3` of every row, taken once per call)."""

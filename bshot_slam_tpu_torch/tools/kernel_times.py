@@ -50,11 +50,12 @@ def measure_root(root: str, engine: bool) -> dict:
 
     cs = load_smoke()
     from bshot_slam_tpu_torch import default_config
+    from bshot_slam_tpu_torch.device import card_line
     from bshot_slam_tpu_torch.kernels import build_all
 
     cfg = default_config()
     dev = torch.device("cuda")
-    out = {"root": root, "card": cs.card_line(), "build_s": build_all()}
+    out = {"root": root, "card": card_line(), "build_s": build_all()}
     cs.N_FRAMES = 24 if engine else 4
     sweeps, gt = cs.render_drive(cfg)
     points, nv = cs.frame_cloud(cfg, sweeps[3])

@@ -4,8 +4,11 @@ Port of `bshot_slam_tpu.utils.profiling`.  TicToc mirrors the reference's
 wall-clock stage timer (reference: include/tic_toc.h:7-25, printed as
 "t1"/"t2" in lidar_odometry.cpp:128,167).  `fence` waits for queued device
 work (`torch.cuda.synchronize` on the devices of the tensors given),
-`device_timer` times a function on the card with CUDA events, and `trace`
-wraps `torch.profiler` for deep dives.
+`device_timer` times a function on the card with CUDA events, `trace`
+wraps `torch.profiler` for deep dives, `profiled` and `device_profile`
+read what `torch.profiler` saw run on the card, and `stage_times` gives a
+stage of the instruments (`tools/run_stage_bench.py`,
+`tools/run_feature_profile.py`) its columns.
 
 Not ported, because the port has nothing for them to do:
 `scalarized` folds a jitted function's outputs into one scalar so that a
@@ -18,6 +21,7 @@ kernels build once into `build/kernels/`) and fences with one synchronise.
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from typing import Callable
 
@@ -87,3 +91,74 @@ def trace(logdir: str = "bshot_slam_trace"):
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(logdir)):
         yield logdir
+
+
+def profiled(warm_up: Callable, work: Callable) -> list:
+    """`torch.profiler` events of work() on the card, summed by name.
+    warm_up() runs as the profiler's warm-up step: the first launches after
+    tracing starts can go unrecorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        warm_up()
+        torch.cuda.synchronize()
+        prof.step()
+        work()
+        torch.cuda.synchronize()
+        prof.step()
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]  # the step's own span
+
+
+def device_profile(fn: Callable, calls: int = 20):
+    """(device ms per call, device launches per call) of fn(): the summed
+    durations and the count of what `torch.profiler` saw run on the card."""
+    for _ in range(3):  # a trace that lost records shows in the count: again
+        on_card = profiled(fn, lambda: [fn() for _ in range(calls)])
+        launches = sum(e.count for e in on_card)
+        if launches and launches % calls == 0:
+            break
+    return sum(e.self_device_time_total for e in on_card) / calls / 1e3, launches / calls
+
+
+def stage_times(stages: dict, iters: int, device) -> dict:
+    """The columns of each stage of `stages` (name -> fn), fn() run on
+    `device`: `wall_ms`, the median host time of `iters` calls each fenced
+    by synchronises after one warm-up call; on the card also `event_ms`, the
+    median CUDA-event time of the same calls, `device_ms` and `launches` per
+    call from `torch.profiler`, and `host_ms` = wall - device (the part of a
+    call the card does not account for: dispatch, host work and syncs).  On
+    the CPU the device columns are None and `host_ms` is the wall time.
+    Every stage is timed before any is profiled: a profiler session can
+    slow the launches that come after it."""
+    cuda = torch.device(device).type == "cuda"
+    rows = {}
+    for name, fn in stages.items():
+        fn()
+        if cuda:
+            torch.cuda.synchronize()
+        walls, events = [], []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                events.append(start.elapsed_time(end))
+            else:
+                fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        rows[name] = dict(wall_ms=wall, event_ms=statistics.median(events) if cuda else None,
+                          device_ms=None, launches=None, host_ms=wall)
+    if cuda:
+        for name, fn in stages.items():
+            device_ms, launches = device_profile(fn, calls=iters)
+            rows[name].update(device_ms=device_ms, launches=launches,
+                              host_ms=rows[name]["wall_ms"] - device_ms)
+    return rows

@@ -56,7 +56,13 @@ Phases, one line each:
      uninterrupted run's bit for bit;
   6. the bench: `bench_torch`'s engine pass (pipelined, `fetch_every=64`,
      64k prefill) over the 129 rendered frames, one warm pass and one timed
-     pass; its JSON line, and its quality guard must hold;
+     pass; its JSON line, and its quality guard must hold; then its records
+     against the JAX package's run of the same drive on the CPU with exact
+     top-k (`tests/fixtures/torch_jax_drive.npz`, read with numpy): per-frame
+     differences of the relative motions (median and max, translation and
+     rotation), the first frame where one exceeds 20 mm or 0.2 degrees, each
+     side's ATE against ground truth and the ATE between them; the fixture's
+     configuration and drive must be this run's;
   7. the device preprocess (`host_preprocess=False`): kernel F (the ground
      walk) on every frame of the 129-frame drive against its plain version
      on the card, classes cell-exact, and against itself over two runs; the
@@ -90,10 +96,18 @@ Phases, one line each:
      between drains (0 on NCCL); at 2 ranks also [4c]'s eviction drive
      (records bit-identical) and the sharded bundle adjustment against the
      dense solve (the reference's tolerances);
-  10. one JSON line of per-kernel results (`launches` counts the main path,
+  10. the tools on the card (`bshot_slam_tpu_torch/tools/`), each `main`
+     in this process with its lines and JSON line printed: `run_golden` (the
+     golden PCAP against the CPU gold: under 60 mm from it, ATE under 8% of
+     the path, the pose gate's inliers on every frame after the first),
+     `run_stage_bench --iters 5`, `run_feature_profile --iters 5`,
+     `run_ba_bench` and `run_reference_stats`; each must exit 0, print its
+     JSON line and launch the kernels its path runs;
+  11. one JSON line of per-kernel results (`launches` counts the main path,
      phase [4]'s engine run of `frames` frames for A-E, [7]'s synchronous
      fused run for F; `launches_per_frame` divides it; `launches_by_path`
-     counts each later path alone, from 0, the mesh paths on rank 0; C's
+     counts each later path alone, from 0, the mesh paths on rank 0, the
+     tools' runs as `tool_<name>`; C's
      and D's `loop_verification` the 600 x 600 check), the card line again,
      and the result line {"ok": true, "device": {...}}.
 
@@ -110,9 +124,12 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import functools
+import importlib
+import io
 import json
 import math
 import multiprocessing
@@ -126,15 +143,6 @@ import warnings
 
 import numpy as np
 
-# H100 SXM: 132 SMs at the 1.98 GHz boost clock, 3.35 TB/s of HBM3.  Lanes
-# per SM per clock by instruction class (compute capability 9.0): f32 add,
-# multiply, FMA and compare 128 (67 TFLOP/s with an FMA as 2 flops); 32-bit
-# integer add, compare and logic 64; popc 16.  An SM dispatches at most 128
-# lanes per clock over all classes.
-H100_LANES_PER_S = 132 * 1.98e9
-H100_LANES = {"f32": 128, "int": 64, "popc": 16}
-H100_DISPATCH_LANES = 128
-H100_BYTES_PER_S = 3.35e12
 N_FRAMES = 24
 N_DRIVE = 129  # bench.py's drive, one full circle
 RESUME_AT = 64  # phase [5b] saves after this many frames (a backend pass)
@@ -148,6 +156,13 @@ OVERFLOW_WINDOW = 256  # phase [4b]'s window_cap, below the frames' windows
 SPIKE_BASE, SPIKE, SPIKE_FRAMES, SPIKE_AT = 6000, 18000, 12, 4
 FUSED_INGEST_MAX_LAUNCHES = 60  # device launches a frame's fused ingest may make
 REPEATS = 25
+# Phase [6] against the JAX package: its run of the drive, and the relative
+# motion difference that marks the first frame where the two part ways.
+REFERENCE_DRIVE = pathlib.Path(__file__).resolve().parent / "tests" / "fixtures" / "torch_jax_drive.npz"
+REL_MM, REL_DEG = 20.0, 0.2
+# Phase [10]'s golden replay: tests/test_golden_trajectory.py's limits (mm
+# from the CPU gold; ATE against ground truth as a share of the path).
+GOLDEN_MM, GOLDEN_PATH_SHARE = 60.0, 0.08
 # The bound of A and B counts the radius tests that a box prune at this
 # grain (query rows x candidate rows) leaves: a property of the cloud, fixed
 # here so that a kernel's own tiling cannot move its own bound.
@@ -156,14 +171,6 @@ PRUNE_GRAIN = 128
 
 class SmokeError(RuntimeError):
     pass
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
 
 
 def time_ms(fn, repeats: int = REPEATS) -> float:
@@ -199,39 +206,10 @@ def host_us(fn, calls: int = 100) -> float:
     return t / calls * 1e6
 
 
-def profiled(warm_up, work):
-    """`torch.profiler` events of work() on the card.  warm_up() runs as the
-    profiler's warm-up step: the first launches after tracing starts can go
-    unrecorded."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        warm_up()
-        torch.cuda.synchronize()
-        prof.step()
-        work()
-        torch.cuda.synchronize()
-        prof.step()
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]  # the step's own span
-
-
-def device_profile(fn, calls: int = 20):
-    """(device ms per call, device launches per call) of fn(): the summed
-    durations and the count of what `torch.profiler` saw run on the card."""
-    for _ in range(3):  # a trace that lost records shows in the count: again
-        on_card = profiled(fn, lambda: [fn() for _ in range(calls)])
-        launches = sum(e.count for e in on_card)
-        if launches and launches % calls == 0:
-            break
-    return sum(e.self_device_time_total for e in on_card) / calls / 1e3, launches / calls
-
-
 def measure(fn, plain_fn) -> dict:
     """The timing columns of one kernel's row."""
+    from bshot_slam_tpu_torch.utils.profiling import device_profile
+
     device_ms, launches = device_profile(fn)
     return dict(ms=time_ms(fn), plain_ms=time_ms(plain_fn), device_ms=device_ms,
                 device_launches_per_call=launches, host_us_per_call=host_us(fn))
@@ -245,43 +223,27 @@ def same_bits(a, b) -> bool:
 
 
 def bound(nbytes: float, ops: dict):
-    """Least time in ms for the work and what sets it.  `ops` counts
-    instructions (one per lane) by class; the time for them is the longest
-    of each class at its own rate and of all of them at the dispatch rate."""
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = max([n / (H100_LANES[c] * H100_LANES_PER_S) for c, n in ops.items()]
-                + [sum(ops.values()) / (H100_DISPATCH_LANES * H100_LANES_PER_S)]) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """Least time in ms for the work on an H100 and what sets it
+    (`bshot_slam_tpu_torch.device.Peaks.bound_ms`)."""
+    from bshot_slam_tpu_torch.device import H100
+
+    return H100.bound_ms(nbytes, ops)
 
 
 def scaled(ops: dict, n: float) -> dict:
     return {c: k * n for c, k in ops.items()}
 
 
-def radius_tests(points: np.ndarray, mask: np.ndarray, r2: float,
+def radius_tests(points: np.ndarray, mask: np.ndarray, radius: float,
                  tile: int = PRUNE_GRAIN) -> float:
     """Radius tests a box prune at `tile` x `tile` rows leaves kernels A and
     B: pairs of valid rows in the (query block, candidate tile) pairs that
-    are not separated (the same test as `separated` in
-    csrc/neighborhood.cu, in float64)."""
-    n = points.shape[0]
-    nb = -(-n // tile)
-    lo = np.full((nb, 3), np.inf)
-    hi = np.full((nb, 3), -np.inf)
-    n2 = np.zeros(nb)
-    cnt = np.zeros(nb)
-    p = points.astype(np.float64)
-    for b in range(nb):
-        rows = p[b * tile:(b + 1) * tile][mask[b * tile:(b + 1) * tile]]
-        if len(rows):
-            lo[b], hi[b] = rows.min(0), rows.max(0)
-            n2[b] = (rows * rows).sum(1).max()
-            cnt[b] = len(rows)
-    gap = np.maximum(lo[:, None] - hi[None], lo[None] - hi[:, None])
-    lim = r2 + (n2[:, None] + n2[None] + r2) * 2.0 ** -18
-    far = ((gap > 0) & (gap * gap > lim[..., None])).any(-1)
-    keep = ~far & (cnt[:, None] > 0) & (cnt[None] > 0)
-    return float((cnt[:, None] * cnt[None])[keep].sum())
+    are not separated (`kernels.neighborhood.kept_tiles`, the test of
+    csrc/neighborhood.cu replayed on the host)."""
+    from bshot_slam_tpu_torch.kernels.neighborhood import kept_tiles
+
+    keep, rows = kept_tiles(points, mask, radius, tile)
+    return float((rows[:, None] * rows[None, :])[keep].sum())
 
 
 def cpu(*ts):
@@ -386,7 +348,7 @@ def check_neighborhood(cfg, points_np, nv, dev):
     on_card = K.neighborhood_accumulate_plain(pts, mask, feat, r)
     card_rows = int_mismatch(out[:, 0], on_card[:, 0])
     again = K.neighborhood_accumulate(pts, mask, feat, r)
-    tests = radius_tests(points_np, np.arange(N) < nv, r * r)
+    tests = radius_tests(points_np, np.arange(N) < nv, r)
     within = float(cnt.sum())
     nf = feat.shape[1]
     b_ms, b_by = bound(N * (12 + 1 + 4 * nf + 4 * nf),
@@ -639,12 +601,13 @@ def profile_engine(cfg, sweeps, dev, n: int = 6):
     import torch
 
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+    from bshot_slam_tpu_torch.utils import profiling
 
     eng = SlamEngine(cfg, seed=0, device=dev)
     eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
     eng.process_sweep(sweeps[0])
     torch.cuda.synchronize()
-    kernels = profiled(lambda: eng.process_sweep(sweeps[1]),
+    kernels = profiling.profiled(lambda: eng.process_sweep(sweeps[1]),
                        lambda: [eng.process_sweep(sw) for sw in sweeps[2:n + 2]])
     total_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
@@ -1019,7 +982,56 @@ def bench_phase(cfg, sweeps, gt, dev) -> dict:
     q = bench_torch.quality(cfg, eng, gt)
     return dict(line=bench_torch.headline(fps, q), launches=launches, fps=fps, **q,
                 map_size=eng.records[-1].map_size, inliers=eng.records[-1].n_inliers,
-                redispatched=eng.n_redispatched)
+                redispatched=eng.n_redispatched, eng=eng)
+
+
+def reference_drive(cfg, eng, gt) -> dict:
+    """Phase [6] against the JAX package: the bench pass's records against
+    the reference's run of the same drive on the CPU with exact top-k
+    (`tests/fixtures/torch_jax_drive.npz`, written by
+    tests/torch_reference_drive.py; read with numpy alone).  Per frame after
+    the first, the difference of the two relative motions (translation mm,
+    rotation degrees); the first frame where it exceeds REL_MM or REL_DEG;
+    each side's ATE against ground truth and the ATE between them.
+    `config_equal`: the fixture's configuration is this run's, the port's
+    top-k being exact; `drive_equal`: its arguments and ground truth are
+    this drive's."""
+    import bench_torch
+    from bshot_slam_tpu_torch.utils.metrics import ate_rmse
+
+    with np.load(REFERENCE_DRIVE) as z:
+        ref = {k: z[k] for k in z.files}
+    meta = json.loads(str(ref["meta"]))
+    ours = dataclasses.replace(cfg, runtime=dataclasses.replace(cfg.runtime,
+                                                                exact_topk=True))
+    config_equal = json.loads(json.dumps(dataclasses.asdict(ours))) == meta["config"]
+    a = meta["args"]
+    drive_equal = bool(
+        (a["n_frames"], a["prefill"], a["fetch_every"], a["pipelined"], a["backend"])
+        == (len(gt), bench_torch.PREFILL_LANDMARKS, bench_torch.FETCH_EVERY, True, False)
+        and np.abs(ref["gt"] - gt).max() < 1e-6)
+
+    def motions(P):
+        P = P.astype(np.float64)
+        return np.linalg.inv(P[:-1]) @ P[1:]
+
+    d = np.linalg.inv(motions(ref["poses"])) @ motions(np.stack([r.pose for r in eng.records]))
+    mm = np.linalg.norm(d[:, :3, 3], axis=1)
+    cos = np.clip((np.trace(d[:, :3, :3], axis1=1, axis2=2) - 1) / 2, -1.0, 1.0)
+    deg = np.degrees(np.arccos(cos))
+    over = np.nonzero((mm > REL_MM) | (deg > REL_DEG))[0]
+    gt_pos = (np.linalg.inv(gt[0])[None] @ gt)[:, :3, 3]
+    ref_traj = ref["poses"][:, :3, 3].astype(np.float64)
+    return dict(
+        config_equal=config_equal, drive_equal=drive_equal,
+        mm_median=float(np.median(mm)), mm_max=float(mm.max()),
+        deg_median=float(np.median(deg)), deg_max=float(deg.max()),
+        first_over=None if not len(over) else int(over[0]) + 1,
+        ate_card=float(ate_rmse(eng.trajectory, gt_pos, align=False)),
+        ate_ref=float(ate_rmse(ref_traj, gt_pos, align=False)),
+        ate_between=float(ate_rmse(eng.trajectory, ref_traj, align=False)),
+        inliers_card=[r.n_inliers for r in eng.records], inliers_ref=ref["inliers"].tolist(),
+        cursor_card=int(eng.state.map.cursor), cursor_ref=int(ref["cursor"]))
 
 
 # ---------------------------------------------------------------------------
@@ -1039,6 +1051,7 @@ def walk_phase(cfg, sweeps, dev) -> dict:
     from bshot_slam_tpu_torch.odometry.engine import host_cloud
     from bshot_slam_tpu_torch.ops import preprocess as pp
     from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
+    from bshot_slam_tpu_torch.utils import profiling
 
     pcfg = cfg.preprocess
     differ = not_identical = count_differs = max_err = 0
@@ -1069,7 +1082,7 @@ def walk_phase(cfg, sweeps, dev) -> dict:
     def ingest():
         return pipeline.ingest(r, az, v, None, pcfg, pcfg.max_points)
 
-    ingest_device_ms, ingest_launches = device_profile(ingest)
+    ingest_device_ms, ingest_launches = profiling.device_profile(ingest)
     row = dict(name="ground_walk", shapes=f"range ({R},{A}), xyz ({R},{A},3), p0 ({A},3)",
                source="bshot_slam_tpu_torch/csrc/preprocess.cu",
                replaces="bshot_slam_tpu/ops/preprocess.py:152 (lax.scan; no pallas_call)",
@@ -1404,6 +1417,48 @@ def mesh_phase(cfg, sweeps, dev) -> dict:
                 ranges=ranges, bucket=n, runs=runs)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the tools on the card
+
+A_TO_E = ("neighborhood_accumulate", "segratio_accumulate", "hamming_nn_bounded",
+          "euclid_nn_bounded", "dedup_blocked_bounded")
+
+
+def tool_runs(work: pathlib.Path):
+    """(module under bshot_slam_tpu_torch/tools, arguments, the kernels its
+    run must launch) of each tool phase [10] runs."""
+    return (
+        ("run_golden", ["--out", str(work / "golden_torch.json")], A_TO_E),
+        ("run_stage_bench", ["--iters", "5"], A_TO_E),
+        ("run_feature_profile", ["--iters", "5"], A_TO_E[:2]),
+        ("run_ba_bench", [], ()),
+        ("run_reference_stats", ["--out", str(work / "refstats_torch.json"),
+                                 "--workdir", str(work / "refstats")],
+         A_TO_E + ("ground_walk",)),
+    )
+
+
+def tools_phase(work: pathlib.Path) -> dict:
+    """Phase [10]: each tool's `main` in this process on the card, its
+    output captured; per tool its exit code, seconds, kernel launches, the
+    lines it printed and its JSON line."""
+    out = {}
+    for name, argv, needs in tool_runs(work):
+        mod = importlib.import_module(f"bshot_slam_tpu_torch.tools.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, launches = counted(lambda: mod.main(argv))
+        lines = buf.getvalue().splitlines()
+        js = [ln for ln in lines if ln.startswith("{")]
+        out[name] = dict(rc=rc, s=time.perf_counter() - t0, launches=launches,
+                         idle=[k for k in needs if not launches[k]],
+                         lines=[ln for ln in lines if not ln.startswith("{")],
+                         line=js[-1] if js else None,
+                         result=json.loads(js[-1]) if js else None)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1420,6 +1475,7 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing ({e})", file=sys.stderr)
         return 2
     from bshot_slam_tpu_torch import default_config
+    from bshot_slam_tpu_torch.device import card_line
     from bshot_slam_tpu_torch.io import native_decoder
     from bshot_slam_tpu_torch.kernels import build_all
     from bshot_slam_tpu_torch.odometry.engine import pick_bucket
@@ -1609,6 +1665,21 @@ def main() -> int:
           f"{bench['tail_inliers']}; launches {bench['launches']}", flush=True)
     if not bench["quality_ok"]:
         raise SmokeError("bench_torch's quality guard failed")
+    jd = reference_drive(cfg, bench["eng"], drive_gt)
+    print(f"[6] card against the JAX package on the CPU (exact top-k, "
+          f"{REFERENCE_DRIVE.name}): configuration equal {jd['config_equal']}, drive "
+          f"equal {jd['drive_equal']}; relative motion differences per frame: "
+          f"translation median {jd['mm_median']:.3f} mm, max {jd['mm_max']:.3f} mm; "
+          f"rotation median {jd['deg_median']:.4f} deg, max {jd['deg_max']:.4f} deg; "
+          f"first frame over {REL_MM:g} mm or {REL_DEG:g} deg: {jd['first_over']}; ATE "
+          f"against ground truth: card {jd['ate_card']:.1f} mm, JAX {jd['ate_ref']:.1f} "
+          f"mm; ATE between the two {jd['ate_between']:.1f} mm; map cursor card "
+          f"{jd['cursor_card']}, JAX {jd['cursor_ref']}", flush=True)
+    print(f"[6] inliers per frame: card {jd['inliers_card']}; JAX {jd['inliers_ref']}",
+          flush=True)
+    if not (jd["config_equal"] and jd["drive_equal"]):
+        raise SmokeError(f"the JAX drive fixture was recorded at another "
+                         f"configuration or drive: {REFERENCE_DRIVE}")
 
     walk = walk_phase(cfg, drive_sweeps, dev)
     wr = walk["row"]
@@ -1733,16 +1804,37 @@ def main() -> int:
             if not ok:
                 raise SmokeError("the sharded bundle adjustment parts from the dense one")
 
+    tl = tools_phase(work)
+    for name, t in tl.items():
+        for ln in t["lines"]:
+            print(f"[10] {name}: {ln}", flush=True)
+        print(f"[10] {name} (exit {t['rc']}, {t['s']:.1f} s, launches {t['launches']}): "
+              f"{t['line']}", flush=True)
+    bad = {n: t["idle"] for n, t in tl.items() if t["rc"] != 0 or t["result"] is None
+           or t["idle"]}
+    if bad:
+        raise SmokeError(f"tools failed, printed no JSON line, or never launched "
+                         f"their kernels: {bad}")
+    g = tl["run_golden"]["result"]
+    if not (g["ate_vs_cpu_gold_mm"] < GOLDEN_MM
+            and g["ate_vs_ground_truth_mm"] < GOLDEN_PATH_SHARE * g["path_len_mm"]
+            and g["min_inliers"] >= g["gate_min_inliers"]):
+        raise SmokeError("the golden replay on the card parts from the CPU gold, "
+                         "from ground truth, or matches too few inliers")
+
     paths = {"sync_24": res["launches"], "pipelined_24": pipe["launches"],
              "eviction_8": ev["launches"], "backend_129": bk["launches"],
              "pcap_native_stream": pc["launches"], "resume_65": rs["launches"],
              "bench_129": bench["launches"], "fused_sync_24": fu["launches"],
              "fused_pipelined_24": fu["pipe_launches"], "fused_spike": sp["launches"],
-             "iss_2": evl["launches"], **mesh_paths}
+             "iss_2": evl["launches"], **mesh_paths,
+             **{f"tool_{n}": t["launches"] for n, t in tl.items()}}
 
     def runs(path):  # the kernels a path runs
         if path == "iss_2":
             return ["neighborhood_accumulate"]
+        if path.startswith("tool_"):
+            return []  # checked above, tool by tool
         return [k for k in kernel_wrappers()
                 if k != "ground_walk" or path.startswith("fused")]
 
@@ -1773,7 +1865,7 @@ def main() -> int:
                 shapes=lr["shapes"], launches=loop_cd[r["name"]],
                 passes=len(bk["passes"]))
         kernels.append(k)
-    print(f"[10] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[11] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
