@@ -12,6 +12,13 @@ M = T_b^-1 T_a: the pose-graph edge Z for edge (i=b, j=a).
 RANSAC draws come from the caller, as in the odometry step: a
 `torch.Generator`, or an iterator yielding one (H, 3) array of uniform
 draws per verified pair (tests inject the reference's).
+
+`find_loop_closures` verifies each pair through `odometry.graphs` by
+default (`graphs=True`): on the card one CUDA graph per keypoint count,
+captured at the first pair and replayed for the rest, as the reference
+compiles `_verify_pair` once; on the CPU the same body runs eagerly.
+`graphs` may also be an engine's `Graphs` (captured once per engine), or
+False (eager, for comparison).
 """
 
 from __future__ import annotations
@@ -92,11 +99,12 @@ def appearance_pairs(store: KeyframeStore, n: int, cfg: SlamConfig) -> np.ndarra
     return pairs[order][: bcfg.lc_appearance_top]
 
 
-def _pair_rng(rng, iterations: int, device):
-    """The RANSAC draws for one pair: the generator itself, or the next
-    injected (H, 3) draws as a tensor on `device`."""
+def _pair_rng(rng, iterations: int, device) -> torch.Tensor:
+    """The (H, 3) RANSAC draws for one pair on `device`: drawn from the
+    generator (the numbers RANSAC would draw from it), or the next injected
+    ones."""
     if isinstance(rng, torch.Generator):
-        return rng
+        return torch.rand((iterations, 3), generator=rng, device=device)
     return torch.tensor(np.array(next(rng), np.float32), device=device)
 
 
@@ -124,10 +132,12 @@ def candidate_pairs(store: KeyframeStore, n: int, cfg: SlamConfig,
 
 def find_loop_closures(store: KeyframeStore, cfg: SlamConfig, rng,
                        max_candidates: int = 8, n: int | None = None,
-                       stats: dict | None = None) -> List[LoopEdge]:
+                       stats: dict | None = None, graphs=True) -> List[LoopEdge]:
     """Detect and verify loop closures among the first n stored keyframes
     (`store.count` by default).  `stats`, when given, receives the number
-    of pairs verified and the best candidate's inlier count."""
+    of pairs verified and the best candidate's inlier count.  `graphs`:
+    True, an `odometry.graphs.Graphs` to replay from, or False (see the
+    module docstring)."""
     n = int(store.count) if n is None else n
     if stats is not None:
         stats.update(verified=0, best_inliers=0)
@@ -136,9 +146,14 @@ def find_loop_closures(store: KeyframeStore, cfg: SlamConfig, rng,
     bcfg = cfg.backend
     pairs = candidate_pairs(store, n, cfg, max_candidates)
     dev = store.poses.device
+    if graphs is True:
+        from bshot_slam_tpu_torch.odometry.graphs import Graphs
+
+        graphs = Graphs(dev)
+    verify = graphs.verify_pair if graphs else _verify_pair
     edges: List[LoopEdge] = []
     for a, b in pairs:
-        T, n_inl, rmse = _verify_pair(
+        T, n_inl, rmse = verify(
             _pair_rng(rng, cfg.match.ransac_iterations, dev),
             store.keypoints[a], store.descriptors[a], store.kp_mask[a],
             store.keypoints[b], store.descriptors[b], store.kp_mask[b],

@@ -7,9 +7,12 @@ F, `ground_walk`, has no Pallas counterpart: it is the port's form of the
 point `p0` under the sensor, and each cell gets a class code of
 `config.py` (keep, ground or self-car; occlusion is a later pass).
 
-The CUDA side (csrc/preprocess.cu) is one launch per call: one thread per
-column keeps the walk's five state variables in registers over the R
-rings.  The plain version steps the rings in a Python loop with every
+The CUDA side (csrc/preprocess.cu) is one launch per call: blocks of 32
+columns and 8 warps stage their rings in shared memory with coalesced
+loads and compute every cell's gradient and previous-point norm (which
+read only loaded points), a ring per warp; then one warp, a thread per
+column, walks the rings with the walk's five state variables in
+registers.  The plain version steps the rings in a Python loop with every
 column in parallel, one PyTorch operation per arithmetic step, so neither
 side contracts a product into an FMA; the kernel repeats those steps with
 the _rn intrinsics, and the classes agree cell for cell.  The work per

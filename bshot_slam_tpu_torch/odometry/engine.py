@@ -30,6 +30,19 @@ asked); `build_ba_problem` assembles a bundle adjustment.
 Runs on the card unless the caller asks for the CPU: `device=None` means
 "cuda", and raises when no card is visible.
 
+Every frame's step runs through `odometry.graphs` (`graphs=True`, the
+default): on the card it is replayed from a CUDA graph captured once per
+static shape (the cloud bucket, or the predicted bucket of the fused step,
+and the map capacity), as the reference dispatches one `jax.jit` program
+per frame, with the state updated in place as the reference donates it;
+on the CPU the same body runs eagerly on the same buffers.  Both modes
+replay the deferred step; the synchronous engine reads its packed row at
+once and, when a window overflowed (the state passed through), runs the
+eager synchronous step with the same draws.  The backend's pair
+verification replays its graph likewise.  `graphs=False` runs every step
+eagerly (the counterpart of `jax.disable_jit`: a comparison); a mesh
+engine always does.
+
 With `mesh` (a `DeviceMesh` from `parallel.sharded.make_mesh` or
 `parallel.multihost.host_mesh`) the engine runs SPMD: every rank of the
 mesh runs this engine over the same input, the map's rows sharded along
@@ -57,6 +70,7 @@ from bshot_slam_tpu_torch.config import SlamConfig
 from bshot_slam_tpu_torch.device import resolve_device, upload
 from bshot_slam_tpu_torch.io import native_decoder
 from bshot_slam_tpu_torch.io.velodyne import LaserSweep
+from bshot_slam_tpu_torch.odometry import graphs as graphs_mod
 from bshot_slam_tpu_torch.odometry import mapstore, pipeline
 from bshot_slam_tpu_torch.ops.rangeimage import RangeImage, build_range_image
 from bshot_slam_tpu_torch.parallel import comm, layout
@@ -126,14 +140,22 @@ class SlamEngine:
     next drain; call `flush()` after the last frame.  Keyframing runs at
     drain time from the retained device features, and a periodic backend
     pass drains everything first, so corrections land at the same frame as
-    in the synchronous engine."""
+    in the synchronous engine.
+
+    `graphs=False` runs the steps and pair verifications eagerly instead of
+    through `odometry.graphs` (see the module docstring); records are the
+    same bit for bit.  `graphs` may also be the `Graphs` of an earlier
+    engine of the same configuration on the same device, which this engine
+    then takes over (its captures are reused, as the reference's compiled
+    programs outlive an engine): the two must not step in turns."""
 
     def __init__(self, cfg: SlamConfig, seed: int = 0, tile: int = 2048,
                  device=None, draws: Optional[Iterable] = None,
                  enable_backend: bool = False, backend_every: int = 0,
                  pipelined: bool = False, fetch_every: int = 1,
                  host_preprocess: bool = True, keep_corr: bool = False,
-                 mesh=None, data_axis: str = "data", map_axis: str = "map"):
+                 mesh=None, data_axis: str = "data", map_axis: str = "map",
+                 graphs=True):
         self.mesh = mesh
         self.axes = None
         self._map_ranks = 1
@@ -167,6 +189,14 @@ class SlamEngine:
         )
         self.state = self.state._replace(map=self._new_map(first))
         self.records: List[FrameRecord] = []
+        # The steps' graphs and in-place state buffers (None: eager steps).
+        if isinstance(graphs, graphs_mod.Graphs):
+            if mesh is not None or graphs.device != graphs_mod.normal_device(self.device):
+                raise ValueError("graphs of another device, or with a mesh")
+            self.graphs = graphs
+        else:
+            self.graphs = (graphs_mod.Graphs(self.device)
+                           if graphs and mesh is None else None)
         self._warned_drop = False
         self._warned_evict = False
         self.n_evicted = 0  # cumulative keypoints evicted at capacity
@@ -301,10 +331,15 @@ class SlamEngine:
         self._maybe_grow_map()
         cap = self._capacity()
         draws = self._next_draws()
-        range_az, vert, sel = image
-        self.state, self._ok, diag = pipeline.odometry_step_fused(
-            self.state, self._ok, range_az, vert, sel, self.cfg.preprocess,
-            self.cfg, self._next_bucket, draws, self.tile)
+        if self.graphs is not None:
+            self.state, self._ok, diag = self.graphs.fused(
+                self.cfg, self.tile, self.state, self._ok, image,
+                self._next_bucket, draws, self._keep)
+        else:
+            range_az, vert, sel = image
+            self.state, self._ok, diag = pipeline.odometry_step_fused(
+                self.state, self._ok, range_az, vert, sel, self.cfg.preprocess,
+                self.cfg, self._next_bucket, draws, self.tile)
         return self._enqueue(_Pending(diag, None, None, None, draws, cap, image))
 
     def _feed_bucket(self, n_valid: int) -> None:
@@ -319,9 +354,11 @@ class SlamEngine:
 
     def process_compact(self, points: np.ndarray, n_valid: int):
         """One frame from a host-preprocessed compact cloud: points
-        (bucket, 3) front-compacted, n_valid exact."""
+        (bucket, 3) front-compacted, n_valid exact (sent to the device
+        with the points, as a 0-d int32 tensor: no host sync, and a graph
+        reads it from its buffer rather than baking it in)."""
         return self._step(upload(np.asarray(points, np.float32), self.device),
-                          None, int(n_valid))
+                          None, upload(np.asarray(n_valid, np.int32), self.device))
 
     def process_cloud(self, points, pmask, n_valid_dev=None):
         """One frame from a (bucket, 3) cloud and its (bucket,) mask (host
@@ -330,7 +367,9 @@ class SlamEngine:
         points = self._as_device(points, np.float32)
         pmask = self._as_device(pmask, np.bool_)
         if n_valid_dev is None:
-            n_valid_dev = torch.sum(pmask.to(torch.int32))
+            n_valid_dev = torch.sum(pmask, dtype=torch.int32)
+        elif not isinstance(n_valid_dev, torch.Tensor):
+            n_valid_dev = upload(np.asarray(n_valid_dev, np.int32), self.device)
         return self._step(points, pmask, n_valid_dev)
 
     def _as_device(self, x, dtype) -> torch.Tensor:
@@ -346,6 +385,11 @@ class SlamEngine:
             return upload(np.asarray(next(self._draws), np.float32), self.device)
         return torch.rand((H, 3), generator=self.generator, device=self.device)
 
+    @property
+    def _keep(self) -> bool:
+        """Whether a step's features and correspondences outlive it."""
+        return self.enable_backend or self.keep_corr
+
     def _rng_source(self):
         """What the backend's RANSAC draws from: the injected draws'
         iterator, or the generator."""
@@ -354,14 +398,27 @@ class SlamEngine:
     def _step(self, points: torch.Tensor, pmask: Optional[torch.Tensor], n_valid):
         self._maybe_grow_map()
         cap = self._capacity()
-        if self.pipelined:
-            draws = self._next_draws()
+        if self.graphs is None and not self.pipelined:
+            rng = self.generator if self._draws is None else self._next_draws()
+            return self._run_sync(points, pmask, n_valid, rng, cap)
+        draws = self._next_draws()
+        if self.graphs is None:
             self.state, self._ok, diag = pipeline.odometry_step_deferred(
                 self.state, self._ok, points, pmask, n_valid, draws, self.cfg,
                 self.tile, axes=self.axes)
+        else:
+            self.state, self._ok, diag = self.graphs.step(
+                self.cfg, self.tile, self.state, self._ok, points, pmask, n_valid,
+                draws, self._keep)
+        if self.pipelined:
             return self._enqueue(_Pending(diag, points, pmask, n_valid, draws, cap))
-        rng = self.generator if self._draws is None else self._next_draws()
-        return self._run_sync(points, pmask, n_valid, rng, cap)
+        pk = diag.packed.cpu().numpy()
+        if pk[pipeline.IDX_COMMITTED] == 0.0:
+            # The graphed synchronous step: a window overflowed and the state
+            # passed through; the eager step (its dense fallback), same draws.
+            self._ok = torch.ones((), dtype=torch.bool, device=self.device)
+            return self._run_sync(points, pmask, n_valid, draws, cap)
+        return self._finalize(diag, pk, cap)
 
     def _run_sync(self, points, pmask, n_valid, rng, cap: int) -> FrameRecord:
         """The synchronous step (host-side window decisions) and its record."""
@@ -625,7 +682,7 @@ class SlamEngine:
         stats: dict = {}
         edges = loop_closure.find_loop_closures(
             self.keyframes, self.cfg, self._rng_source(), max_candidates, n=n,
-            stats=stats)
+            stats=stats, graphs=False if self.graphs is None else self.graphs)
         self.loop_edges = edges
         self.backend_stats = dict(stats, closures=len(edges), keyframes=n)
         # Nodes padded to a power-of-two bucket (repeating the last pose:

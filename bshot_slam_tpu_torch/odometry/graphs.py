@@ -1,0 +1,268 @@
+"""The engine's per-frame steps and loop-pair verification as CUDA graphs.
+
+The port's counterpart of the JAX package's `jax.jit` boundaries: the
+reference compiles `odometry_step_compact` / `odometry_step_fused` (one
+program each, `donate_argnames=("state",)`) and the backend's
+`_verify_pair` once per static shape and dispatches each frame or pair as
+one call.  Here each body is captured once per key as a CUDA graph
+(`torch.cuda.CUDAGraph`) and replayed: the same kernels in the same order
+on the same buffers, so every result is bit for bit the eager run's.
+
+| body | key | static inputs |
+|---|---|---|
+| `pipeline.odometry_step_deferred`, pmask None | ("compact", bucket, capacity, tile) | points, n_valid (0-d int32), draws |
+| the same with a pmask | ("masked", bucket, capacity, tile) | points, pmask, n_valid, draws |
+| `pipeline.odometry_step_fused` | ("fused", bucket, capacity, selected is None, tile) | range_az, vert, selected, draws |
+| `loop_closure._verify_pair` | ("pair", K, inlier_th, iterations, icp_iterations) | both keyframes' kp, words, masks; draws |
+
+A `Graphs` serves one configuration (the engine's).  Every call copies
+its inputs into the key's static buffers (so the caller's tensors stay
+its own, as a re-run needs them) and copies the outputs it returns out of
+the graphs' memory pool, which all graphs share: the next replay of any
+graph may overwrite them.
+
+State is updated in place, as the reference donates it: for each map
+capacity the set owns one `OdometryState` of buffers, which the steps
+read and, at their end, overwrite with the committed or passed-through
+state; the commit flag goes into one shared `ok` buffer, which the next
+step reads.  A state assigned from outside (a prefill, a resume, growth,
+eviction, corrections, a re-run) is copied into the buffers before the
+step; `step` returns the buffers themselves.
+
+On the card the first use of a key runs the body eagerly on the capture
+stream, as that call's result (so every kernel's scratch, cached count
+tensor and library is made outside the capture, and no frame runs twice),
+then captures it; every later use replays it.  A capture that meets a host
+synchronisation raises; nothing falls back to the eager step.  Kernel
+wrappers count the launches of their Python calls, which a replay does not
+make, so each graph records the count delta of its capture and adds it on
+every replay: the counts stay those of the eager run.  On the CPU the same
+body runs eagerly on the same static buffers (no graph), so the CPU tests
+cover the buffer plumbing.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from bshot_slam_tpu_torch.backend.loop_closure import _verify_pair
+from bshot_slam_tpu_torch.kernels import mapops, neighborhood, preprocess
+from bshot_slam_tpu_torch.odometry import pipeline
+
+# The kernel wrappers whose `launches` a replay advances.
+WRAPPERS = (neighborhood.neighborhood_accumulate, neighborhood.segratio_accumulate,
+            mapops.hamming_nn_bounded, mapops.euclid_nn_bounded,
+            mapops.dedup_blocked_bounded, preprocess.ground_walk)
+
+_STREAMS: dict = {}
+
+
+def normal_device(device) -> torch.device:
+    """`device` with the current card's index where a CUDA one has none."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """One side stream per device for every warm-up and capture: the
+    kernels keep their scratch per stream, so all graphs share one set."""
+    s = _STREAMS.get(device.index)
+    if s is None:
+        s = _STREAMS[device.index] = torch.cuda.Stream(device)
+    return s
+
+
+def leaves(tree) -> list:
+    """The tensors of nested NamedTuples, in field order."""
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in leaves(x)]
+    return [tree]
+
+
+def _like(tree):
+    """New buffers of the same structure, holding `tree`'s values."""
+    if isinstance(tree, tuple):
+        return type(tree)(*[_like(x) for x in tree])
+    return tree.clone()
+
+
+class _Graph(NamedTuple):
+    static: tuple  # the body's inputs (None where the key has none)
+    outputs: object  # what the body returned, in the pool on the card
+    graph: Optional[torch.cuda.CUDAGraph]  # None on the CPU
+    launches: tuple  # each WRAPPERS launch count one run adds
+
+
+class Graphs:
+    """Captured bodies by key, their static inputs, the shared pool and the
+    state buffers of one engine (or of one `find_loop_closures` call).
+    `captures` and `capture_s` count the captures made and their seconds
+    (warm-up included)."""
+
+    def __init__(self, device):
+        self.device = normal_device(device)
+        self.cuda = self.device.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
+        self._graphs: dict = {}
+        self._states: dict = {}
+        self.ok = torch.ones((), dtype=torch.bool, device=self.device)
+        self.captures = 0
+        self.capture_s = 0.0
+
+    # -- the generic runner ---------------------------------------------------
+
+    def run(self, key, body: Callable, args: tuple):
+        """`body(*static)` for this key, its static inputs holding `args`:
+        replayed on the card (captured on first use), eagerly on the CPU.
+        `body` returns (outputs, writes); each (buffer, value) of `writes`
+        is copied into the buffer at the body's end.  Returns the outputs,
+        which the next call may overwrite."""
+        g = self._graphs.get(key)
+        if g is None:
+            static = tuple(None if a is None else a.clone() for a in args)
+            if self.cuda:
+                outputs, g = self._capture(static, body)
+                self._graphs[key] = g
+                return outputs
+            g = self._graphs[key] = _Graph(static, None, None, ())
+        else:
+            self._copy_in(key, g.static, args)
+        if g.graph is None:
+            return _apply(body(*g.static))
+        g.graph.replay()
+        for w, n in zip(WRAPPERS, g.launches):
+            w.launches += n
+        return g.outputs
+
+    @staticmethod
+    def _copy_in(key, static: tuple, args: tuple) -> None:
+        for s, a in zip(static, args):
+            if (s is None) != (a is None) or (a is not None and (
+                    a.shape != s.shape or a.dtype != s.dtype or a.device != s.device)):
+                raise ValueError(f"graph {key}: an input does not match its "
+                                 "static buffer's presence, shape, dtype or device")
+            if a is not None and a is not s:
+                s.copy_(a)
+
+    def _capture(self, static: tuple, body: Callable):
+        """(this call's outputs, run eagerly on the capture stream, and the
+        captured graph of the body)."""
+        t0 = time.perf_counter()
+        stream = _capture_stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):  # makes scratch, cached counts, libraries
+            outputs = _apply(body(*static))
+        current.wait_stream(stream)
+        before = [w.launches for w in WRAPPERS]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool, stream=stream):
+                captured = _apply(body(*static))
+        finally:
+            launches = tuple(w.launches - b for w, b in zip(WRAPPERS, before))
+            for w, b in zip(WRAPPERS, before):  # a capture launches nothing
+                w.launches = b
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return outputs, _Graph(static, captured, graph, launches)
+
+    # -- state buffers ----------------------------------------------------------
+
+    def state_buffers(self, state: pipeline.OdometryState) -> pipeline.OdometryState:
+        """This set's buffers for the state's map capacity, holding the
+        state: made on first use, copied into when `state` is not them."""
+        cap = state.map.positions.shape[0]
+        bufs = self._states.get(cap)
+        if bufs is None:
+            bufs = self._states[cap] = _like(state)
+        elif state is not bufs:
+            for b, s in zip(leaves(bufs), leaves(state)):
+                if b is not s:
+                    b.copy_(s)
+        return bufs
+
+    def _ok_buffer(self, ok: torch.Tensor) -> torch.Tensor:
+        if ok is not self.ok:
+            self.ok.copy_(ok)
+        return self.ok
+
+    # -- the engine's steps -----------------------------------------------------
+
+    def step(self, cfg, tile: int, state, ok, points, pmask, n_valid, draws,
+             keep: bool):
+        """`pipeline.odometry_step_deferred(state, ok, points, pmask,
+        n_valid, draws, cfg, tile)` through its graph; n_valid is a 0-d
+        tensor.  Returns (the state buffers, the ok buffer, diagnostics
+        copied out: `packed`, and with `keep` also `features`, `corr_index`
+        and `corr_inlier`; the other fields are None)."""
+        bufs, okb = self.state_buffers(state), self._ok_buffer(ok)
+
+        def body(points, pmask, n_valid, draws):
+            new, committed, diag = pipeline.odometry_step_deferred(
+                bufs, okb, points, pmask, n_valid, draws, cfg, tile)
+            return diag, list(zip(leaves(bufs), leaves(new))) + [(okb, committed)]
+
+        key = ("compact" if pmask is None else "masked", points.shape[0],
+               bufs.map.positions.shape[0], tile)
+        diag = self.run(key, body, (points, pmask, n_valid.to(torch.int32).reshape(()),
+                                     draws))
+        return bufs, okb, _copied(diag, keep)
+
+    def fused(self, cfg, tile: int, state, ok, image: tuple, bucket: int, draws,
+              keep: bool):
+        """`pipeline.odometry_step_fused` of `image` (range_az, vert,
+        selected or None) at `bucket` through its graph; returns as
+        `step`."""
+        bufs, okb = self.state_buffers(state), self._ok_buffer(ok)
+
+        def body(range_az, vert, sel, draws):
+            new, committed, diag = pipeline.odometry_step_fused(
+                bufs, okb, range_az, vert, sel, cfg.preprocess, cfg, bucket, draws,
+                tile)
+            return diag, list(zip(leaves(bufs), leaves(new))) + [(okb, committed)]
+
+        range_az, vert, sel = image
+        key = ("fused", bucket, bufs.map.positions.shape[0], sel is None, tile)
+        diag = self.run(key, body, (range_az, vert, sel, draws))
+        return bufs, okb, _copied(diag, keep)
+
+    # -- the backend ------------------------------------------------------------
+
+    def verify_pair(self, draws, kp_a, desc_a, mask_a, kp_b, desc_b, mask_b,
+                    inlier_th: float, iterations: int, icp_iterations: int = 10):
+        """`loop_closure._verify_pair` with the (H, 3) draws through its
+        graph; returns (T, n_inliers, icp rmse) copied out."""
+
+        def body(draws, kp_a, desc_a, mask_a, kp_b, desc_b, mask_b):
+            return _verify_pair(draws, kp_a, desc_a, mask_a, kp_b, desc_b, mask_b,
+                                inlier_th, iterations, icp_iterations), []
+
+        key = ("pair", kp_a.shape[0], inlier_th, iterations, icp_iterations)
+        out = self.run(key, body, (draws, kp_a, desc_a, mask_a, kp_b, desc_b, mask_b))
+        return tuple(t.clone() for t in out)
+
+
+def _apply(result):
+    """The outputs of a body's (outputs, writes), each write copied into its
+    buffer."""
+    outputs, writes = result
+    for buf, value in writes:
+        buf.copy_(value)
+    return outputs
+
+
+def _copied(diag: pipeline.StepDiagnostics, keep: bool) -> pipeline.StepDiagnostics:
+    """The diagnostics the engine reads, copied out of the pool; None in
+    every other field, so nothing reads a buffer a later replay rewrites."""
+    out = dict.fromkeys(pipeline.StepDiagnostics._fields)
+    out["packed"] = diag.packed.clone()
+    if keep:
+        out.update(features=_like(diag.features), corr_index=diag.corr_index.clone(),
+                   corr_inlier=diag.corr_inlier.clone())
+    return pipeline.StepDiagnostics(**out)

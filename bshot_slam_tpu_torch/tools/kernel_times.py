@@ -11,8 +11,8 @@ one after the other on the same card, each in a process of its own that
 builds its kernels into `<root>/build/kernels`; to compare two versions
 name them in the order parent, change, change, parent.
 
-Per root and kernel, at the shapes of `chip_smoke.py` phase [3] and with
-its functions: exactness against the plain version, the median of 25
+Per root and kernel, at the shapes of `chip_smoke.py` phases [3] and [7]
+(kernel F on the drive's fourth frame) and with its functions: exactness against the plain version, the median of 25
 CUDA-event timings, the device-only time and the device launches per call
 from `torch.profiler`, and the host's microseconds per wrapper call.
 With `--engine`, also the 24-frame engine run of phase [4] (frames/s, ATE,
@@ -59,7 +59,8 @@ def measure_root(root: str, engine: bool) -> dict:
     cs.N_FRAMES = 24 if engine else 4
     sweeps, gt = cs.render_drive(cfg)
     points, nv = cs.frame_cloud(cfg, sweeps[3])
-    rows = cs.check_neighborhood(cfg, points, nv, dev) + cs.check_mapops(cfg, dev)
+    rows = (cs.check_neighborhood(cfg, points, nv, dev) + cs.check_mapops(cfg, dev)
+            + [cs.walk_row(cfg, sweeps[3], dev)])
     out["kernels"] = [{k: r[k] for k in ROW_KEYS} for r in rows]
     if engine:
         res, _ = cs.run_engine(cfg, sweeps, gt, dev)

@@ -15,12 +15,14 @@ Phases, one line each:
      device-only time and device launches per call (`torch.profiler`) and
      the host's time per wrapper call;
   4. `SlamEngine.process_sweep` end to end over the 24 frames, with the
-     map prefilled to 65,536 far-away landmarks: frames/s, ATE against
+     map prefilled to 65,536 far-away landmarks: frames/s (also over the
+     frames that captured no CUDA graph), ATE against
      ground truth, the quality guard (ATE < 10% of path, >= 15 inliers on
      one of the last 8 frames), and every kernel launched on that path;
      then where a frame's time goes: the host preprocess alone, and a
-     `torch.profiler` pass over 6 frames of a second engine (device busy
-     time per frame, the device kernels that take the most of it);
+     `torch.profiler` pass over 6 frames of a second engine replaying the
+     first one's graphs (device busy time per frame, the device kernels that
+     take the most of it);
      the port's own kernels per frame (kernel D: one device launch per
      ICP iteration; B and C: at most two device launches per call, E one);
   4b. the pipelined engine (`pipelined=True, fetch_every=8`) over the same
@@ -103,13 +105,27 @@ Phases, one line each:
      `run_stage_bench --iters 5`, `run_feature_profile --iters 5`,
      `run_ba_bench` and `run_reference_stats`; each must exit 0, print its
      JSON line and launch the kernels its path runs;
-  11. one JSON line of per-kernel results (`launches` counts the main path,
+  11. the steps replayed from CUDA graphs (`odometry.graphs`, the engine's
+     default) against the eager steps (`graphs=False`), in turns within
+     this call (eager, graphed, graphed, eager; the graphed runs replay the
+     captures of the earlier phase's engine): [4]'s synchronous and [4b]'s
+     pipelined drives, [4b]'s forced window overflow both ways, [7]'s fused
+     engines and spike, and [4d]'s backend drive; records (loop edges
+     included) bit-identical, kernel launches equal; frames/s and launches
+     a frame of each, the captures, their seconds and the bytes of the
+     graphs' memory pool of the earlier run, the backend passes' ms;
+  12. one JSON line of per-kernel results (`launches` counts the main path,
      phase [4]'s engine run of `frames` frames for A-E, [7]'s synchronous
      fused run for F; `launches_per_frame` divides it; `launches_by_path`
      counts each later path alone, from 0, the mesh paths on rank 0, the
      tools' runs as `tool_<name>`; C's
      and D's `loop_verification` the 600 x 600 check), the card line again,
      and the result line {"ok": true, "device": {...}}.
+
+Every engine on one device steps through its CUDA graphs unless a phase
+says `graphs=False` (the mesh engines of [9] run eagerly); [6]'s timed pass
+and [4]'s profile replay the captures of an earlier engine, as the
+reference's runs reuse its compiled programs.
 
 The drive is rendered once, in a pool of worker processes; the script's
 wall time is printed before the JSON lines.  Checkpoints and the PCAP go
@@ -560,14 +576,22 @@ def run_engine(cfg, sweeps, gt, dev):
     eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
     for w in wrappers.values():
         w.launches = 0
-    times = []
+    times, captured = [], []
+
+    def captures():
+        graphs = getattr(eng, "graphs", None)  # None: eager (or an older port)
+        return 0 if graphs is None else graphs.captures
+
     for sw in sweeps:
+        c0 = captures()
         t0 = time.perf_counter()
         eng.process_sweep(sw)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+        captured.append(captures() > c0)
     launches = {k: w.launches for k, w in wrappers.items()}
     fps = (len(times) - 1) / sum(times[1:])
+    steady = [t for t, c in zip(times[1:], captured[1:]) if not c]
     gt_rel = np.linalg.inv(gt[0])[None] @ gt
     gt_pos = gt_rel[:, :3, 3]
     ate = float(ate_rmse(eng.trajectory, gt_pos, align=False))
@@ -575,7 +599,8 @@ def run_engine(cfg, sweeps, gt, dev):
     tail_inliers = [r.n_inliers for r in eng.records[-8:]]
     return dict(fps=fps, ate_mm=ate, path_mm=path, tail_inliers=tail_inliers,
                 launches=launches, map_size=eng.records[-1].map_size,
-                first_frame_s=times[0]), eng
+                first_frame_s=times[0], steady_frames=len(steady),
+                steady_fps=len(steady) / sum(steady)), eng
 
 
 def host_preprocess_ms(cfg, sweeps) -> float:
@@ -594,16 +619,19 @@ MAX_DEVICE_LAUNCHES = {"segratio_accumulate": 2, "hamming_nn_bounded": 2,
                        "dedup_blocked_bounded": 1, "ground_walk": 1}
 
 
-def profile_engine(cfg, sweeps, dev, n: int = 6):
+def profile_engine(cfg, sweeps, dev, graphs=None, n: int = 6):
     """Device kernel time per frame, the heaviest device kernels and the
     port's own kernels (ms and launches per frame), over n frames of a
-    fresh engine (frames 0 and 1 run before the window)."""
+    fresh engine (frames 0 and 1 run before the window), replaying
+    `graphs` where given (phase [4]'s, so no capture falls in the
+    window)."""
     import torch
 
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
     from bshot_slam_tpu_torch.utils import profiling
 
-    eng = SlamEngine(cfg, seed=0, device=dev)
+    eng = SlamEngine(cfg, seed=0, device=dev,
+                     **({} if graphs is None else {"graphs": graphs}))
     eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
     eng.process_sweep(sweeps[0])
     torch.cuda.synchronize()
@@ -700,15 +728,17 @@ def pipelined_phase(cfg, sweeps, sync_eng, dev) -> dict:
 
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 
-    def fresh(c=cfg, pipelined=True):
+    def fresh(c=cfg, pipelined=True, graphs=True):
         eng = SlamEngine(c, seed=0, device=dev, pipelined=pipelined,
-                         fetch_every=FETCH_EVERY)
+                         fetch_every=FETCH_EVERY, graphs=graphs)
         eng.state = eng.state._replace(map=prefilled_map(c, dev))
         return eng
 
     pipe = fresh()
     fps, launches = counted(lambda: drive(pipe, sweeps))
-    census = fresh()
+    # The census replays the first run's graphs: a capture synchronises
+    # (once per key, as a compile would), a replay does not.
+    census = fresh(graphs=pipe.graphs)
     calls, sites = sync_census(census, sweeps)
     between = [n for n, drained in calls[1:] if not drained]
     over = dataclasses.replace(cfg, runtime=dataclasses.replace(
@@ -728,7 +758,8 @@ def pipelined_phase(cfg, sweeps, sync_eng, dev) -> dict:
         syncs_per_frame=sum(between) / max(1, len(between)), sites=dict(sites[1]),
         drain_syncs=[n for n, drained in calls if drained],
         overflow_equal=records_equal(runs[0].records, runs[1].records),
-        redispatched=runs[1].n_redispatched, overflow_frames=len(runs[1].records))
+        redispatched=runs[1].n_redispatched, overflow_frames=len(runs[1].records),
+        eng=pipe, overflow=runs, overflow_cfg=over)
 
 
 def eviction_phase(cfg, sweeps, dev) -> dict:
@@ -759,27 +790,39 @@ def eviction_phase(cfg, sweeps, dev) -> dict:
                 tail_inliers=[r.n_inliers for r in eng.records[-4:]])
 
 
-def backend_engine(cfg, dev):
+def backend_engine(cfg, dev, graphs=True):
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 
     return SlamEngine(cfg, seed=0, device=dev, pipelined=True, fetch_every=FETCH_EVERY,
-                      enable_backend=True, backend_every=BACKEND_EVERY)
+                      enable_backend=True, backend_every=BACKEND_EVERY, graphs=graphs)
 
 
-def backend_phase(cfg, sweeps, gt, dev, ckpt: str) -> dict:
+def backend_phase(cfg, sweeps, gt, dev, ckpt: str | None, graphs=True) -> dict:
     """Phase [4d]: the whole drive with the backend, each pass timed and its
     kernel launches counted; saved to `ckpt` after RESUME_AT frames (phase
-    [5b], the save's time not counted in the drive's)."""
+    [5b], the save's time not counted in the drive's; no save without
+    `ckpt`)."""
     import torch
 
     from bshot_slam_tpu_torch import checkpoint, convert
+    from bshot_slam_tpu_torch.backend import loop_closure
     from bshot_slam_tpu_torch.utils.metrics import ate_rmse
 
-    eng = backend_engine(cfg, dev)
+    eng = backend_engine(cfg, dev, graphs)
     eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
     passes = []
     optimize = eng.optimize_backend
+    find = loop_closure.find_loop_closures
     wrappers = kernel_wrappers()
+    found_ms = []
+
+    def timed_find(*a, **k):  # the pass's loop-closure part: pairs + verification
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = find(*a, **k)
+        torch.cuda.synchronize()
+        found_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
 
     def timed_optimize(*a, **k):
         torch.cuda.synchronize()
@@ -788,16 +831,17 @@ def backend_phase(cfg, sweeps, gt, dev, ckpt: str) -> dict:
         out = optimize(*a, **k)
         torch.cuda.synchronize()
         passes.append(dict(ms=(time.perf_counter() - t0) * 1e3, **eng.backend_stats,
+                           loop_ms=found_ms[-1],
                            launches={n: w.launches - before[n] for n, w in wrappers.items()}))
         return out
 
     eng.optimize_backend = timed_optimize
-    saved = {}
+    saved = {"s": 0.0}
 
     def run():
         for i, sw in enumerate(sweeps):
             eng.process_sweep(sw)
-            if i + 1 == RESUME_AT:
+            if i + 1 == RESUME_AT and ckpt is not None:
                 t0 = time.perf_counter()
                 saved.update(passes=len(passes), pending=len(eng._pending))
                 checkpoint.save_state(ckpt, eng.state, eng.poses)
@@ -807,10 +851,14 @@ def backend_phase(cfg, sweeps, gt, dev, ckpt: str) -> dict:
 
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        t0 = time.perf_counter()
-        _, launches = counted(run)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0 - saved["s"]
+        loop_closure.find_loop_closures = timed_find
+        try:
+            t0 = time.perf_counter()
+            _, launches = counted(run)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0 - saved["s"]
+        finally:
+            loop_closure.find_loop_closures = find
     # The uninterrupted run as phase [5b] compares it, before the final pass.
     uninterrupted = dict(records=copy.deepcopy(eng.records),
                          keyframes=convert.keyframes_to_numpy(eng.keyframes),
@@ -977,12 +1025,14 @@ def bench_phase(cfg, sweeps, gt, dev) -> dict:
     pass and one timed pass."""
     import bench_torch
 
-    bench_torch.engine_pass(cfg, sweeps, dev)
-    (fps, eng), launches = counted(lambda: bench_torch.engine_pass(cfg, sweeps, dev))
+    _, warm = bench_torch.engine_pass(cfg, sweeps, dev)
+    (fps, eng), launches = counted(lambda: bench_torch.engine_pass(cfg, sweeps, dev,
+                                                                  warm.graphs))
     q = bench_torch.quality(cfg, eng, gt)
     return dict(line=bench_torch.headline(fps, q), launches=launches, fps=fps, **q,
                 map_size=eng.records[-1].map_size, inliers=eng.records[-1].n_inliers,
-                redispatched=eng.n_redispatched, eng=eng)
+                redispatched=eng.n_redispatched, eng=eng,
+                captures=warm.graphs.captures, capture_s=warm.graphs.capture_s)
 
 
 def reference_drive(cfg, eng, gt) -> dict:
@@ -1056,7 +1106,7 @@ def walk_phase(cfg, sweeps, dev) -> dict:
     pcfg = cfg.preprocess
     differ = not_identical = count_differs = max_err = 0
     max_pt = 0.0
-    for i, sw in enumerate(sweeps):
+    for sw in sweeps:
         ri = build_range_image(sw, cfg.sensor)
         r, az, v = (torch.as_tensor(x, device=dev)
                     for x in (ri.range_mm, ri.azimuth_rad, ri.vert_rad))
@@ -1073,27 +1123,49 @@ def walk_phase(cfg, sweeps, dev) -> dict:
         elif nv_host:
             max_pt = max(max_pt, float((pts[:nv_host].cpu()
                                         - torch.from_numpy(host[:nv_host])).abs().max()))
-        if i == 3:
-            frame3 = (r, az, v, xyz, p0)
-    r, az, v, xyz, p0 = frame3
+    ri = build_range_image(sweeps[3], cfg.sensor)
+    r, az, v = (torch.as_tensor(x, device=dev)
+                for x in (ri.range_mm, ri.azimuth_rad, ri.vert_rad))
     R, A = r.shape
-    b_ms, b_by = bound(R * A * 20 + A * 12, scaled(KF.GROUND_WALK_CELL_OPS, R * A))
 
     def ingest():
         return pipeline.ingest(r, az, v, None, pcfg, pcfg.max_points)
 
     ingest_device_ms, ingest_launches = profiling.device_profile(ingest)
-    row = dict(name="ground_walk", shapes=f"range ({R},{A}), xyz ({R},{A},3), p0 ({A},3)",
-               source="bshot_slam_tpu_torch/csrc/preprocess.cu",
-               replaces="bshot_slam_tpu/ops/preprocess.py:152 (lax.scan; no pallas_call)",
-               max_abs_err=float(max_err),
-               **measure(lambda: KF.ground_walk(r, xyz, p0, pcfg),
-                         lambda: KF.ground_walk_plain(r, xyz, p0, pcfg)),
-               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    row = walk_row(cfg, sweeps[3], dev)
+    row["max_abs_err"] = float(max(max_err, row["max_abs_err"]))
     return dict(frames=len(sweeps), cells=R * A * len(sweeps), cells_differ=differ,
                 not_identical=not_identical, count_differs=count_differs,
                 max_point_mm=max_pt, row=row, ingest_ms=time_ms(ingest),
                 ingest_device_ms=ingest_device_ms, ingest_launches=ingest_launches)
+
+
+def walk_row(cfg, sweep, dev) -> dict:
+    """Kernel F's row on one frame's range image: against its plain version
+    on the card (cells differing), its times and its bound."""
+    import torch
+
+    from bshot_slam_tpu_torch.kernels import preprocess as KF
+    from bshot_slam_tpu_torch.ops import preprocess as pp
+    from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
+
+    pcfg = cfg.preprocess
+    ri = build_range_image(sweep, cfg.sensor)
+    r, az, v = (torch.as_tensor(x, device=dev)
+                for x in (ri.range_mm, ri.azimuth_rad, ri.vert_rad))
+    xyz, p0 = pp.polar_to_xyz(r, az, v), pp.ground_point(az, pcfg)
+    R, A = r.shape
+    got, want = KF.ground_walk(r, xyz, p0, pcfg), KF.ground_walk_plain(r, xyz, p0, pcfg)
+    differ = int_mismatch(got, want)
+    b_ms, b_by = bound(R * A * 20 + A * 12, scaled(KF.GROUND_WALK_CELL_OPS, R * A))
+    return dict(name="ground_walk", shapes=f"range ({R},{A}), xyz ({R},{A},3), p0 ({A},3)",
+                source="bshot_slam_tpu_torch/csrc/preprocess.cu",
+                replaces="bshot_slam_tpu/ops/preprocess.py:152 (lax.scan; no pallas_call)",
+                max_abs_err=float((got - want).abs().max()), int_mismatch=differ,
+                float_out_of_tol=0, card_plain_rows_differ=differ,
+                **measure(lambda: KF.ground_walk(r, xyz, p0, pcfg),
+                          lambda: KF.ground_walk_plain(r, xyz, p0, pcfg)),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def fused_phase(cfg, sweeps, sync_eng, dev) -> dict:
@@ -1104,10 +1176,7 @@ def fused_phase(cfg, sweeps, sync_eng, dev) -> dict:
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 
     def fresh(pipelined):
-        eng = SlamEngine(cfg, seed=0, device=dev, host_preprocess=False,
-                         pipelined=pipelined, fetch_every=FETCH_EVERY)
-        eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
-        return eng
+        return fused_engine(cfg, dev, pipelined)
 
     sync, pipe = fresh(False), fresh(True)
     fps, launches = counted(lambda: drive(sync, sweeps))
@@ -1120,10 +1189,21 @@ def fused_phase(cfg, sweeps, sync_eng, dev) -> dict:
                 redispatched=pipe.n_redispatched,
                 max_mm=float(np.abs(got[:, :3, 3] - want[:, :3, 3]).max()),
                 max_rot=float(np.abs(got[:, :3, :3] - want[:, :3, :3]).max()),
-                tail_inliers=[r.n_inliers for r in sync.records[-8:]])
+                tail_inliers=[r.n_inliers for r in sync.records[-8:]],
+                sync=sync, pipe=pipe)
 
 
-def spike_phase(cfg, dev) -> dict:
+def fused_engine(cfg, dev, pipelined, graphs=True):
+    """Phase [7]'s fused engine on the prefilled map."""
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+
+    eng = SlamEngine(cfg, seed=0, device=dev, host_preprocess=False, pipelined=pipelined,
+                     fetch_every=FETCH_EVERY, graphs=graphs)
+    eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
+    return eng
+
+
+def spike_phase(cfg, dev, graphs=True) -> dict:
     """Phase [7], a kept-count spike at full width: SPIKE_FRAMES range images
     with SPIKE_BASE kept points and SPIKE at frame SPIKE_AT (walls on the
     upper rings; the other frames pad with self-car returns), through the
@@ -1137,17 +1217,22 @@ def spike_phase(cfg, dev) -> dict:
     frames = overflow_sequence(cfg, SPIKE_BASE, SPIKE, SPIKE_FRAMES, SPIKE_AT)
     vert = np.deg2rad(np.sort(np.asarray(cfg.sensor.vertical_angles_deg))).astype(np.float32)
     buckets = []
-    fused = pipeline.odometry_step_fused
 
-    def recording(*args):
-        buckets.append(args[7])
-        return fused(*args)
+    def recording(fn, at):  # the bucket each pipelined fused dispatch runs at
+        def call(*args):
+            buckets.append(args[at])
+            return fn(*args)
+        return call
 
     runs, launches = [], {}
+    fused = pipeline.odometry_step_fused
     for pipelined in (False, True):
         eng = SlamEngine(cfg, seed=0, device=dev, host_preprocess=False,
-                         pipelined=pipelined, fetch_every=4)
-        pipeline.odometry_step_fused = recording
+                         pipelined=pipelined, fetch_every=4, graphs=graphs)
+        if eng.graphs is not None:
+            eng.graphs.fused = recording(eng.graphs.fused, 5)
+        else:
+            pipeline.odometry_step_fused = recording(fused, 7)
         try:
             _, launches[pipelined] = counted(
                 lambda: [eng.process_range_image(r, az, vert) for r, az in frames]
@@ -1157,7 +1242,8 @@ def spike_phase(cfg, dev) -> dict:
         runs.append(eng)
     return dict(frames=len(frames), equal=records_equal(runs[1].records, runs[0].records),
                 redispatched=runs[1].n_redispatched, buckets=buckets,
-                launches=launches[True], map_size=runs[0].records[-1].map_size)
+                launches=launches[True], map_size=runs[0].records[-1].map_size,
+                runs=runs)
 
 
 def eval_phase(cfg, sweeps, dev) -> dict:
@@ -1418,6 +1504,143 @@ def mesh_phase(cfg, sweeps, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the steps replayed from CUDA graphs against the eager steps
+
+
+def pool_bytes(graphs) -> int | None:
+    """Bytes the card holds in the graphs' shared memory pool (its segments
+    stay reserved while the graphs live, so this is the pool's peak), from
+    the allocator's snapshot; None where the snapshot does not name pools."""
+    import torch
+
+    segs = torch.cuda.memory._snapshot()["segments"]
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    pool = tuple(graphs.pool)
+    return sum(sg["total_size"] for sg in segs if tuple(sg["segment_pool_id"]) == pool)
+
+
+def in_turns(make, frames, warm) -> dict:
+    """Eager, graphed, graphed, eager: `make(graphs)` builds a fresh engine
+    (`graphs=False`, or `warm`, an earlier graphed engine's `Graphs`, whose
+    captures the graphed runs replay), `frames(eng)` drives it (flush
+    included).  Frames/s and launches a frame of each run, and each side's
+    last engine."""
+    import torch
+
+    out = {"eager": [], "graphed": []}
+    for side in ("eager", "graphed", "graphed", "eager"):
+        eng = make(False if side == "eager" else warm)
+        eng.run_sync_calls, run_sync = 0, eng._run_sync
+
+        def counting(*a, eng=eng, run_sync=run_sync):
+            eng.run_sync_calls += 1
+            return run_sync(*a)
+
+        eng._run_sync = counting
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n, launches = counted(lambda: frames(eng))
+        torch.cuda.synchronize()
+        out[side].append(dict(fps=n / (time.perf_counter() - t0), launches=launches,
+                              per_frame=sum(launches.values()) / n))
+        out[side + "_eng"] = eng
+    out["records_equal"] = record_bytes(out["graphed_eng"]) == record_bytes(out["eager_eng"])
+    out["launches_equal"] = all(g["launches"] == e["launches"]
+                                for g, e in zip(out["graphed"], out["eager"]))
+    return out
+
+
+def graphs_phase(cfg, sweeps, drive_sweeps, dev, earlier: dict) -> dict:
+    """Phase [11]: each engine mode of [4], [4b], [7] and [4d] run eagerly
+    (`graphs=False`) and graphed in turns within this call (the graphed runs
+    replay the earlier phase's captures); records (loop edges too) must be
+    bit-identical; frames/s, launches a frame, captures, their seconds and
+    pool bytes of the earlier (first, capturing) run; the backend passes'
+    seconds both ways."""
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+
+    def host(pipelined):
+        def make(graphs):
+            eng = SlamEngine(cfg, seed=0, device=dev, pipelined=pipelined,
+                             fetch_every=FETCH_EVERY, graphs=graphs)
+            eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
+            return eng
+        return make
+
+    def fused(pipelined):
+        return lambda graphs: fused_engine(cfg, dev, pipelined, graphs)
+
+    def over(pipelined):
+        def make(graphs):
+            c = earlier["overflow_cfg"]
+            eng = SlamEngine(c, seed=0, device=dev, pipelined=pipelined,
+                             fetch_every=FETCH_EVERY, graphs=graphs)
+            eng.state = eng.state._replace(map=prefilled_map(c, dev))
+            return eng
+        return make
+
+    def frames(subset):
+        def run(eng):
+            for sw in subset:
+                eng.process_sweep(sw)
+            eng.flush()
+            return len(subset)
+        return run
+
+    modes = {
+        "sync_24": (host(False), frames(sweeps), earlier["sync"]),
+        "pipelined_24": (host(True), frames(sweeps), earlier["pipe"]),
+        "overflow_sync_12": (over(False), frames(sweeps[:12]), earlier["overflow"][0]),
+        "overflow_pipelined_12": (over(True), frames(sweeps[:12]), earlier["overflow"][1]),
+        "fused_sync_24": (fused(False), frames(sweeps), earlier["fused_sync"]),
+        "fused_pipelined_24": (fused(True), frames(sweeps), earlier["fused_pipe"]),
+    }
+    out = {}
+    for name, (make, run, first) in modes.items():
+        r = in_turns(make, run, first.graphs)
+        r.update(earlier_equal=record_bytes(r["graphed_eng"]) == record_bytes(first),
+                 captures=first.graphs.captures, capture_s=first.graphs.capture_s,
+                 pool_bytes=pool_bytes(first.graphs),
+                 redispatched=(r["graphed_eng"].n_redispatched,
+                               r["eager_eng"].n_redispatched),
+                 eager_steps=r["graphed_eng"].run_sync_calls)
+        out[name] = r
+    sp = spike_phase(cfg, dev, graphs=False)
+    out["spike"] = dict(equal=all(record_bytes(a) == record_bytes(b) for a, b in
+                                  zip(sp["runs"], earlier["spike"]["runs"])),
+                        buckets=sp["buckets"], buckets_graphed=earlier["spike"]["buckets"],
+                        redispatched=sp["redispatched"])
+    bk = earlier["backend"]
+    eager = backend_phase(cfg, drive_sweeps, earlier["gt"], dev, None, graphs=False)
+    again = backend_phase(cfg, drive_sweeps, earlier["gt"], dev, None, graphs=bk["eng"].graphs)
+
+    def edges(e):
+        return [(x.kf_i, x.kf_j, x.n_inliers, np.float64(x.rmse_mm).tobytes(),
+                 np.asarray(x.z).tobytes()) for x in e["uninterrupted"]["edges"]]
+
+    out["backend_129"] = dict(
+        records_equal=record_bytes(eager["eng"]) == record_bytes(bk["eng"])
+        == record_bytes(again["eng"]),
+        edges_equal=edges(eager) == edges(bk) == edges(again),
+        closures=len(bk["uninterrupted"]["edges"]),
+        pass_ms={"graphed (first run)": [p["ms"] for p in bk["passes"]],
+                 "eager": [p["ms"] for p in eager["passes"]],
+                 "graphed": [p["ms"] for p in again["passes"]]},
+        loop_ms={"graphed (first run)": [p["loop_ms"] for p in bk["passes"]],
+                 "eager": [p["loop_ms"] for p in eager["passes"]],
+                 "graphed": [p["loop_ms"] for p in again["passes"]]},
+        fps={"graphed (first run)": bk["fps"], "eager": eager["fps"], "graphed": again["fps"]},
+        launches_equal=eager["launches"] == again["launches"],
+        per_frame={"eager": sum(eager["launches"].values()) / len(drive_sweeps),
+                   "graphed": sum(again["launches"].values()) / len(drive_sweeps)},
+        captures=bk["eng"].graphs.captures, capture_s=bk["eng"].graphs.capture_s,
+        pool_bytes=pool_bytes(bk["eng"].graphs),
+        pair_graphs=sum(k[0] == "pair" for k in bk["eng"].graphs._graphs))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: the tools on the card
 
 A_TO_E = ("neighborhood_accumulate", "segratio_accumulate", "hamming_nn_bounded",
@@ -1529,9 +1752,13 @@ def main() -> int:
 
     res, sync_eng = run_engine(cfg, sweeps, gt, dev)
     print(f"[4] engine: {N_FRAMES} frames, {res['fps']:.3f} frames/s after the "
-          f"first ({res['first_frame_s']:.2f} s), ATE {res['ate_mm']:.1f} mm on a "
+          f"first ({res['first_frame_s']:.2f} s), {res['steady_fps']:.3f} over the "
+          f"{res['steady_frames']} later frames that captured no graph, ATE "
+          f"{res['ate_mm']:.1f} mm on a "
           f"{res['path_mm']:.0f} mm path, tail inliers {res['tail_inliers']}, "
-          f"map {res['map_size']}, launches {res['launches']}", flush=True)
+          f"map {res['map_size']}, launches {res['launches']}; steps replayed from "
+          f"{sync_eng.graphs.captures} CUDA graphs captured in "
+          f"{sync_eng.graphs.capture_s:.3f} s", flush=True)
     if not res["ate_mm"] < 0.10 * res["path_mm"]:
         raise SmokeError("quality guard: ATE >= 10% of the path")
     if max(res["tail_inliers"]) < cfg.match.gate_min_inliers:
@@ -1539,9 +1766,9 @@ def main() -> int:
     idle = [k for k, n in res["launches"].items() if n == 0]
     if idle:
         raise SmokeError(f"kernels never launched on the main path: {idle}")
-    dev_ms, n_kernels, top, own = profile_engine(cfg, sweeps, dev)
-    frame_ms = 1e3 / res["fps"]
-    print(f"[4] breakdown: frame {frame_ms:.2f} ms unprofiled; device kernels "
+    dev_ms, n_kernels, top, own = profile_engine(cfg, sweeps, dev, sync_eng.graphs)
+    frame_ms = 1e3 / res["steady_fps"]
+    print(f"[4] breakdown: frame {frame_ms:.2f} ms unprofiled (no capture); device kernels "
           f"{dev_ms:.2f} ms/frame in {n_kernels:.0f} launches (busy "
           f"{100 * dev_ms / frame_ms:.1f}%); heaviest: "
           + "; ".join(f"{k} {ms:.3f} ms x{c:.0f}" for k, ms, c in top), flush=True)
@@ -1586,7 +1813,8 @@ def main() -> int:
     for i, ps in enumerate(bk["passes"]):
         print(f"[4d] backend pass {i}: {ps['keyframes']} keyframes, "
               f"{ps['verified']} pairs verified, {ps['closures']} closures, best "
-              f"candidate {ps['best_inliers']} inliers, {ps['ms']:.1f} ms, kernel C "
+              f"candidate {ps['best_inliers']} inliers, {ps['ms']:.1f} ms ("
+              f"find_loop_closures {ps['loop_ms']:.1f} ms of it), kernel C "
               f"x{ps['launches']['hamming_nn_bounded']}, D "
               f"x{ps['launches']['euclid_nn_bounded']}", flush=True)
     print(f"[4d] backend drive: {N_DRIVE} frames in {bk['wall_s']:.1f} s "
@@ -1659,7 +1887,8 @@ def main() -> int:
     bench = bench_phase(cfg, drive_sweeps, drive_gt, dev)
     print(f"[6] bench_torch: {json.dumps(bench['line'])}", flush=True)
     print(f"[6] bench_torch engine pass: {len(drive_sweeps)} frames, {bench['fps']:.3f} "
-          f"frames/s (one warm pass, one timed), final map {bench['map_size']}, "
+          f"frames/s (one warm pass capturing {bench['captures']} graphs in "
+          f"{bench['capture_s']:.3f} s, one timed replaying them), final map {bench['map_size']}, "
           f"inliers {bench['inliers']}, redispatched {bench['redispatched']}, ATE "
           f"{bench['ate_mm']:.1f} mm on a {bench['path_mm']:.0f} mm path, tail inliers "
           f"{bench['tail_inliers']}; launches {bench['launches']}", flush=True)
@@ -1822,6 +2051,55 @@ def main() -> int:
         raise SmokeError("the golden replay on the card parts from the CPU gold, "
                          "from ground truth, or matches too few inliers")
 
+    gp = graphs_phase(cfg, sweeps, drive_sweeps, dev, dict(
+        sync=sync_eng, pipe=pipe["eng"], overflow=pipe["overflow"],
+        overflow_cfg=pipe["overflow_cfg"], fused_sync=fu["sync"], fused_pipe=fu["pipe"],
+        spike=sp, backend=bk, gt=drive_gt))
+    print(f"[11] {card}: each mode eager (graphs=False) and graphed (replaying the "
+          f"earlier phase's captures) in turns, eager, graphed, graphed, eager "
+          f"(frames/s with the first frame and the flush)", flush=True)
+    bad = []
+    for name, r in gp.items():
+        if name in ("spike", "backend_129"):
+            continue
+        print(f"[11] {name}: frames/s graphed {[round(x['fps'], 3) for x in r['graphed']]}, "
+              f"eager {[round(x['fps'], 3) for x in r['eager']]}; launches a frame "
+              f"graphed {r['graphed'][0]['per_frame']:.2f}, eager "
+              f"{r['eager'][0]['per_frame']:.2f} (equal per kernel: {r['launches_equal']}); "
+              f"records bit-identical graphed vs eager {r['records_equal']}, vs the earlier "
+              f"phase's {r['earlier_equal']}; pipelined frames re-run (graphed, eager) "
+              f"{r['redispatched']}, eager steps in the graphed run (re-runs) "
+              f"{r['eager_steps']}; the earlier run's captures {r['captures']} in "
+              f"{r['capture_s']:.3f} s, pool {r['pool_bytes']} bytes", flush=True)
+        # A synchronous graphed frame that aborts replays its step and then
+        # runs the eager one: more launches than the eager engine's, there.
+        launches_ok = r["launches_equal"] if name != "overflow_sync_12" else (
+            r["eager_steps"] > 0 and all(
+                g["per_frame"] > e["per_frame"] for g, e in zip(r["graphed"], r["eager"])))
+        if not (r["records_equal"] and r["earlier_equal"] and launches_ok):
+            bad.append(name)
+    spk = gp["spike"]
+    print(f"[11] spike: eager buckets {spk['buckets']}, graphed {spk['buckets_graphed']}; "
+          f"{spk['redispatched']} frames re-run eagerly; records bit-identical to the "
+          f"graphed runs of [7]: {spk['equal']}", flush=True)
+    b = gp["backend_129"]
+    print(f"[11] backend_129: records bit-identical {b['records_equal']}, loop edges "
+          f"bit-identical {b['edges_equal']} ({b['closures']} closures); frames/s with "
+          f"the passes {({k: round(v, 3) for k, v in b['fps'].items()})}; pass ms "
+          f"{({k: [round(x, 1) for x in v] for k, v in b['pass_ms'].items()})}, of which "
+          f"find_loop_closures {({k: [round(x, 1) for x in v] for k, v in b['loop_ms'].items()})}; "
+          f"launches a frame eager {b['per_frame']['eager']:.2f}, graphed "
+          f"{b['per_frame']['graphed']:.2f} (equal: {b['launches_equal']}); first run's "
+          f"captures {b['captures']} ({b['pair_graphs']} loop pair) in "
+          f"{b['capture_s']:.3f} s, pool {b['pool_bytes']} bytes", flush=True)
+    if not (spk["equal"] and spk["buckets"] == spk["buckets_graphed"]):
+        bad.append("spike")
+    if not (b["records_equal"] and b["edges_equal"] and b["launches_equal"]
+            and b["pair_graphs"]):
+        bad.append("backend_129")
+    if bad:
+        raise SmokeError(f"graphed runs differ from eager ones: {bad}")
+
     paths = {"sync_24": res["launches"], "pipelined_24": pipe["launches"],
              "eviction_8": ev["launches"], "backend_129": bk["launches"],
              "pcap_native_stream": pc["launches"], "resume_65": rs["launches"],
@@ -1865,7 +2143,7 @@ def main() -> int:
                 shapes=lr["shapes"], launches=loop_cd[r["name"]],
                 passes=len(bk["passes"]))
         kernels.append(k)
-    print(f"[11] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[12] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

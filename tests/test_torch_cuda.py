@@ -14,7 +14,11 @@ engine with the device preprocess equals the synchronous one through a
 bucket overflow; the evaluation ops (ISS through kernel A, repeatability,
 the voxel grid, `mutual_nn(use_matmul=True)`) agree with the CPU.  A and B
 over a TILE-aligned range of query rows equal the launch over every row,
-bit for bit.
+bit for bit.  The engine through its CUDA graphs (`odometry.graphs`:
+synchronous and pipelined, host and device preprocess, through a window
+overflow, with the backend's pair verification) equals `graphs=False` bit
+for bit and counts the same kernel launches; a capture that meets a host
+synchronisation raises.
 """
 
 import numpy as np
@@ -389,3 +393,121 @@ def test_eval_ops_on_card(dev):
     got_m = hamming.mutual_nn(a.to(dev), am.to(dev), b.to(dev), bm.to(dev), use_matmul=True)
     for x, y in zip(want_m, got_m):
         assert torch.equal(x, y.cpu())
+
+
+def _graph_drive(dev, graphs: bool, frames=None, **kw):
+    """(engine, kernel launches) of a tiny drive on the card."""
+    import dataclasses
+
+    from bshot_slam_tpu_torch.odometry.graphs import WRAPPERS
+
+    cfg = tiny_config()
+    if kw.get("enable_backend"):  # keyframe every frame, pairs to verify
+        cfg = dataclasses.replace(cfg, backend=dataclasses.replace(
+            cfg.backend, keyframe_every=1, lc_min_gap=3, lc_max_dist_mm=8000.0,
+            lc_min_inliers=8))
+    if kw.pop("windowed", False):
+        cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+            cfg.runtime, window_cap=256, window_compact=True))
+    sweeps, _ = synthetic.render_sequence(frames or 6, cfg.sensor, step_mm=300.0,
+                                          seed=3, yaw_rate_rad=2 * np.pi / 6,
+                                          n_firings=cfg.sensor.n_azimuth)
+    eng = SlamEngine(cfg, seed=0, tile=256, device=dev, graphs=graphs, **kw)
+    if cfg.runtime.window_cap == 256:  # landmarks in every frame's window
+        rng = np.random.default_rng(3)
+        n, m = 400, eng.state.map
+        pos = np.trunc(rng.uniform(-20000, 20000, (n, 3)) / cfg.map.snap_mm) * cfg.map.snap_mm
+        rows = dict(positions=pos.astype(np.float32),
+                    descriptors=rng.integers(-2**31, 2**31, (n, 11)).astype(np.int32),
+                    seg_ratios=rng.uniform(0, 1, n).astype(np.float32),
+                    blocks=np.round(pos / cfg.map.block_size_mm).astype(np.int32),
+                    valid=np.ones(n, bool), frame_born=np.zeros(n, np.int32))
+        full = {f: getattr(m, f).clone() for f in m._fields}
+        for f, v in rows.items():
+            full[f][:n] = torch.tensor(v, device=dev)
+        full["cursor"] = torch.tensor(n, dtype=torch.int32, device=dev)
+        eng.state = eng.state._replace(map=tmap.MapState(**full))
+    eng.sync_reruns = 0
+    run_sync = eng._run_sync
+
+    def counting(*a):
+        eng.sync_reruns += 1
+        return run_sync(*a)
+
+    eng._run_sync = counting
+    for w in WRAPPERS:
+        w.launches = 0
+    for sw in sweeps:
+        eng.process_sweep(sw)
+    eng.flush()
+    torch.cuda.synchronize()
+    return eng, [w.launches for w in WRAPPERS]
+
+
+def _record_bits(eng):
+    return [(r.pose.tobytes(), r.n_inliers, r.n_mutual, r.gated, r.map_size,
+             np.float64(r.icp_rmse).tobytes(), r.corr_stats.tobytes(), r.n_dropped)
+            for r in eng.records]
+
+
+@pytest.mark.parametrize("mode", [
+    dict(), dict(pipelined=True, fetch_every=4), dict(host_preprocess=False),
+    dict(host_preprocess=False, pipelined=True, fetch_every=4),
+    dict(pipelined=True, fetch_every=2, enable_backend=True, backend_every=3,
+         keep_corr=True)], ids=["sync", "pipelined", "fused_sync", "fused_pipelined",
+                                "backend"])
+def test_graphed_engine_matches_eager_on_card(dev, mode):
+    """Replayed graphs give the eager engine's records bit for bit (and its
+    keyframes and loop edges), with the same kernel launches counted."""
+    (g, g_launch), (e, e_launch) = (_graph_drive(dev, flag, **dict(mode))
+                                    for flag in (True, False))
+    assert e.graphs is None and g.graphs.captures == len(g.graphs._graphs) >= 1
+    assert _record_bits(g) == _record_bits(e) and len(g.records) == 6
+    assert g_launch == e_launch and g_launch[0] > 0
+    if mode.get("enable_backend"):
+        assert [(x.kf_i, x.kf_j, x.n_inliers, x.z.tobytes()) for x in g.loop_edges] == \
+            [(x.kf_i, x.kf_j, x.n_inliers, x.z.tobytes()) for x in e.loop_edges]
+        assert any(k[0] == "pair" for k in g.graphs._graphs)
+
+
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_graphed_window_overflow_on_card(dev, pipelined):
+    """A 256-row window over the growing map: the graphed step aborts on the
+    device; the synchronous engine re-runs the frame eagerly (its dense
+    fallback), the pipelined one drains and re-runs; records as eager."""
+    (g, _), (e, _) = (_graph_drive(dev, flag, windowed=True, pipelined=pipelined,
+                                   fetch_every=3, frames=6) for flag in (True, False))
+    assert _record_bits(g) == _record_bits(e)
+    assert (g.n_redispatched if pipelined else g.sync_reruns) > 0
+
+
+def test_graphed_loop_pair_on_card(dev):
+    """`_verify_pair` replayed from its graph equals the eager call on the
+    card bit for bit, for two pairs through one graph."""
+    from bshot_slam_tpu_torch.backend import loop_closure as lc
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+
+    graphs = Graphs(dev)
+    for seed in (1, 2):
+        args = [torch.tensor(a.view(np.int32) if a.dtype == np.uint32 else a).to(dev)
+                for a in keyframe_pair(seed)]
+        draws = torch.tensor(np.random.default_rng(seed).random((512, 3)),
+                             dtype=torch.float32, device=dev)
+        got = graphs.verify_pair(draws, *args, 300.0, 512, 10)
+        want = lc._verify_pair(draws, *args, 300.0, 512, 10)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert graphs.captures == 1
+
+
+def test_capture_with_host_sync_raises(dev):
+    """A body that reads a device value on the host cannot be captured: the
+    capture raises, and nothing runs it eagerly instead."""
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+
+    graphs = Graphs(dev)
+    x = torch.arange(8, dtype=torch.float32, device=dev)
+    with pytest.raises(RuntimeError):
+        graphs.run("sync", lambda t: ((t * float(t.sum()),), []), (x,))
+    assert graphs.captures == 0 and not graphs._graphs
+    torch.cuda.synchronize()

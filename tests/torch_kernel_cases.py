@@ -409,7 +409,10 @@ def keyframe_pair(seed: int, K: int = 600) -> tuple:
 
 
 # Kernel F, the ground walk: a rendered sweep and synthetic column profiles.
-F_CASES = ("drive", "random", "lost_runs", "zero_columns", "selfcar", "restart")
+# "tall_ragged": more rings than kernel F stages at once (csrc/preprocess.cu
+# kRings, 32) and a last block of columns that is not full (kCols, 32).
+F_CASES = ("drive", "random", "lost_runs", "zero_columns", "selfcar", "restart",
+           "tall_ragged")
 HDL32E_RINGS = 32
 
 
@@ -443,7 +446,7 @@ def walk_case(name: str) -> dict:
     profiles give points directly (the walk reads xyz as given) and their
     norms as ranges."""
     rng = np.random.default_rng(sum(map(ord, name)))
-    R, A = HDL32E_RINGS, 256
+    R, A = (72, 250) if name == "tall_ragged" else (HDL32E_RINGS, 256)
     vert = np.deg2rad(np.linspace(-30.67, 10.67, R)).astype(np.float32)
     if name == "drive":
         from bshot_slam_tpu_torch.config import SensorConfig
@@ -480,6 +483,8 @@ def walk_case(name: str) -> dict:
                 lost[start:start + rng.integers(1, 6), a] = True
             lost[0, ::7] = True
             lost[-3:, ::5] = True
+        if name == "tall_ragged":  # lost cells on every chunk of rings
+            lost |= rng.random((R, A)) < 0.05
         if name == "zero_columns":  # whole columns without a return
             lost[:, rng.choice(A, 12, replace=False)] = True
             lost |= rng.random((R, A)) < 0.1
