@@ -89,11 +89,15 @@ def evict_keyframe(store: KeyframeStore, slot) -> KeyframeStore:
 def pick_eviction_slot(positions: np.ndarray, count: int) -> int:
     """Host-side choice of the keyframe to evict at saturation: the one whose
     removal leaves the smallest gap between its temporal neighbours.  Slot
-    0 (the anchor) and the most recent quarter are protected."""
+    0 (the anchor) and the most recent quarter are protected, so a store of
+    fewer than 3 keyframes has no candidate: that raises ValueError (the
+    reference returns slot 1, past the end of a one-keyframe store and the
+    protected newest of a two-keyframe one)."""
     protect = max(1, count // 4)
     lo, hi = 1, count - protect  # candidate slots in [lo, hi)
     if hi <= lo:
-        return 1
+        raise ValueError(f"no keyframe may be evicted from a store of {count}: "
+                         "the anchor and the newest quarter are protected")
     p = positions[:count]
     gaps = np.linalg.norm(p[lo + 1:hi + 1] - p[lo - 1:hi - 1], axis=-1)
     return lo + int(np.argmin(gaps))

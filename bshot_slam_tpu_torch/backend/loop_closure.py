@@ -13,12 +13,13 @@ RANSAC draws come from the caller, as in the odometry step: a
 `torch.Generator`, or an iterator yielding one (H, 3) array of uniform
 draws per verified pair (tests inject the reference's).
 
-`find_loop_closures` verifies each pair through `odometry.graphs` by
-default (`graphs=True`): on the card one CUDA graph per keypoint count,
-captured at the first pair and replayed for the rest, as the reference
-compiles `_verify_pair` once; on the CPU the same body runs eagerly.
-`graphs` may also be an engine's `Graphs` (captured once per engine), or
-False (eager, for comparison).
+`find_loop_closures` computes the keyframe histograms once and verifies
+each pair through `odometry.graphs` by default (`graphs=True`): on the
+card one CUDA graph for the histograms of the whole store and one per
+keypoint count, captured at the first pair and replayed for the rest, as
+the reference compiles `keyframe_bow` and `_verify_pair` once; on the CPU
+the same bodies run eagerly.  `graphs` may also be an engine's `Graphs`
+(captured once per engine, or eager), or False (eager, for comparison).
 """
 
 from __future__ import annotations
@@ -68,27 +69,38 @@ def keyframe_bow(store: KeyframeStore, n: int | None = None) -> torch.Tensor:
     Each histogram is centred before normalising: every descriptor set
     shares a large mean bit frequency."""
     n = store.poses.shape[0] if n is None else n
+    return bow_rows(store.descriptors[:n], store.kp_mask[:n])
+
+
+def bow_rows(descriptors: torch.Tensor, kp_mask: torch.Tensor) -> torch.Tensor:
+    """`keyframe_bow` of (n, K, 11) descriptors and their (n, K) mask, in
+    chunks of _BOW_CHUNK rows; each row's reductions keep their shape, so
+    a row's histogram does not depend on n."""
+    n = descriptors.shape[0]
     out = []
     for c0 in range(0, n, _BOW_CHUNK):
         c1 = min(n, c0 + _BOW_CHUNK)
-        bits = unpack_bits(store.descriptors[c0:c1]).to(torch.float32)
-        mask = store.kp_mask[c0:c1]
+        bits = unpack_bits(descriptors[c0:c1]).to(torch.float32)
+        mask = kp_mask[c0:c1]
         h = torch.sum(bits * mask[..., None], dim=1)  # (c, 352)
         cnt = torch.sum(mask, dim=1)
         hn = h / torch.clamp(cnt, min=1).to(torch.float32)[:, None]
         h = torch.where(cnt[:, None] > 0, hn - torch.mean(hn, dim=1, keepdim=True), h)
         out.append(h / torch.clamp(torch.linalg.norm(h, dim=1), min=1e-6)[:, None])
     if not out:
-        return torch.zeros((0, 352), dtype=torch.float32,
-                           device=store.poses.device)
+        return torch.zeros((0, 352), dtype=torch.float32, device=descriptors.device)
     return torch.cat(out)
 
 
-def appearance_pairs(store: KeyframeStore, n: int, cfg: SlamConfig) -> np.ndarray:
+def appearance_pairs(store: KeyframeStore, n: int, cfg: SlamConfig,
+                     bow: torch.Tensor | None = None) -> np.ndarray:
     """Top descriptor-similarity keyframe pairs (i < j, gap-qualified),
-    best first: the retrieval channel that survives unbounded drift."""
+    best first: the retrieval channel that survives unbounded drift.  `bow`:
+    the store's histograms where the caller has them, else
+    `keyframe_bow(store)` over the whole store, as the reference compiles
+    them once for all Mk rows."""
     bcfg = cfg.backend
-    bow = keyframe_bow(store, n).cpu().numpy()
+    bow = (keyframe_bow(store) if bow is None else bow)[:n].cpu().numpy()
     sim = bow @ bow.T  # cosine: rows are unit vectors
     gap = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :])
     ok = np.triu(gap >= bcfg.lc_min_gap) & (sim >= bcfg.lc_appearance_min_sim)
@@ -109,9 +121,11 @@ def _pair_rng(rng, iterations: int, device) -> torch.Tensor:
 
 
 def candidate_pairs(store: KeyframeStore, n: int, cfg: SlamConfig,
-                    max_candidates: int = 8) -> np.ndarray:
+                    max_candidates: int = 8,
+                    bow: torch.Tensor | None = None) -> np.ndarray:
     """(P, 2) keyframe pairs to verify: proximity (closest first, capped),
-    then the appearance channel's pairs not already listed."""
+    then the appearance channel's pairs not already listed (`bow` as in
+    `appearance_pairs`)."""
     bcfg = cfg.backend
     pos = store.poses[:n, :3, 3].cpu().numpy()
     d = np.linalg.norm(pos[:, None] - pos[None, :], axis=-1)
@@ -123,7 +137,7 @@ def candidate_pairs(store: KeyframeStore, n: int, cfg: SlamConfig,
     else:
         pairs = pairs.reshape(0, 2)
     seen = {tuple(p) for p in pairs.tolist()}
-    extra = [p for p in appearance_pairs(store, n, cfg).tolist()
+    extra = [p for p in appearance_pairs(store, n, cfg, bow).tolist()
              if tuple(p) not in seen]
     if extra:
         pairs = np.concatenate([pairs, np.asarray(extra)], axis=0)
@@ -144,16 +158,15 @@ def find_loop_closures(store: KeyframeStore, cfg: SlamConfig, rng,
     if n < 2:
         return []
     bcfg = cfg.backend
-    pairs = candidate_pairs(store, n, cfg, max_candidates)
     dev = store.poses.device
-    if graphs is True:
-        from bshot_slam_tpu_torch.odometry.graphs import Graphs
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs  # imports this module
 
-        graphs = Graphs(dev)
-    verify = graphs.verify_pair if graphs else _verify_pair
+    if not isinstance(graphs, Graphs):
+        graphs = Graphs(dev, eager=not graphs)
+    pairs = candidate_pairs(store, n, cfg, max_candidates, graphs.bow(store))
     edges: List[LoopEdge] = []
     for a, b in pairs:
-        T, n_inl, rmse = verify(
+        T, n_inl, rmse = graphs.verify_pair(
             _pair_rng(rng, cfg.match.ransac_iterations, dev),
             store.keypoints[a], store.descriptors[a], store.kp_mask[a],
             store.keypoints[b], store.descriptors[b], store.kp_mask[b],

@@ -160,6 +160,7 @@ def load_backend(path: str, engine) -> bool:
             )
             for k in range(len(z["edge_i"]))
         ]
+        engine.optimized_keyframe_poses = None  # they paired with the old rows
         engine._last_kf_pose = z["last_kf_pose"]
         engine._frames_since_kf = int(z["frames_since_kf"])
         engine._kf_count = int(z["kf_count"])

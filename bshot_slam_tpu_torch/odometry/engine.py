@@ -39,9 +39,12 @@ on the CPU the same body runs eagerly on the same buffers.  Both modes
 replay the deferred step; the synchronous engine reads its packed row at
 once and, when a window overflowed (the state passed through), runs the
 eager synchronous step with the same draws.  The backend's pair
-verification replays its graph likewise.  `graphs=False` runs every step
-eagerly (the counterpart of `jax.disable_jit`: a comparison); a mesh
-engine always does.
+verification, keyframe histograms, pose-graph solve, corrections and
+keyframe adds replay their graphs likewise (a keyframe eviction, rare and
+no faster replayed, stays eager).  `graphs=False` runs every step and
+backend program eagerly (the counterpart of `jax.disable_jit`: a
+comparison), through an eager `Graphs` that calls each body directly; a
+mesh engine always does.
 
 With `mesh` (a `DeviceMesh` from `parallel.sharded.make_mesh` or
 `parallel.multihost.host_mesh`) the engine runs SPMD: every rank of the
@@ -142,12 +145,18 @@ class SlamEngine:
     pass drains everything first, so corrections land at the same frame as
     in the synchronous engine.
 
-    `graphs=False` runs the steps and pair verifications eagerly instead of
-    through `odometry.graphs` (see the module docstring); records are the
+    `graphs=False` runs the steps and the backend's programs eagerly instead
+    of through `odometry.graphs` (see the module docstring); records are the
     same bit for bit.  `graphs` may also be the `Graphs` of an earlier
-    engine of the same configuration on the same device, which this engine
-    then takes over (its captures are reused, as the reference's compiled
-    programs outlive an engine): the two must not step in turns."""
+    engine on the same device, which this engine then takes over (its
+    captures are reused where the configuration and shapes are the same, as
+    the reference's compiled programs outlive an engine): the two must not
+    step in turns.
+
+    With `enable_backend` the keyframe store holds at least 3 keyframes
+    (`BackendConfig.max_keyframes`): a saturated store evicts one that is
+    neither the anchor nor in the newest quarter, and a smaller store has
+    none, so the engine refuses it."""
 
     def __init__(self, cfg: SlamConfig, seed: int = 0, tile: int = 2048,
                  device=None, draws: Optional[Iterable] = None,
@@ -189,14 +198,15 @@ class SlamEngine:
         )
         self.state = self.state._replace(map=self._new_map(first))
         self.records: List[FrameRecord] = []
-        # The steps' graphs and in-place state buffers (None: eager steps).
+        # The graphs of the steps and backend programs, and the steps'
+        # in-place state buffers (eager: every program run directly).
         if isinstance(graphs, graphs_mod.Graphs):
             if mesh is not None or graphs.device != graphs_mod.normal_device(self.device):
                 raise ValueError("graphs of another device, or with a mesh")
             self.graphs = graphs
         else:
-            self.graphs = (graphs_mod.Graphs(self.device)
-                           if graphs and mesh is None else None)
+            self.graphs = graphs_mod.Graphs(self.device,
+                                            eager=not graphs or mesh is not None)
         self._warned_drop = False
         self._warned_evict = False
         self.n_evicted = 0  # cumulative keypoints evicted at capacity
@@ -216,6 +226,12 @@ class SlamEngine:
         self._next_bucket: Optional[int] = None
         self._bucket_floor = 0
         # Backend.
+        if enable_backend and cfg.backend.max_keyframes < 3:
+            raise ValueError(
+                f"enable_backend needs max_keyframes >= 3 (got "
+                f"{cfg.backend.max_keyframes}): a saturated store evicts a "
+                "keyframe other than the anchor (slot 0) and the newest "
+                "quarter, and a smaller store has none")
         self.enable_backend = enable_backend
         self.backend_every = backend_every
         self.keyframes = kf_mod.init_keyframes(cfg, device=self.device)
@@ -331,7 +347,7 @@ class SlamEngine:
         self._maybe_grow_map()
         cap = self._capacity()
         draws = self._next_draws()
-        if self.graphs is not None:
+        if not self.graphs.eager:
             self.state, self._ok, diag = self.graphs.fused(
                 self.cfg, self.tile, self.state, self._ok, image,
                 self._next_bucket, draws, self._keep)
@@ -398,11 +414,11 @@ class SlamEngine:
     def _step(self, points: torch.Tensor, pmask: Optional[torch.Tensor], n_valid):
         self._maybe_grow_map()
         cap = self._capacity()
-        if self.graphs is None and not self.pipelined:
+        if self.graphs.eager and not self.pipelined:
             rng = self.generator if self._draws is None else self._next_draws()
             return self._run_sync(points, pmask, n_valid, rng, cap)
         draws = self._next_draws()
-        if self.graphs is None:
+        if self.graphs.eager:
             self.state, self._ok, diag = pipeline.odometry_step_deferred(
                 self.state, self._ok, points, pmask, n_valid, draws, self.cfg,
                 self.tile, axes=self.axes)
@@ -647,6 +663,11 @@ class SlamEngine:
             self.keyframes = kf_mod.evict_keyframe(self.keyframes, slot)
             del self._kf_positions[slot]
             self._kf_count -= 1
+            # The rows above the slot moved down one: so do the edges'
+            # indices; an edge to the evicted keyframe goes with it.
+            self.loop_edges = [
+                e._replace(kf_i=e.kf_i - (e.kf_i > slot), kf_j=e.kf_j - (e.kf_j > slot))
+                for e in self.loop_edges if slot not in (e.kf_i, e.kf_j)]
             self.n_kf_evicted += 1
             if not self._warned_kf_evict:
                 self._warned_kf_evict = True
@@ -660,10 +681,13 @@ class SlamEngine:
         # step time (indices past map_cap matched the previous frame).
         obs_lm = torch.where(diag.corr_inlier & (diag.corr_index < map_cap),
                              diag.corr_index, -1)
-        self.keyframes = kf_mod.add_keyframe(
+        self.keyframes = self.graphs.add_keyframe(
             self.keyframes, upload(rec.pose, self.device), diag.features,
-            abs_frame, obs_lm)
+            upload(np.asarray(abs_frame, np.int32), self.device), obs_lm)
         self._kf_count += 1
+        # Optimised poses pair with the rows they were optimised from: this
+        # add (and an eviction before it) changed the rows, so they go.
+        self.optimized_keyframe_poses = None
         self._kf_positions.append(np.asarray(rec.pose[:3, 3]))
         self._last_kf_pose = rec.pose
         self._frames_since_kf = 1
@@ -682,17 +706,24 @@ class SlamEngine:
         stats: dict = {}
         edges = loop_closure.find_loop_closures(
             self.keyframes, self.cfg, self._rng_source(), max_candidates, n=n,
-            stats=stats, graphs=False if self.graphs is None else self.graphs)
+            stats=stats, graphs=self.graphs)
         self.loop_edges = edges
         self.backend_stats = dict(stats, closures=len(edges), keyframes=n)
-        # Nodes padded to a power-of-two bucket (repeating the last pose:
-        # the implied identity chain edges are inert) and loop edges to a
-        # multiple of 4 (masked), as the reference pads them.
+        g = self._pose_graph(n, edges)
+        res = self.graphs.pose_graph(g, iterations=self.cfg.backend.gn_iterations)
+        self.optimized_keyframe_poses = res.poses[:n].cpu().numpy()
+        return self.optimized_keyframe_poses, edges
+
+    def _pose_graph(self, n: int, edges: list):
+        """The pose graph of the first n keyframes and the loop edges: nodes
+        padded to a power-of-two bucket (repeating the last pose: the
+        implied identity chain edges are inert) and loop edges to a multiple
+        of 4 (masked), as the reference pads them, so the solve's shapes
+        repeat from pass to pass."""
+        from bshot_slam_tpu_torch.backend import posegraph
+
         kf = self.keyframes.poses[:n]
-        bucket = 8
-        while bucket < n:
-            bucket *= 2
-        bucket = min(bucket, max(self.cfg.backend.max_keyframes, n))
+        bucket = self._node_bucket(n)
         if bucket > n:
             kf = torch.cat([kf, kf[-1:].expand(bucket - n, 4, 4)])
         bcfg = self.cfg.backend
@@ -710,9 +741,15 @@ class SlamEngine:
             mask = g.edge_mask.clone()
             mask[len(mask) - e_pad:] = False
             g = g._replace(edge_mask=mask)
-        res = posegraph.optimize_pose_graph(g, iterations=bcfg.gn_iterations)
-        self.optimized_keyframe_poses = res.poses[:n].cpu().numpy()
-        return self.optimized_keyframe_poses, edges
+        return g
+
+    def _node_bucket(self, n: int) -> int:
+        """The pose graph's node count for n keyframes: a power of two from 8,
+        at most the store's size."""
+        bucket = 8
+        while bucket < n:
+            bucket *= 2
+        return min(bucket, max(self.cfg.backend.max_keyframes, n))
 
     def apply_backend_corrections(self) -> dict:
         """Propagate the optimised keyframe poses into the recorded
@@ -739,19 +776,27 @@ class SlamEngine:
         n_frames = int(self.state.frame_idx)
         frame0 = n_frames - len(self.records)  # the first record's frame
         kf_frames = self.keyframes.frame_idx[:n_kf].cpu().numpy()
+        # Keyframes padded to the pose graph's node bucket (repeating the
+        # last keyframe's correction and frame) and frames to a power of two
+        # (repeating the last), graphed or not, so the program's shapes
+        # repeat from pass to pass: searchsorted lands on the repeated tail
+        # and the clamps pick the unpadded rows' values, and no landmark is
+        # born at a padded frame, so the padding changes no result.
+        n_pad = self._node_bucket(n_kf) - n_kf
+        f_pad = (1 << max(0, n_frames - 1).bit_length()) - n_frames
         dev = self.device
-        corr_t = corr_mod.interpolate_corrections(
-            torch.from_numpy(corr_kf.astype(np.float32)).to(dev),
-            torch.from_numpy(kf_frames.astype(np.int32)).to(dev),
-            torch.arange(n_frames, dtype=torch.int32, device=dev))
-        corr = corr_t.cpu().numpy()[frame0:]
+        args = (torch.from_numpy(np.concatenate(
+                    [corr_kf, np.repeat(corr_kf[-1:], n_pad, 0)]).astype(np.float32)).to(dev),
+                torch.from_numpy(np.concatenate(
+                    [kf_frames, np.repeat(kf_frames[-1:], n_pad)]).astype(np.int32)).to(dev),
+                torch.from_numpy(np.concatenate(
+                    [np.arange(n_frames), np.full(f_pad, n_frames - 1)]).astype(np.int32)).to(dev))
+        corr_t, moved = self.graphs.corrections(self.cfg.map, *args, self.state.map)
+        corr = corr_t.cpu().numpy()[frame0:n_frames]
         for f, r in enumerate(self.records):
             r.pose = (corr[f] @ r.pose).astype(np.float32)
         ref_pose = (corr[-1] @ self.state.ref_pose.cpu().numpy()).astype(np.float32)
-        self.state = self.state._replace(
-            map=corr_mod.reanchor_map(self.state.map, corr_t, 0, self.cfg.map),
-            ref_pose=torch.from_numpy(ref_pose).to(dev),
-        )
+        self.state = self.state._replace(map=moved, ref_pose=torch.from_numpy(ref_pose).to(dev))
         # The store's poses become the optimised ones so the next graph
         # build does not correct twice; the host mirror follows.
         poses = self.keyframes.poses.clone()

@@ -1,25 +1,35 @@
-"""The engine's per-frame steps and loop-pair verification as CUDA graphs.
+"""The engine's per-frame steps and its backend's programs as CUDA graphs.
 
 The port's counterpart of the JAX package's `jax.jit` boundaries: the
 reference compiles `odometry_step_compact` / `odometry_step_fused` (one
-program each, `donate_argnames=("state",)`) and the backend's
-`_verify_pair` once per static shape and dispatches each frame or pair as
-one call.  Here each body is captured once per key as a CUDA graph
+program each, `donate_argnames=("state",)`, `cfg` static) and the
+backend's `_verify_pair`, `keyframe_bow`, `optimize_pose_graph`,
+`ba_solve`, `interpolate_corrections`, `reanchor_map` and `add_keyframe`
+once per static shape and dispatches each as one call.
+Here each body is captured once per key as a CUDA graph
 (`torch.cuda.CUDAGraph`) and replayed: the same kernels in the same order
 on the same buffers, so every result is bit for bit the eager run's.
 
 | body | key | static inputs |
 |---|---|---|
-| `pipeline.odometry_step_deferred`, pmask None | ("compact", bucket, capacity, tile) | points, n_valid (0-d int32), draws |
-| the same with a pmask | ("masked", bucket, capacity, tile) | points, pmask, n_valid, draws |
-| `pipeline.odometry_step_fused` | ("fused", bucket, capacity, selected is None, tile) | range_az, vert, selected, draws |
+| `pipeline.odometry_step_deferred`, pmask None | ("compact", bucket, capacity, tile, cfg) | points, n_valid (0-d int32), draws |
+| the same with a pmask | ("masked", bucket, capacity, tile, cfg) | points, pmask, n_valid, draws |
+| `pipeline.odometry_step_fused` | ("fused", bucket, capacity, selected is None, tile, cfg) | range_az, vert, selected, draws |
 | `loop_closure._verify_pair` | ("pair", K, inlier_th, iterations, icp_iterations) | both keyframes' kp, words, masks; draws |
+| `loop_closure.bow_rows` over the whole store | ("bow", Mk, K) | descriptors, kp_mask |
+| `posegraph.optimize_pose_graph` | ("posegraph", M, E, iterations, lm_lambda, anchor_weight) | the `PoseGraph` fields |
+| `ba.ba_solve` (`reduce=None`) | ("ba", M, L, O, gn, cg, lm_lambda, anchor_weight) | the `BAProblem` fields |
+| `corrections.interpolate_corrections` + `reanchor_map` (frame0 0) | ("corr", keyframes, frames, capacity, cfg.map) | corr_kf, kf_frames, frames; the map's positions, blocks, valid, frame_born |
+| `keyframes.add_keyframe` | ("kf_add", Mk, K) | the store, pose, features, frame (0-d), obs_lm |
 
-A `Graphs` serves one configuration (the engine's).  Every call copies
-its inputs into the key's static buffers (so the caller's tensors stay
-its own, as a re-run needs them) and copies the outputs it returns out of
-the graphs' memory pool, which all graphs share: the next replay of any
-graph may overwrite them.
+A key names every Python value its body closes over: a value outside the
+key would be frozen at capture, so a `Graphs` shared by engines of two
+configurations captures a step for each (the frozen, hashable `SlamConfig`
+is in the step keys, as the reference's `cfg` is a static argument).
+Every call copies its inputs into the key's static buffers (so the
+caller's tensors stay its own, as a re-run needs them) and copies the
+outputs it returns out of the graphs' memory pool, which all graphs
+share: the next replay of any graph may overwrite them.
 
 State is updated in place, as the reference donates it: for each map
 capacity the set owns one `OdometryState` of buffers, which the steps
@@ -39,6 +49,11 @@ make, so each graph records the count delta of its capture and adds it on
 every replay: the counts stay those of the eager run.  On the CPU the same
 body runs eagerly on the same static buffers (no graph), so the CPU tests
 cover the buffer plumbing.
+
+`Graphs(device, eager=True)` runs every body directly on the caller's
+tensors, with no buffers and no capture: the `graphs=False` engine and
+`find_loop_closures` call the same methods, so a caller never chooses
+between a program and its graph.
 """
 
 from __future__ import annotations
@@ -48,9 +63,10 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from bshot_slam_tpu_torch.backend.loop_closure import _verify_pair
+from bshot_slam_tpu_torch.backend import ba, corrections, keyframes, posegraph
+from bshot_slam_tpu_torch.backend.loop_closure import _verify_pair, bow_rows
 from bshot_slam_tpu_torch.kernels import mapops, neighborhood, preprocess
-from bshot_slam_tpu_torch.odometry import pipeline
+from bshot_slam_tpu_torch.odometry import mapstore, pipeline
 
 # The kernel wrappers whose `launches` a replay advances.
 WRAPPERS = (neighborhood.neighborhood_accumulate, neighborhood.segratio_accumulate,
@@ -102,11 +118,13 @@ class Graphs:
     """Captured bodies by key, their static inputs, the shared pool and the
     state buffers of one engine (or of one `find_loop_closures` call).
     `captures` and `capture_s` count the captures made and their seconds
-    (warm-up included)."""
+    (warm-up included).  With `eager` every body runs directly on the
+    caller's tensors (no buffers, no capture, no pool)."""
 
-    def __init__(self, device):
+    def __init__(self, device, eager: bool = False):
         self.device = normal_device(device)
-        self.cuda = self.device.type == "cuda"
+        self.eager = eager
+        self.cuda = self.device.type == "cuda" and not eager
         self.pool = torch.cuda.graph_pool_handle() if self.cuda else None
         self._graphs: dict = {}
         self._states: dict = {}
@@ -121,7 +139,9 @@ class Graphs:
         replayed on the card (captured on first use), eagerly on the CPU.
         `body` returns (outputs, writes); each (buffer, value) of `writes`
         is copied into the buffer at the body's end.  Returns the outputs,
-        which the next call may overwrite."""
+        which the next call may overwrite.  Eager: `body(*args)` itself."""
+        if self.eager:
+            return _apply(body(*args))
         g = self._graphs.get(key)
         if g is None:
             static = tuple(None if a is None else a.clone() for a in args)
@@ -209,7 +229,7 @@ class Graphs:
             return diag, list(zip(leaves(bufs), leaves(new))) + [(okb, committed)]
 
         key = ("compact" if pmask is None else "masked", points.shape[0],
-               bufs.map.positions.shape[0], tile)
+               bufs.map.positions.shape[0], tile, cfg)
         diag = self.run(key, body, (points, pmask, n_valid.to(torch.int32).reshape(()),
                                      draws))
         return bufs, okb, _copied(diag, keep)
@@ -228,7 +248,7 @@ class Graphs:
             return diag, list(zip(leaves(bufs), leaves(new))) + [(okb, committed)]
 
         range_az, vert, sel = image
-        key = ("fused", bucket, bufs.map.positions.shape[0], sel is None, tile)
+        key = ("fused", bucket, bufs.map.positions.shape[0], sel is None, tile, cfg)
         diag = self.run(key, body, (range_az, vert, sel, draws))
         return bufs, okb, _copied(diag, keep)
 
@@ -246,6 +266,72 @@ class Graphs:
         key = ("pair", kp_a.shape[0], inlier_th, iterations, icp_iterations)
         out = self.run(key, body, (draws, kp_a, desc_a, mask_a, kp_b, desc_b, mask_b))
         return tuple(t.clone() for t in out)
+
+    def bow(self, store) -> torch.Tensor:
+        """`loop_closure.keyframe_bow(store)`, the (Mk, 352) histograms of
+        every row of the store, through its graph; copied out."""
+        key = ("bow",) + tuple(store.kp_mask.shape)
+        out = self.run(key, lambda d, m: (bow_rows(d, m), []),
+                       (store.descriptors, store.kp_mask))
+        return out.clone()
+
+    def pose_graph(self, g: posegraph.PoseGraph, iterations: int = 10,
+                   lm_lambda: float = 1.0e-4, anchor_weight: float = 1.0e6
+                   ) -> posegraph.PoseGraphResult:
+        """`posegraph.optimize_pose_graph` through its graph; copied out."""
+
+        def body(*fields):
+            return posegraph.optimize_pose_graph(
+                posegraph.PoseGraph(*fields), iterations, lm_lambda, anchor_weight), []
+
+        key = ("posegraph", g.poses0.shape[0], g.edge_i.shape[0], iterations,
+               lm_lambda, anchor_weight)
+        return posegraph.PoseGraphResult(*(t.clone() for t in self.run(key, body, tuple(g))))
+
+    def ba(self, prob: ba.BAProblem, gn_iterations: int = 5, cg_iterations: int = 20,
+           lm_lambda: float = 1.0e-4, anchor_weight: float = 1.0e6) -> ba.BAResult:
+        """`ba.ba_solve` (one device, `reduce=None`) through its graph;
+        copied out."""
+
+        def body(*fields):
+            return ba.ba_solve(ba.BAProblem(*fields), gn_iterations, cg_iterations,
+                               lm_lambda, anchor_weight), []
+
+        key = ("ba", prob.poses.shape[0], prob.landmarks.shape[0], prob.obs_kf.shape[0],
+               gn_iterations, cg_iterations, lm_lambda, anchor_weight)
+        return ba.BAResult(*(t.clone() for t in self.run(key, body, tuple(prob))))
+
+    def corrections(self, map_cfg, corr_kf, kf_frames, frames, m):
+        """`corrections.interpolate_corrections(corr_kf, kf_frames, frames)`
+        and `reanchor_map(m, that, 0, map_cfg)` through their graph.
+        Returns (the (F, 4, 4) corrections, `m` re-anchored), copied out."""
+
+        def body(corr_kf, kf_frames, frames, positions, blocks, valid, frame_born):
+            corr = corrections.interpolate_corrections(corr_kf, kf_frames, frames)
+            read = dict(dict.fromkeys(mapstore.MapState._fields), positions=positions,
+                        blocks=blocks, valid=valid, frame_born=frame_born)
+            moved = corrections.reanchor_map(mapstore.MapState(**read), corr, 0, map_cfg)
+            return (corr, moved.positions, moved.blocks), []
+
+        key = ("corr", corr_kf.shape[0], frames.shape[0], m.positions.shape[0], map_cfg)
+        corr, positions, blocks = (t.clone() for t in self.run(
+            key, body, (corr_kf, kf_frames, frames, m.positions, m.blocks, m.valid,
+                        m.frame_born)))
+        return corr, m._replace(positions=positions, blocks=blocks)
+
+    def add_keyframe(self, store, pose, feats, frame_idx, obs_lm):
+        """`keyframes.add_keyframe` with a 0-d `frame_idx` through its graph;
+        the new store copied out."""
+
+        def body(*args):
+            n = len(keyframes.KeyframeStore._fields)
+            return keyframes.add_keyframe(
+                keyframes.KeyframeStore(*args[:n]), args[n],
+                pipeline.FrameFeatures(*args[n + 1:n + 5]), args[n + 5], args[n + 6]), []
+
+        key = ("kf_add",) + tuple(store.kp_mask.shape)
+        out = self.run(key, body, tuple(store) + (pose,) + tuple(feats) + (frame_idx, obs_lm))
+        return keyframes.KeyframeStore(*(t.clone() for t in out))
 
 
 def _apply(result):

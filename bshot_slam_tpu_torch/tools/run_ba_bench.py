@@ -7,8 +7,10 @@
 Builds the reference tool's synthetic problem from the same seed and draws
 (keyframes on a 30 m circle observing shared landmarks, 10 mm observation
 noise, poses and landmarks perturbed by 200 and 300 mm), then times
-`backend.ba.ba_solve` end to end: one warm-up solve, then 3 solves each
-fenced by a synchronise.  A Gauss-Newton iteration is the Jacobians, the
+`backend.ba.ba_solve` end to end through `odometry.graphs` (captured as a
+CUDA graph by the warm-up solve and replayed, as the reference's warm-up
+compiles its `jax.jit`; on the CPU the same solve runs eagerly): one
+warm-up solve, then 3 solves each fenced by a synchronise.  A Gauss-Newton iteration is the Jacobians, the
 Schur reduction, the conjugate-gradient solve and the back-substitution.
 Prints the reference tool's JSON line (`ba_gn_iters_per_sec`, the cost
 reduction) plus the card's name and power limit.  `--cpu` runs it on the
@@ -70,8 +72,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    from bshot_slam_tpu_torch.backend.ba import BAProblem, ba_solve
+    from bshot_slam_tpu_torch.backend.ba import BAProblem
     from bshot_slam_tpu_torch.device import card, resolve_device
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
     from bshot_slam_tpu_torch.utils.profiling import fence
 
     device = resolve_device("cpu" if args.cpu else None)
@@ -79,8 +82,10 @@ def main(argv=None) -> int:
     prob = BAProblem(**{k: torch.as_tensor(v, device=device)
                         for k, v in problem_arrays(M, L, OPK).items()})
 
+    graphs = Graphs(device)
+
     def solve():
-        res = ba_solve(prob, gn_iterations=args.gn_iters, cg_iterations=args.cg_iters)
+        res = graphs.ba(prob, gn_iterations=args.gn_iters, cg_iterations=args.cg_iters)
         fence(res)
         return res
 

@@ -387,13 +387,12 @@ def _run(args, ap, mesh=None) -> int:
         gold = traj_io.load_xyz(args.gold)
         print(f"ATE RMSE vs {args.gold}: {ate_rmse(full_traj, gold):.1f} mm")
         if args.ba:
-            from bshot_slam_tpu_torch.backend.ba import ba_solve
             from bshot_slam_tpu_torch.parallel.sharded import sharded_ba_solve
 
             prob = eng.build_ba_problem()
             n_obs = int(prob.obs_mask.sum())
             if n_obs:
-                res = (ba_solve(prob, gn_iterations=8) if mesh is None
+                res = (eng.graphs.ba(prob, gn_iterations=8) if mesh is None
                        else sharded_ba_solve(mesh, prob, gn_iterations=8))
                 print(f"BA: {prob.poses.shape[0]} keyframes, "
                       f"{prob.landmarks.shape[0]} landmarks, {n_obs} obs; "

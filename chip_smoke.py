@@ -40,6 +40,10 @@ Phases, one line each:
      64k-landmark prefill, `pipelined=True, enable_backend=True,
      backend_every=32`): keyframes, pairs verified, closures, the best
      candidate's inliers, each pass's time and its kernel C and D launches,
+     the pass by part (keyframe histograms, pair choice, pair verification,
+     the pose graph's build, the LM solve, the corrections: ms each, with a
+     synchronise on either side, and device launches each in one more pass
+     under `torch.profiler`),
      ATE before and after a final `apply_backend_corrections()`, the
      quality guard; then kernels C and D at the loop-verification shape
      (two of the drive's keyframes, 600 against 600) against their plain
@@ -113,8 +117,34 @@ Phases, one line each:
      engines and spike, and [4d]'s backend drive; records (loop edges
      included) bit-identical, kernel launches equal; frames/s and launches
      a frame of each, the captures, their seconds and the bytes of the
-     graphs' memory pool of the earlier run, the backend passes' ms;
-  12. one JSON line of per-kernel results (`launches` counts the main path,
+     graphs' memory pool of the earlier run, the backend passes' ms whole
+     and by part (the drive's pair verification, keyframe histograms and
+     pose graph, corrections and keyframe adds replayed from graphs; its
+     final pass's records, corrections and keyframe store bit-identical
+     too);
+  12. the backend's programs at full width, eager (`graphs=False`'s calls)
+     against graphed in turns (median of 5 each): the LM pose graph of 512
+     nodes made from a seed (a chain around a loop, 15 loop edges padded
+     with one masked edge), `keyframe_bow` over a 512-keyframe store filled
+     with [4d]'s keyframes, and BA at [10]'s size; ms, device launches a
+     call, capture seconds, pool bytes, the pose graph's device time and
+     heaviest kernels (`torch.profiler`); the pose graph and the histograms
+     bit-identical, BA within fixed limits of its nearest eager run (its
+     `index_add_` adds floats with atomics; the limits checked against the
+     eager runs' spread and a planted fault) or bit-identical where they
+     are; keyframe add on the full store eager and graphed, evict eager;
+  13. two engines whose configurations differ only in the RANSAC inlier
+     threshold share one `Graphs`: each bit-identical to its own
+     `graphs=False` run; and the host cost of hashing a configuration;
+  14. the graphs' pool: [4d]'s drive's `Graphs` gathers the keys a long
+     drive makes: a graphed engine on it across the four map buckets (the
+     map prefilled to just under each in turn) at three cloud buckets, the
+     pose graph at every node bucket (8 to 512) with each loop-edge
+     padding, the corrections at every node bucket, BA, and a drive of
+     [4d]'s circle LONG_LAPS times (its keyframe store fills at 512 and
+     evicts); the pool's and the state buffers' bytes after each, and the
+     pool's peak, which must stay under POOL_LIMIT;
+  15. one JSON line of per-kernel results (`launches` counts the main path,
      phase [4]'s engine run of `frames` frames for A-E, [7]'s synchronous
      fused run for F; `launches_per_frame` divides it; `launches_by_path`
      counts each later path alone, from 0, the mesh paths on rank 0, the
@@ -166,6 +196,18 @@ PREFILL = 65536
 FETCH_EVERY = 8
 BACKEND_EVERY = 32
 OVERFLOW_WINDOW = 256  # phase [4b]'s window_cap, below the frames' windows
+# Phase [12]: the pose graph at the store's full size (max_keyframes nodes)
+# with FULL_LOOPS loop edges (padded with one masked edge to a multiple of
+# 4).
+FULL_NODES, FULL_LOOPS = 512, 15
+# Phase [14]: a frame's cloud cut to this many points (a smaller bucket);
+# the long drive's laps of the 129-frame circle (a keyframe about every 2
+# frames: the store fills at max_keyframes and evicts).
+CUT_POINTS, LONG_LAPS = 7000, 10
+# Phase [14]: the most the graphs' pool may hold (10% of the card); past it
+# a capacity's graphs and state buffers would have to be released once the
+# map outgrows it, and the phase fails.
+POOL_LIMIT = 8 * 10**9
 # Phase [7]'s kept-count spike at full width: SPIKE_BASE kept points a
 # frame (bucket 8192 with the predictor's headroom), SPIKE at frame
 # SPIKE_AT (bucket 20480).
@@ -579,7 +621,7 @@ def run_engine(cfg, sweeps, gt, dev):
     times, captured = [], []
 
     def captures():
-        graphs = getattr(eng, "graphs", None)  # None: eager (or an older port)
+        graphs = getattr(eng, "graphs", None)  # None: an older port
         return 0 if graphs is None else graphs.captures
 
     for sw in sweeps:
@@ -797,32 +839,111 @@ def backend_engine(cfg, dev, graphs=True):
                       enable_backend=True, backend_every=BACKEND_EVERY, graphs=graphs)
 
 
+# The parts of a backend pass, in order: the keyframe histograms, the
+# candidate pairs' choice on the host, the pairs' verification
+# (`find_loop_closures` less the histograms and the choice), the pose graph's
+# build, the LM solve, and the corrections (`apply_backend_corrections`:
+# interpolation, the record loop, re-anchoring, the store's update).
+PARTS = ("bow", "choice", "pairs", "build", "lm", "corrections")
+
+
+@contextlib.contextmanager
+def timed_parts(eng):
+    """Within the block, each part of eng's backend passes is timed (a
+    synchronise on either side) and wrapped in a `part:<name>` profiler
+    range; yields {part: [ms per call]} with `pairs` holding the nested
+    calls' whole time (`pass_parts` subtracts).  The histograms and the LM
+    solve are patched on the engine's `Graphs` (eager or not: the graph
+    bodies call the module functions, which must not synchronise under a
+    capture)."""
+    import torch
+
+    from bshot_slam_tpu_torch.backend import loop_closure
+
+    ms = collections.defaultdict(list)
+
+    def wrap(name, fn):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("part:" + name):
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    modules = [(loop_closure, "candidate_pairs", "choice"),
+               (loop_closure, "find_loop_closures", "pairs")]
+    objects = [(eng, "_pose_graph", "build"), (eng, "apply_backend_corrections",
+                                                "corrections"),
+               (eng.graphs, "bow", "bow"), (eng.graphs, "pose_graph", "lm")]
+    saved = [(m, a, getattr(m, a)) for m, a, _ in modules]
+    for obj, attr, name in modules + objects:
+        setattr(obj, attr, wrap(name, getattr(obj, attr)))
+    try:
+        yield ms
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+        for obj, attr, _ in objects:
+            delattr(obj, attr)  # the class's method again
+
+
+def pass_parts(ms: dict, i: int) -> dict:
+    """Part -> ms of the i-th timed pass."""
+    bow, choice, find = ms["bow"][i], ms["choice"][i], ms["pairs"][i]
+    return dict(bow=bow, choice=choice, pairs=find - choice - bow,
+                build=ms["build"][i], lm=ms["lm"][i], corrections=ms["corrections"][i])
+
+
+def part_launches(run, dev) -> dict:
+    """Part -> device launches (kernels, copies and sets `torch.profiler` saw
+    run on the card) of one run() inside `timed_parts`: each launch counts
+    for the innermost part range its start lies in; `pairs` excludes its
+    nested parts as `pass_parts` does."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.zeros(1, device=dev).add_(1)  # the warm-up step
+        torch.cuda.synchronize()
+        prof.step()
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+    events = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end, e.name[5:]) for e in events
+              if e.device_type == DeviceType.CPU and e.name.startswith("part:")]
+    counts = dict.fromkeys(PARTS, 0)
+    for e in events:
+        if e.device_type != DeviceType.CUDA or e.name.startswith("part:"):
+            continue  # a part's own range on the card's timeline
+        inside = [r for r in ranges if r[0] <= e.time_range.start <= r[1]]
+        if inside:
+            counts[min(inside, key=lambda r: r[1] - r[0])[2]] += 1
+    return counts
+
+
 def backend_phase(cfg, sweeps, gt, dev, ckpt: str | None, graphs=True) -> dict:
-    """Phase [4d]: the whole drive with the backend, each pass timed and its
-    kernel launches counted; saved to `ckpt` after RESUME_AT frames (phase
-    [5b], the save's time not counted in the drive's; no save without
-    `ckpt`)."""
+    """Phase [4d]: the whole drive with the backend, each pass timed whole
+    and by part (`timed_parts`) and its kernel launches counted; saved to
+    `ckpt` after RESUME_AT frames (phase [5b], the save's time not counted
+    in the drive's; no save without `ckpt`).  After the drive and its final
+    pass, one more pass under `torch.profiler` counts each part's device
+    launches."""
     import torch
 
     from bshot_slam_tpu_torch import checkpoint, convert
-    from bshot_slam_tpu_torch.backend import loop_closure
     from bshot_slam_tpu_torch.utils.metrics import ate_rmse
 
     eng = backend_engine(cfg, dev, graphs)
     eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
     passes = []
     optimize = eng.optimize_backend
-    find = loop_closure.find_loop_closures
     wrappers = kernel_wrappers()
-    found_ms = []
-
-    def timed_find(*a, **k):  # the pass's loop-closure part: pairs + verification
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = find(*a, **k)
-        torch.cuda.synchronize()
-        found_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
 
     def timed_optimize(*a, **k):
         torch.cuda.synchronize()
@@ -831,7 +952,6 @@ def backend_phase(cfg, sweeps, gt, dev, ckpt: str | None, graphs=True) -> dict:
         out = optimize(*a, **k)
         torch.cuda.synchronize()
         passes.append(dict(ms=(time.perf_counter() - t0) * 1e3, **eng.backend_stats,
-                           loop_ms=found_ms[-1],
                            launches={n: w.launches - before[n] for n, w in wrappers.items()}))
         return out
 
@@ -849,36 +969,40 @@ def backend_phase(cfg, sweeps, gt, dev, ckpt: str | None, graphs=True) -> dict:
                 saved["s"] = time.perf_counter() - t0
         eng.flush()
 
-    with warnings.catch_warnings():
+    with warnings.catch_warnings(), timed_parts(eng) as part_ms:
         warnings.simplefilter("ignore")
-        loop_closure.find_loop_closures = timed_find
-        try:
-            t0 = time.perf_counter()
-            _, launches = counted(run)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0 - saved["s"]
-        finally:
-            loop_closure.find_loop_closures = find
-    # The uninterrupted run as phase [5b] compares it, before the final pass.
-    uninterrupted = dict(records=copy.deepcopy(eng.records),
-                         keyframes=convert.keyframes_to_numpy(eng.keyframes),
-                         state=convert.state_to_numpy(eng.state),
-                         edges=list(eng.loop_edges))
-    gt_pos = (np.linalg.inv(gt[0])[None] @ gt)[:, :3, 3]
-    path = float(np.linalg.norm(np.diff(gt_pos, axis=0), axis=1).sum())
-    ate_before = float(ate_rmse(eng.trajectory, gt_pos, align=False))
-    t0 = time.perf_counter()
-    eng.optimize_backend()
-    corr = eng.apply_backend_corrections()
-    torch.cuda.synchronize()
-    final_ms = (time.perf_counter() - t0) * 1e3
-    ate_after = float(ate_rmse(eng.trajectory, gt_pos, align=False))
+        t0 = time.perf_counter()
+        _, launches = counted(run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - saved["s"]
+        # The uninterrupted run as phase [5b] compares it, before the final pass.
+        uninterrupted = dict(records=copy.deepcopy(eng.records),
+                             keyframes=convert.keyframes_to_numpy(eng.keyframes),
+                             state=convert.state_to_numpy(eng.state),
+                             edges=list(eng.loop_edges))
+        gt_pos = (np.linalg.inv(gt[0])[None] @ gt)[:, :3, 3]
+        path = float(np.linalg.norm(np.diff(gt_pos, axis=0), axis=1).sum())
+        ate_before = float(ate_rmse(eng.trajectory, gt_pos, align=False))
+        t0 = time.perf_counter()
+        eng.optimize_backend()
+        corr = eng.apply_backend_corrections()
+        torch.cuda.synchronize()
+        final_ms = (time.perf_counter() - t0) * 1e3
+        ate_after = float(ate_rmse(eng.trajectory, gt_pos, align=False))
+        final = dict(records=record_bytes(eng), correction=corr,
+                     keyframes=convert.keyframes_to_numpy(eng.keyframes))
+        for p, parts in enumerate(passes):
+            parts["parts"] = pass_parts(part_ms, p)
+            parts["corr_ms"] = parts["parts"]["corrections"]
+        profiled = part_launches(lambda: (eng.optimize_backend(),
+                                          eng.apply_backend_corrections()), dev)
+        passes.pop()  # the profiled pass: its launches only
     return dict(eng=eng, passes=passes, launches=launches, wall_s=wall,
-                saved=saved, uninterrupted=uninterrupted,
+                saved=saved, uninterrupted=uninterrupted, final=final,
                 fps=len(sweeps) / wall, path_mm=path, ate_before=ate_before,
                 ate_after=ate_after, final_ms=final_ms, correction=corr,
                 keyframes=eng._kf_count, map_size=eng.records[-1].map_size,
-                n_evicted=eng.n_evicted,
+                n_evicted=eng.n_evicted, part_launches=profiled,
                 tail_inliers=[r.n_inliers for r in eng.records[-8:]])
 
 
@@ -1229,10 +1353,10 @@ def spike_phase(cfg, dev, graphs=True) -> dict:
     for pipelined in (False, True):
         eng = SlamEngine(cfg, seed=0, device=dev, host_preprocess=False,
                          pipelined=pipelined, fetch_every=4, graphs=graphs)
-        if eng.graphs is not None:
-            eng.graphs.fused = recording(eng.graphs.fused, 5)
-        else:
+        if eng.graphs.eager:
             pipeline.odometry_step_fused = recording(fused, 7)
+        else:
+            eng.graphs.fused = recording(eng.graphs.fused, 5)
         try:
             _, launches[pipelined] = counted(
                 lambda: [eng.process_range_image(r, az, vert) for r, az in frames]
@@ -1507,6 +1631,25 @@ def mesh_phase(cfg, sweeps, dev) -> dict:
 # Phase 11: the steps replayed from CUDA graphs against the eager steps
 
 
+def parts_line(parts: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+
+
+def mean_parts(passes: list) -> dict:
+    """Part -> mean ms a pass over the passes that verified pairs (the
+    first pass verifies none)."""
+    ps = [p["parts"] for p in passes if p["verified"]] or [p["parts"] for p in passes]
+    return {k: sum(p[k] for p in ps) / len(ps) for k in PARTS}
+
+
+def final_bytes(bk: dict):
+    """A backend drive's state after its final pass: records, the
+    corrections' summary and the keyframe store, every float by its bits."""
+    f = bk["final"]
+    return (f["records"], repr(f["correction"]),
+            [(k, v.tobytes()) for k, v in sorted(f["keyframes"].items())])
+
+
 def pool_bytes(graphs) -> int | None:
     """Bytes the card holds in the graphs' shared memory pool (its segments
     stay reserved while the graphs live, so this is the pool's peak), from
@@ -1627,17 +1770,320 @@ def graphs_phase(cfg, sweeps, drive_sweeps, dev, earlier: dict) -> dict:
         pass_ms={"graphed (first run)": [p["ms"] for p in bk["passes"]],
                  "eager": [p["ms"] for p in eager["passes"]],
                  "graphed": [p["ms"] for p in again["passes"]]},
-        loop_ms={"graphed (first run)": [p["loop_ms"] for p in bk["passes"]],
-                 "eager": [p["loop_ms"] for p in eager["passes"]],
-                 "graphed": [p["loop_ms"] for p in again["passes"]]},
+        corr_ms={"graphed (first run)": [p["corr_ms"] for p in bk["passes"]],
+                 "eager": [p["corr_ms"] for p in eager["passes"]],
+                 "graphed": [p["corr_ms"] for p in again["passes"]]},
+        parts={"eager": mean_parts(eager["passes"]), "graphed": mean_parts(again["passes"])},
+        part_launches={"eager": eager["part_launches"], "graphed": again["part_launches"]},
+        final_equal=all(final_bytes(e) == final_bytes(bk) for e in (eager, again)),
         fps={"graphed (first run)": bk["fps"], "eager": eager["fps"], "graphed": again["fps"]},
         launches_equal=eager["launches"] == again["launches"],
         per_frame={"eager": sum(eager["launches"].values()) / len(drive_sweeps),
                    "graphed": sum(again["launches"].values()) / len(drive_sweeps)},
         captures=bk["eng"].graphs.captures, capture_s=bk["eng"].graphs.capture_s,
         pool_bytes=pool_bytes(bk["eng"].graphs),
-        pair_graphs=sum(k[0] == "pair" for k in bk["eng"].graphs._graphs))
+        pair_graphs=sum(k[0] == "pair" for k in bk["eng"].graphs._graphs),
+        programs=sorted({k[0] for k in bk["eng"].graphs._graphs}))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 12-14: the backend at full width, a shared Graphs, the pool
+
+
+def device_launches(fn) -> int:
+    """Device launches `torch.profiler` sees in one fn() on the card."""
+    from bshot_slam_tpu_torch.utils import profiling
+
+    return sum(e.count for e in profiling.profiled(fn, fn))
+
+
+def eager_graphed(eager, graphed) -> dict:
+    """One program eager and replayed from its graph (captured first, outside
+    the timing) in turns, eager, graphed, graphed, eager, ..., 5 calls
+    each, each call fenced by synchronises: median ms of each, every result
+    (a tuple of tensors), device launches a call of each, the capture's
+    seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graphed()  # the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    out = {"eager": [], "graphed": []}
+    for side in ("eager", "graphed", "graphed", "eager") * 2 + ("eager", "graphed"):
+        fn = eager if side == "eager" else graphed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[side].append(((time.perf_counter() - t0) * 1e3, tuple(res)))
+    return dict(eager_ms=statistics.median(ms for ms, _ in out["eager"]),
+                graphed_ms=statistics.median(ms for ms, _ in out["graphed"]),
+                results={k: [r for _, r in v] for k, v in out.items()},
+                eager_launches=device_launches(eager),
+                graphed_launches=device_launches(graphed), capture_s=capture_s)
+
+
+def bits_equal(runs: list) -> bool:
+    """Every run's tensors equal the first run's, bit for bit."""
+    return all(torch_equal(a, b) for r in runs[1:] for a, b in zip(runs[0], r))
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def full_width_phase(cfg, dev, bk_eng, bk_passes: list) -> dict:
+    """Phase [12]: the backend's programs at full width, eager against graphed
+    (`eager_graphed`): the LM pose graph of FULL_NODES nodes from a seed
+    (a chain around a loop and FULL_LOOPS loop edges, padded to a multiple
+    of 4), `keyframe_bow` over a full store (max_keyframes rows) filled with
+    [4d]'s keyframes over and over, and BA at [10]'s size (64 keyframes,
+    4096 landmarks, 32768 observations); and `add_keyframe` on the full
+    store, eager and graphed, and `evict_keyframe` eager (it stays eager).
+    The pose graph and the BoW must be bit-identical graphed and eager.
+    BA's `index_add_` adds floats with atomics: where the eager solves agree
+    bit for bit, graphed must equal them; where they do not, each graphed
+    solve must lie within `torch_kernel_cases.BA_LIMITS` of its nearest
+    eager solve, field by field.  The limits are checked both ways: the
+    eager solves' spread must lie within them, and a planted fault (the
+    problem with one observation dropped, solved eagerly) must not."""
+    import torch
+
+    from bshot_slam_tpu_torch.backend import ba, loop_closure, posegraph
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+    from bshot_slam_tpu_torch.tools.run_ba_bench import problem_arrays
+    from bshot_slam_tpu_torch.utils import profiling
+    from tests.torch_kernel_cases import (BA_CASE, BA_LIMITS, ba_distance, ba_dropped,
+                                          ba_within, pose_graph_case)
+
+    out = {}
+    iters = cfg.backend.gn_iterations
+    g = posegraph.PoseGraph(**{k: torch.as_tensor(v, device=dev) for k, v in
+                               pose_graph_case(FULL_NODES, FULL_LOOPS, 12).items()})
+    graphs = Graphs(dev)
+    r = eager_graphed(lambda: posegraph.optimize_pose_graph(g, iterations=iters),
+                      lambda: graphs.pose_graph(g, iterations=iters))
+    res = r.pop("results")
+    first = res["eager"][0]
+    replay = lambda: graphs.pose_graph(g, iterations=iters)  # noqa: E731
+    kernels = profiling.profiled(replay, replay)
+    out["posegraph"] = dict(
+        r, nodes=FULL_NODES, edges=int(g.edge_i.shape[0]), masked=int((~g.edge_mask).sum()),
+        equal=bits_equal(res["eager"] + res["graphed"]), pool_bytes=pool_bytes(graphs),
+        cost=(float(first[1]), float(first[2])),
+        device_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+        top=[(e.key[:60], e.self_device_time_total / 1e3, e.count) for e in sorted(
+            kernels, key=lambda e: e.self_device_time_total, reverse=True)[:5]])
+    kf, n = bk_eng.keyframes, bk_eng._kf_count
+    rows = torch.arange(kf.descriptors.shape[0], device=dev) % n
+    store = kf._replace(descriptors=kf.descriptors[rows].contiguous(),
+                        kp_mask=kf.kp_mask[rows].contiguous())
+    graphs = Graphs(dev)
+    r = eager_graphed(lambda: (loop_closure.keyframe_bow(store),),
+                      lambda: (graphs.bow(store),))
+    res = r.pop("results")
+    out["bow"] = dict(r, rows=int(rows.shape[0]), filled_from=n,
+                      equal=bits_equal(res["eager"] + res["graphed"]),
+                      pool_bytes=pool_bytes(graphs))
+    arrays = problem_arrays(*BA_CASE)
+    prob, dropped = (ba.BAProblem(**{k: torch.as_tensor(v, device=dev) for k, v in a.items()})
+                     for a in (arrays, ba_dropped(arrays)))
+    graphs = Graphs(dev)
+    r = eager_graphed(lambda: ba.ba_solve(prob), lambda: graphs.ba(prob))
+    res = r.pop("results")
+    eager = res["eager"]
+    spread = [max(d) for d in zip(*[ba_distance(a, b) for i, a in enumerate(eager)
+                                    for b in eager[i + 1:]])]
+    graphed = [ba_within(gr, eager) for gr in res["graphed"]]
+    fault, fault_within = ba_within(tuple(ba.ba_solve(dropped)), eager)
+    deterministic = bits_equal(eager)
+    out["ba"] = dict(
+        r, eager_runs=len(eager), eager_deterministic=deterministic, spread=spread,
+        graphed_to_nearest_eager=[max(x) for x in zip(*[d for d, _ in graphed])],
+        fault=fault, limits=BA_LIMITS, limits_sound=not fault_within and all(
+            d <= lim for d, lim in zip(spread, BA_LIMITS)),
+        ok=(bits_equal(eager[:1] + res["graphed"]) if deterministic else
+            all(w for _, w in graphed)),
+        cost=(float(eager[0][2]), float(eager[0][3])), pool_bytes=pool_bytes(graphs))
+    # Keyframe add eager and graphed, evict eager, on [4d]'s full store
+    # (max_keyframes rows).
+    from bshot_slam_tpu_torch.backend import keyframes
+    from bshot_slam_tpu_torch.odometry.pipeline import FrameFeatures
+
+    feats = FrameFeatures(kf.keypoints[1], torch.zeros_like(kf.kp_mask[1], dtype=torch.float32),
+                          kf.descriptors[1], kf.kp_mask[1])
+    graphs = Graphs(dev)
+    frame = torch.tensor(7, dtype=torch.int32, device=dev)
+    for _ in range(2):  # the first call captures, the second replays
+        added = [keyframes.add_keyframe(kf, kf.poses[1], feats, frame, kf.obs_lm[1]),
+                 graphs.add_keyframe(kf, kf.poses[1], feats, frame, kf.obs_lm[1])]
+    out["keyframes"] = dict(
+        add_ms=time_ms(lambda: keyframes.add_keyframe(kf, kf.poses[1], feats, frame,
+                                                       kf.obs_lm[1])),
+        evict_ms=time_ms(lambda: keyframes.evict_keyframe(kf, n // 2)),
+        add_graphed_ms=time_ms(lambda: graphs.add_keyframe(kf, kf.poses[1], feats, frame,
+                                                           kf.obs_lm[1])),
+        equal=bits_equal(added),
+        rows=int(kf.poses.shape[0]), adds_per_pass=n / max(1, len(bk_passes)))
+    return out
+
+
+def shared_graphs_phase(cfg, sweeps, dev) -> dict:
+    """Phase [13]: two engines whose configurations differ only in the RANSAC
+    inlier threshold share one `Graphs`, in turns; each one's records over
+    the frames equal its own `graphs=False` run bit for bit (a key without
+    the configuration would replay the first engine's threshold); and the
+    host cost of hashing the configuration, which each step's key does."""
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+
+    other = dataclasses.replace(cfg, match=dataclasses.replace(
+        cfg.match, ransac_inlier_th_mm=0.5 * cfg.match.ransac_inlier_th_mm))
+    shared = Graphs(dev)
+    equal, records = [], []
+    for c in (cfg, other):
+        runs = []
+        for graphs in (shared, False):
+            eng = SlamEngine(c, seed=0, device=dev, graphs=graphs)
+            eng.state = eng.state._replace(map=prefilled_map(c, dev))
+            for sw in sweeps:
+                eng.process_sweep(sw)
+            runs.append(record_bytes(eng))
+        equal.append(runs[0] == runs[1])
+        records.append(runs[1])
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        hash(cfg)
+    return dict(equal=equal, differ=records[0] != records[1],
+                keys=[k[0] for k in shared._graphs],
+                configs=len({k[-1] for k in shared._graphs}),
+                hash_us=(time.perf_counter() - t0) / n * 1e6)
+
+
+def state_bytes(graphs) -> int:
+    """Bytes of the state buffers a `Graphs` keeps (one set per capacity)."""
+    from bshot_slam_tpu_torch.odometry.graphs import leaves
+
+    return sum(t.numel() * t.element_size() for st in graphs._states.values()
+               for t in leaves(st))
+
+
+def at_capacity(cfg, dev, rows: int, n: int):
+    """[4]'s far prefill of n landmarks in a map of `rows` rows."""
+    m = prefilled_map(cfg, dev, n=n)
+    cap = m.positions.shape[0]
+    return m._replace(**{f: getattr(m, f)[:rows] for f in m._fields
+                         if getattr(m, f).dim() and getattr(m, f).shape[0] == cap})
+
+
+def pool_phase(cfg, sweeps, drive_sweeps, dev, graphs) -> dict:
+    """Phase [14]: the keys a long drive gathers in one engine's `Graphs`,
+    added to `graphs` ([4d]'s drive's, which [11] replayed: its steps, loop
+    pair, histograms, keyframe add and 8- to 128-node programs).  A graphed
+    engine on `graphs` runs every map bucket: for each capacity in turn the
+    map is prefilled to 650 rows under it (the frames' inserts may grow
+    it), and three frames run at three cloud buckets (a frame's cloud cut
+    to CUT_POINTS points, the whole frame, two frames' points together).
+    Then the pose graph at every node bucket (8 to max_keyframes) with each
+    loop-edge padding a pass can make (0, 4, 8 or 12 loop edges: at most 8
+    proximity and `lc_appearance_top` appearance pairs), the corrections at
+    every node bucket with a drive's frame bucket (5 frames a keyframe) on
+    the largest map, and BA at [10]'s size (`run_odometry.py --ba`).  Last,
+    a backend engine ([4d]'s) on `graphs` drives [4d]'s circle LONG_LAPS
+    times, so its keyframe store fills (max_keyframes) and evicts, and its
+    map grows to the largest bucket and evicts.  After each, the pool's
+    bytes and the state buffers'; the peak is the largest pool seen, and
+    must stay under POOL_LIMIT."""
+    from bshot_slam_tpu_torch.backend import ba, posegraph
+    from bshot_slam_tpu_torch.odometry.engine import SlamEngine, pick_bucket
+    from bshot_slam_tpu_torch.tools.run_ba_bench import problem_arrays
+    from tests.torch_kernel_cases import BA_CASE, pose_graph_case
+
+    import torch
+
+    eng = SlamEngine(cfg, seed=0, device=dev, graphs=graphs)
+    clouds = [frame_cloud(cfg, sw) for sw in sweeps]
+    rows = []
+
+    def cloud(points, nv):
+        pts = np.zeros((pick_bucket(nv, cfg), 3), np.float32)
+        pts[:nv] = points[:nv]
+        return pts, nv
+
+    def note(what):
+        torch.cuda.synchronize()
+        rows.append(dict(what=what, capacity=eng.state.map.positions.shape[0],
+                         pool_bytes=pool_bytes(graphs), state_bytes=state_bytes(graphs),
+                         graphs=len(graphs._graphs)))
+
+    note("the backend drive")
+    f = 0
+    for b in sorted(cfg.runtime.map_buckets):
+        eng.state = eng.state._replace(map=at_capacity(cfg, dev, b, b - 650))
+        (p0, n0), (p1, n1) = clouds[f % len(clouds)], clouds[(f + 1) % len(clouds)]
+        both = np.concatenate([p0[:n0], p1[:n1]])
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for pts, nv in (cloud(p0, min(n0, CUT_POINTS)), cloud(p0, n0),
+                            cloud(both, len(both))):
+                eng.process_compact(pts, nv)
+                note(f"capacity {b}, bucket {pts.shape[0]}")
+        f += 2
+    iters, m = cfg.backend.gn_iterations, 8
+    while m <= cfg.backend.max_keyframes:
+        for loops in (0, 4, 8, 12):
+            g = posegraph.PoseGraph(**{k: torch.as_tensor(v, device=dev) for k, v in
+                                       pose_graph_case(m, loops, m + loops).items()})
+            graphs.pose_graph(g, iterations=iters)
+        note(f"pose graph {m} nodes, {m - 1}-{m + 11} edges")
+        frames = 1 << (5 * m - 1).bit_length()
+        kf_frames = torch.arange(m, dtype=torch.int32, device=dev) * 5
+        graphs.corrections(cfg.map, torch.eye(4, device=dev).expand(m, 4, 4).contiguous(),
+                           kf_frames, torch.arange(frames, dtype=torch.int32, device=dev),
+                           eng.state.map)
+        note(f"corrections {m} keyframes, {frames} frames")
+        m *= 2
+    graphs.ba(ba.BAProblem(**{k: torch.as_tensor(v, device=dev)
+                              for k, v in problem_arrays(*BA_CASE).items()}))
+    note("BA")
+    eng = backend_engine(cfg, dev, graphs)
+    eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
+    passes, optimize = [], eng.optimize_backend
+
+    def timed_optimize(*a, **k):
+        t0 = time.perf_counter()
+        out = optimize(*a, **k)
+        torch.cuda.synchronize()
+        passes.append((eng._kf_count, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    eng.optimize_backend = timed_optimize
+    frames = LONG_LAPS * len(drive_sweeps)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for i in range(frames):
+            eng.process_sweep(drive_sweeps[i % len(drive_sweeps)])
+        eng.flush()
+    torch.cuda.synchronize()
+    long = dict(frames=frames, s=time.perf_counter() - t0, records=len(eng.records),
+                finite=bool(np.isfinite(eng.trajectory).all()), keyframes=eng._kf_count,
+                kf_evicted=eng.n_kf_evicted, map_evicted=eng.n_evicted,
+                closures=len(eng.loop_edges), map_size=eng.records[-1].map_size,
+                full_passes=[ms for n, ms in passes if n >= cfg.backend.max_keyframes // 2],
+                passes=len(passes))
+    note(f"a {frames}-frame drive ({eng._kf_count} keyframes, {eng.n_kf_evicted} evicted)")
+    return dict(rows=rows, peak=max(r["pool_bytes"] for r in rows), long=long,
+                states_peak=max(r["state_bytes"] for r in rows),
+                programs=collections.Counter(k[0] for k in graphs._graphs),
+                reserved=torch.cuda.memory_reserved(dev))
 
 
 # ---------------------------------------------------------------------------
@@ -1813,10 +2259,12 @@ def main() -> int:
     for i, ps in enumerate(bk["passes"]):
         print(f"[4d] backend pass {i}: {ps['keyframes']} keyframes, "
               f"{ps['verified']} pairs verified, {ps['closures']} closures, best "
-              f"candidate {ps['best_inliers']} inliers, {ps['ms']:.1f} ms ("
-              f"find_loop_closures {ps['loop_ms']:.1f} ms of it), kernel C "
+              f"candidate {ps['best_inliers']} inliers, {ps['ms']:.1f} ms + corrections "
+              f"{ps['corr_ms']:.1f} ms; by part (ms) {parts_line(ps['parts'])}; kernel C "
               f"x{ps['launches']['hamming_nn_bounded']}, D "
               f"x{ps['launches']['euclid_nn_bounded']}", flush=True)
+    print(f"[4d] device launches by part of one more pass (torch.profiler): "
+          f"{bk['part_launches']}", flush=True)
     print(f"[4d] backend drive: {N_DRIVE} frames in {bk['wall_s']:.1f} s "
           f"({bk['fps']:.3f} frames/s with the passes), {bk['keyframes']} keyframes, "
           f"map {bk['map_size']}, evicted {bk['n_evicted']}; ATE {bk['ate_before']:.1f} "
@@ -2086,19 +2534,98 @@ def main() -> int:
     print(f"[11] backend_129: records bit-identical {b['records_equal']}, loop edges "
           f"bit-identical {b['edges_equal']} ({b['closures']} closures); frames/s with "
           f"the passes {({k: round(v, 3) for k, v in b['fps'].items()})}; pass ms "
-          f"{({k: [round(x, 1) for x in v] for k, v in b['pass_ms'].items()})}, of which "
-          f"find_loop_closures {({k: [round(x, 1) for x in v] for k, v in b['loop_ms'].items()})}; "
+          f"{({k: [round(x, 1) for x in v] for k, v in b['pass_ms'].items()})}, then "
+          f"corrections {({k: [round(x, 1) for x in v] for k, v in b['corr_ms'].items()})}; "
+          f"ms a pass by part, eager {parts_line(b['parts']['eager'])}, graphed "
+          f"{parts_line(b['parts']['graphed'])}; device launches by part of one pass, "
+          f"eager {b['part_launches']['eager']}, graphed {b['part_launches']['graphed']}; "
+          f"the final pass's records, corrections and keyframes bit-identical "
+          f"{b['final_equal']}; "
           f"launches a frame eager {b['per_frame']['eager']:.2f}, graphed "
           f"{b['per_frame']['graphed']:.2f} (equal: {b['launches_equal']}); first run's "
-          f"captures {b['captures']} ({b['pair_graphs']} loop pair) in "
+          f"captures {b['captures']} ({b['pair_graphs']} loop pair; programs "
+          f"{b['programs']}) in "
           f"{b['capture_s']:.3f} s, pool {b['pool_bytes']} bytes", flush=True)
     if not (spk["equal"] and spk["buckets"] == spk["buckets_graphed"]):
         bad.append("spike")
     if not (b["records_equal"] and b["edges_equal"] and b["launches_equal"]
-            and b["pair_graphs"]):
+            and b["final_equal"]
+            and {"pair", "bow", "posegraph", "corr", "kf_add"} <= set(b["programs"])):
         bad.append("backend_129")
     if bad:
         raise SmokeError(f"graphed runs differ from eager ones: {bad}")
+
+    fw = full_width_phase(cfg, dev, bk["eng"], bk["passes"])
+    k = fw.pop("keyframes")
+    print(f"[12] {card}: keyframe add {k['add_ms']:.4f} ms eager, "
+          f"{k['add_graphed_ms']:.4f} ms graphed (copies in and out included), evict "
+          f"{k['evict_ms']:.4f} ms eager (not graphed), on a {k['rows']}-row store (CUDA "
+          f"events, median of 25), graphed add bit-identical to eager {k['equal']}; [4d] "
+          f"added {k['adds_per_pass']:.1f} keyframes a pass", flush=True)
+    if not k["equal"]:
+        raise SmokeError("a keyframe add replayed from its graph differs")
+    for name, r in fw.items():
+        what = {"posegraph": f"{r.get('nodes')} nodes, {r.get('edges')} edges "
+                             f"({r.get('masked')} masked), cost {r.get('cost')}",
+                "bow": f"{r.get('rows')} rows filled from [4d]'s {r.get('filled_from')} "
+                       "keyframes",
+                "ba": f"64 keyframes, 4096 landmarks, 32768 observations, cost "
+                      f"{r.get('cost')}"}[name]
+        print(f"[12] {card}: {name} at full width ({what}): eager {r['eager_ms']:.3f} ms, "
+              f"graphed {r['graphed_ms']:.3f} ms (median of 5, in turns); device "
+              f"launches a call eager {r['eager_launches']}, graphed "
+              f"{r['graphed_launches']}; capture {r['capture_s']:.3f} s; pool "
+              f"{r['pool_bytes']} bytes; "
+              + (f"graphed bit-identical to eager: {r['equal']}" if name != "ba" else
+                 f"{r['eager_runs']} eager runs bit-identical: {r['eager_deterministic']}, "
+                 f"their spread by field {r['spread']}, each graphed run to its nearest "
+                 f"eager run {r['graphed_to_nearest_eager']}: within the limits "
+                 f"{r['limits']} {r['ok']}; one observation dropped (a planted fault) "
+                 f"{r['fault']} from them; limits between the two {r['limits_sound']}"),
+              flush=True)
+    pg = fw["posegraph"]
+    print(f"[12] the {FULL_NODES}-node pose graph replayed: {pg['device_ms']:.3f} device-ms "
+          f"a solve ({cfg.backend.gn_iterations} LM iterations); heaviest: "
+          + "; ".join(f"{k} {ms:.3f} ms x{c}" for k, ms, c in pg["top"]), flush=True)
+    if not (fw["posegraph"]["equal"] and fw["bow"]["equal"] and fw["ba"]["ok"]):
+        raise SmokeError("a backend program replayed from its graph differs from the "
+                         "eager one (BA: beyond its limits)")
+    if not fw["ba"]["limits_sound"]:
+        raise SmokeError("BA's limits do not lie between the eager solves' spread and "
+                         "the planted fault")
+
+    sh = shared_graphs_phase(cfg, sweeps[:8], dev)
+    print(f"[13] two configurations (ransac_inlier_th_mm {cfg.match.ransac_inlier_th_mm} "
+          f"and half of it) sharing one Graphs over 8 frames: each bit-identical to its "
+          f"own graphs=False run {sh['equal']}; their records differ {sh['differ']}; "
+          f"graph keys {sh['keys']} over {sh['configs']} configurations; hashing the "
+          f"configuration {sh['hash_us']:.2f} us on this host", flush=True)
+    if not (all(sh["equal"]) and sh["configs"] == 2):
+        raise SmokeError("a Graphs shared by two configurations replays the wrong one")
+
+    pl = pool_phase(cfg, sweeps, drive_sweeps, dev, bk["eng"].graphs)
+    for r in pl["rows"]:
+        print(f"[14] after {r['what']}: map capacity {r['capacity']}, {r['graphs']} graphs, "
+              f"pool {r['pool_bytes']} bytes, state buffers {r['state_bytes']} bytes",
+              flush=True)
+    print(f"[14] {card}: the pool's peak {pl['peak']} bytes (limit {POOL_LIMIT}) over "
+          f"{dict(pl['programs'])} graphs in one Graphs, the state buffers' "
+          f"{pl['states_peak']} bytes; the allocator holds {pl['reserved']} bytes in all",
+          flush=True)
+    lg = pl["long"]
+    print(f"[14] {card}: the long drive, {lg['frames']} frames in {lg['s']:.1f} s "
+          f"({lg['frames'] / lg['s']:.3f} frames/s with {lg['passes']} passes): "
+          f"{lg['records']} records, finite {lg['finite']}; {lg['keyframes']} keyframes, "
+          f"{lg['kf_evicted']} evicted; map {lg['map_size']}, {lg['map_evicted']} "
+          f"landmarks evicted; {lg['closures']} closures; passes at 256 or more keyframes "
+          f"(ms) {[round(x, 1) for x in lg['full_passes']]}", flush=True)
+    if not (lg["records"] == lg["frames"] and lg["finite"]
+            and lg["keyframes"] == cfg.backend.max_keyframes and lg["kf_evicted"] > 0):
+        raise SmokeError("the long drive lost records, went non-finite or never "
+                         "filled its keyframe store")
+    if pl["peak"] is None or pl["peak"] > POOL_LIMIT:
+        raise SmokeError(f"the graphs' pool reached {pl['peak']} bytes, over "
+                         f"{POOL_LIMIT} (or unmeasured)")
 
     paths = {"sync_24": res["launches"], "pipelined_24": pipe["launches"],
              "eviction_8": ev["launches"], "backend_129": bk["launches"],
@@ -2143,7 +2670,7 @@ def main() -> int:
                 shapes=lr["shapes"], launches=loop_cd[r["name"]],
                 passes=len(bk["passes"]))
         kernels.append(k)
-    print(f"[12] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[15] whole script {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

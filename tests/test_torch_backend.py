@@ -9,7 +9,7 @@ the CPU).  Tolerances, each measured before it was set:
   131072-row map whose float32 scores pass 2^24 and round into ties,
   `n_evict` above the valid rows, an empty map.
 - Keyframes (add, a full store dropping the append, evict, the eviction
-  slot picker): exact.
+  slot picker where a slot is a candidate): exact.
 - `interpolate_corrections`: rotations within 1e-5, translations within
   1e-5 of the largest (measured: 6.0e-8; 7.2e-4 mm on translations up to
   694 mm, 1.0e-6 of it); `reanchor_map` given the same corrections:
@@ -137,10 +137,15 @@ def test_keyframes_exact():
             ts = tkf.evict_keyframe(ts, arg)
         same(f"{op} {arg}")
     assert int(ts.count) == Mk - 2  # full after Mk adds; two drops; 3 evictions, 1 add
-    # The host-side policy, on random positions and every count.
+    # The host-side policy, on random positions and every count that has a
+    # candidate slot (below 3 the reference returns slot 1, which is past
+    # the store or protected; the port raises).
     pos = rng.uniform(-5e4, 5e4, (40, 3))
-    for count in range(1, 41):
+    for count in range(3, 41):
         assert tkf.pick_eviction_slot(pos, count) == jkf.pick_eviction_slot(pos, count)
+    for count in (1, 2):
+        with pytest.raises(ValueError):
+            tkf.pick_eviction_slot(pos, count)
     a = np.eye(4)
     for t_mm, since in [(100.0, 1), (2500.0, 1), (0.0, 7)]:
         b = np.eye(4)

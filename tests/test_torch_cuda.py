@@ -18,7 +18,11 @@ bit for bit.  The engine through its CUDA graphs (`odometry.graphs`:
 synchronous and pipelined, host and device preprocess, through a window
 overflow, with the backend's pair verification) equals `graphs=False` bit
 for bit and counts the same kernel launches; a capture that meets a host
-synchronisation raises.
+synchronisation raises.  Two engines whose configurations differ only in a
+threshold share one `Graphs` and each equals its own `graphs=False` run;
+the backend's pose graph, keyframe histograms and BA replayed from their
+graphs equal the eager calls (BA: within fixed limits of its nearest eager
+run, whose `index_add_` adds floats with atomics; a planted fault is not).
 """
 
 import numpy as np
@@ -461,13 +465,14 @@ def test_graphed_engine_matches_eager_on_card(dev, mode):
     keyframes and loop edges), with the same kernel launches counted."""
     (g, g_launch), (e, e_launch) = (_graph_drive(dev, flag, **dict(mode))
                                     for flag in (True, False))
-    assert e.graphs is None and g.graphs.captures == len(g.graphs._graphs) >= 1
+    assert e.graphs.eager and g.graphs.captures == len(g.graphs._graphs) >= 1
     assert _record_bits(g) == _record_bits(e) and len(g.records) == 6
     assert g_launch == e_launch and g_launch[0] > 0
     if mode.get("enable_backend"):
         assert [(x.kf_i, x.kf_j, x.n_inliers, x.z.tobytes()) for x in g.loop_edges] == \
             [(x.kf_i, x.kf_j, x.n_inliers, x.z.tobytes()) for x in e.loop_edges]
-        assert any(k[0] == "pair" for k in g.graphs._graphs)
+        assert {"pair", "bow", "posegraph", "corr", "kf_add"} <= {
+            k[0] for k in g.graphs._graphs}
 
 
 @pytest.mark.parametrize("pipelined", [False, True])
@@ -511,3 +516,110 @@ def test_capture_with_host_sync_raises(dev):
         graphs.run("sync", lambda t: ((t * float(t.sum()),), []), (x,))
     assert graphs.captures == 0 and not graphs._graphs
     torch.cuda.synchronize()
+
+
+def test_shared_graphs_key_the_config_on_card(dev):
+    """Engines of two configurations that differ only in the RANSAC inlier
+    threshold replay from one `Graphs`, one after the other (engines that
+    share a `Graphs` share its state buffers, so they do not step in turns):
+    each one's records equal its own eager run's (a key without the
+    configuration would replay the first engine's threshold)."""
+    import dataclasses
+
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+
+    base = tiny_config()
+    other = dataclasses.replace(base, match=dataclasses.replace(
+        base.match, ransac_inlier_th_mm=0.5 * base.match.ransac_inlier_th_mm))
+    sweeps, _ = synthetic.render_sequence(5, base.sensor, step_mm=300.0, seed=3,
+                                          yaw_rate_rad=2 * np.pi / 6,
+                                          n_firings=base.sensor.n_azimuth)
+    shared = Graphs(dev)
+    engines = {(c, g): SlamEngine(c, seed=0, tile=256, device=dev, graphs=g)
+               for c in (base, other) for g in (shared, False)}
+    for eng in engines.values():
+        for sw in sweeps:
+            eng.process_sweep(sw)
+    torch.cuda.synchronize()
+    for c in (base, other):
+        assert _record_bits(engines[c, shared]) == _record_bits(engines[c, False])
+    assert _record_bits(engines[base, False]) != _record_bits(engines[other, False])
+    assert len({k[-1] for k in shared._graphs}) == 2
+
+
+def _bits(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("M,n_loops", [(16, 0), (128, 7)])
+def test_graphed_pose_graph_on_card(dev, M, n_loops):
+    """The LM pose graph replayed from its graph equals the eager solve bit
+    for bit, for three graphs through one key."""
+    from bshot_slam_tpu_torch.backend import posegraph
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+    from tests.torch_kernel_cases import pose_graph_case
+
+    graphs = Graphs(dev)
+    for seed in (1, 2, 3):  # the first captures, the others replay
+        g = posegraph.PoseGraph(**{k: torch.as_tensor(v, device=dev) for k, v in
+                                   pose_graph_case(M, n_loops, seed).items()})
+        got = graphs.pose_graph(g, iterations=10)
+        want = posegraph.optimize_pose_graph(g, iterations=10)
+        for a, b in zip(got, want):
+            assert torch.equal(_bits(a), _bits(b))
+    assert graphs.captures == 1 and float(want.final_cost) <= float(want.initial_cost)
+
+
+def test_graphed_bow_on_card(dev):
+    """The keyframe histograms of a whole store replayed from their graph
+    equal the eager call bit for bit.  Its first n rows equal the n-row call
+    to float32 rounding only: on the card a reduction's launch shape
+    depends on the row count, so the sums may round differently (on the CPU
+    they are bit-equal, tests/test_torch_backend_graphs.py)."""
+    from bshot_slam_tpu_torch.backend import keyframes, loop_closure
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+
+    cfg = tiny_config()
+    rng = np.random.default_rng(4)
+    store = keyframes.init_keyframes(cfg, device=dev)
+    graphs = Graphs(dev)
+    for n in (5, 11):  # the first captures, the second replays
+        words = rng.integers(-2**31, 2**31, store.descriptors.shape).astype(np.int32)
+        mask = (np.arange(store.kp_mask.shape[0])[:, None] < n) & (
+            rng.random(store.kp_mask.shape) < 0.8)
+        store = store._replace(descriptors=torch.as_tensor(words, device=dev),
+                               kp_mask=torch.as_tensor(mask, device=dev))
+        got, want = graphs.bow(store), loop_closure.keyframe_bow(store)
+        assert torch.equal(_bits(got), _bits(want))
+        torch.testing.assert_close(want[:n], loop_closure.keyframe_bow(store, n),
+                                   rtol=0, atol=1e-6)
+    assert graphs.captures == 1
+
+
+def test_graphed_ba_on_card(dev):
+    """BA replayed from its graph: each field within its fixed limit
+    (`torch_kernel_cases.BA_LIMITS`) of the nearest eager solve (eager
+    solves differ in the last bits: `index_add_` adds with atomics); the
+    eager solves' spread lies within the limits, and the problem with one
+    observation dropped does not."""
+    from bshot_slam_tpu_torch.backend import ba
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+    from bshot_slam_tpu_torch.tools.run_ba_bench import problem_arrays
+    from tests.torch_kernel_cases import (BA_CASE, BA_LIMITS, ba_distance, ba_dropped,
+                                          ba_within)
+
+    arrays = problem_arrays(*BA_CASE)
+    prob, dropped = (ba.BAProblem(**{k: torch.as_tensor(v, device=dev) for k, v in a.items()})
+                     for a in (arrays, ba_dropped(arrays)))
+    eager = [ba.ba_solve(prob) for _ in range(5)]
+    graphs = Graphs(dev)
+    graphed = [graphs.ba(prob) for _ in range(3)]  # the first captures
+    for g in graphed:
+        near, within = ba_within(g, eager)
+        assert within, (near, BA_LIMITS)
+    for i, a in enumerate(eager):
+        for b in eager[i + 1:]:
+            assert all(d <= lim for d, lim in zip(ba_distance(a, b), BA_LIMITS))
+    assert not ba_within(ba.ba_solve(dropped), eager)[1]
+    assert graphs.captures == 1
+    assert float(eager[0].final_cost) < float(eager[0].initial_cost)

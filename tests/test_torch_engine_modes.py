@@ -20,7 +20,10 @@
     engines evict; the keyframe store saturates, so both evict keyframes;
     the passes at frames 3 and 6 verify closures, optimise the pose graph
     and re-anchor the map.  Held: integer fields, the keyframe store's
-    integer fields and the loop edges exact; poses (every record, after
+    integer fields and the loop edges exact (by their keyframes' frame
+    numbers: where a keyframe eviction shifts the rows, the reference keeps
+    each edge's old row numbers and the port remaps them, dropping the
+    evicted keyframe's edges); poses (every record, after
     the corrections too) and keyframe poses within 2 mm and 1e-4 rad;
     landmark positions within one 10 mm snap.  Measured: 1.43 mm on the
     step after the first correction, <= 0.08 mm elsewhere; loop
@@ -282,6 +285,7 @@ def per_step():
             after.append(snapshot())
 
     got = []
+    by_frame = _edges_by_frame(after)
     with pytest.MonkeyPatch.context() as mp:
         frame = iter(feats)
         mp.setattr(tpipe, "compute_features", lambda *a, **k: next(frame))
@@ -293,12 +297,34 @@ def per_step():
             te.keyframes = convert.keyframes_from_numpy(kf, device="cpu")
             for m, v in copy.deepcopy(mir).items():
                 setattr(te, m, v)
+            if i:  # the edges at the rows of this store (see _edges_by_frame)
+                row = {f: r for r, f in enumerate(kf["frame_idx"][:mir["_kf_count"]].tolist())}
+                te.loop_edges = [e._replace(kf_i=row[fi], kf_j=row[fj])
+                                 for fi, fj, e in by_frame[i - 1]]
             te.records = copy.deepcopy(recs)
             te.process_sweep(sw)
             got.append((convert.state_to_numpy(te.state),
                         convert.keyframes_to_numpy(te.keyframes),
                         {m: getattr(te, m) for m in mirrors}, te.records))
     return after, got, draws, (steps, feats)
+
+
+def _edges_by_frame(after):
+    """The reference's loop edges after each step, by the frame numbers of
+    their keyframes: (frame of kf_i, frame of kf_j, edge).  A pass (at
+    records 3 and 6) finds them on that step's store; a keyframe evicted
+    later takes its edges with it.  (The reference keeps an edge's row
+    numbers when a keyframe eviction shifts the rows, so they point at other
+    keyframes; the port remaps them and drops the evicted one's.)"""
+    out, edges = [], []
+    for i, (_, kf, mir, _) in enumerate(after):
+        frames = kf["frame_idx"]
+        if (i + 1) % 3 == 0:
+            edges = [(int(frames[e.kf_i]), int(frames[e.kf_j]), e) for e in mir["loop_edges"]]
+        live = set(frames[:mir["_kf_count"]].tolist())
+        edges = [x for x in edges if x[0] in live and x[1] in live]
+        out.append(edges)
+    return out
 
 
 def _pose_close(a, b, mm=1.0, rad=1e-4):
@@ -312,6 +338,8 @@ def test_engine_with_backend_matches_reference_per_step(per_step):
     assert after[-1][2]["n_kf_evicted"] > 0  # the keyframe store saturated
     assert any(len(d) > 1 for d in draws)  # a pass verified pairs
     assert after[-1][2]["loop_edges"]  # closures verified
+    by_frame = _edges_by_frame(after)
+    assert any(len(e) < len(a[2]["loop_edges"]) for e, a in zip(by_frame, after))  # dropped
     for i, (want, have) in enumerate(zip(after, got)):
         (wst, wkf, wmir, wrecs), (gst, gkf, gmir, grecs) = want, have
         assert gmir["n_evicted"] == wmir["n_evicted"], f"frame {i}"
@@ -325,8 +353,9 @@ def test_engine_with_backend_matches_reference_per_step(per_step):
         for f in ("count", "frame_idx", "obs_lm", "kp_mask", "descriptors", "keypoints"):
             np.testing.assert_array_equal(gkf[f], wkf[f], err_msg=f"frame {i} {f}")
         _pose_close(gkf["poses"], wkf["poses"], mm=2.0)
-        assert [(e.kf_i, e.kf_j, e.n_inliers) for e in gmir["loop_edges"]] == \
-            [(e.kf_i, e.kf_j, e.n_inliers) for e in wmir["loop_edges"]]
+        frames = gkf["frame_idx"]
+        assert [(frames[e.kf_i], frames[e.kf_j], e.n_inliers) for e in gmir["loop_edges"]] == \
+            [(fi, fj, e.n_inliers) for fi, fj, e in by_frame[i]], f"frame {i}"
         for f in ("cursor", "valid", "frame_born", "descriptors", "seg_ratios"):
             np.testing.assert_array_equal(gst[f"map.{f}"], wst[f"map.{f}"],
                                           err_msg=f"frame {i} {f}")

@@ -31,8 +31,10 @@ in one buffer set per map capacity, outputs copied out.
     bit against the eager call; `find_loop_closures` through graphs
     against `graphs=False`, with a generator's draws (drawn before each
     pair) and with injected ones.
-(e) The pipelined engine with the backend through its graphs against
-    `graphs=False`: records, keyframe store and loop edges bit for bit.
+(e) The pipelined engine with the backend through its graphs (the pairs,
+    the keyframe histograms, the pose graph, the corrections and the
+    keyframe adds) against `graphs=False`: records, keyframe store and loop
+    edges bit for bit.
 (f) A call whose input does not match its key's static buffer raises.
 """
 
@@ -333,7 +335,8 @@ def test_graphed_backend_engine_matches_eager():
     for k in ("src_world", "index", "inlier"):
         np.testing.assert_array_equal(graphed.last_corr[k], eager.last_corr[k])
     assert eager.backend_stats["verified"] > 0
-    assert any(k[0] == "pair" for k in graphed.graphs._graphs)
+    assert {"pair", "bow", "posegraph", "corr", "kf_add"} <= {
+        k[0] for k in graphed.graphs._graphs}
 
 
 def test_mismatched_input_raises():

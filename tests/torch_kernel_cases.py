@@ -541,3 +541,93 @@ def iss_corners(seed: int = 1, n: int = 8, side: float = 400.0, step: float = 20
     pts = np.concatenate(parts).astype(np.float32)
     pts += rng.normal(0, 2.0, pts.shape).astype(np.float32)
     return pts, rng.random(len(pts)) > 0.05
+
+
+def _rot(axis_angle: np.ndarray) -> np.ndarray:
+    """Rodrigues' rotation of an axis-angle vector."""
+    th = np.linalg.norm(axis_angle)
+    if th < 1e-12:
+        return np.eye(3)
+    k = axis_angle / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def pose_graph_case(M: int, n_loops: int, seed: int, radius: float = 20000.0,
+                    weight: float = 400.0, loop_weight: float = 44.4) -> dict:
+    """A pose graph as the engine builds one: M nodes around a circle with
+    noisy odometry (drift), the chain edges measured from the drifted
+    poses, and n_loops loop edges between nodes at least M/4 apart measured
+    from the true poses, padded to a multiple of 4 with masked identity
+    edges.  The `PoseGraph` fields as numpy arrays (indices int64)."""
+    rng = np.random.default_rng(seed)
+    th = 2 * np.pi * np.arange(M) / M
+    gt = np.tile(np.eye(4), (M, 1, 1))
+    gt[:, 0, 0], gt[:, 0, 1], gt[:, 1, 0], gt[:, 1, 1] = (np.cos(th), -np.sin(th),
+                                                          np.sin(th), np.cos(th))
+    gt[:, 0, 3], gt[:, 1, 3] = radius * (1 - np.cos(th)), radius * np.sin(th)
+    drift = [gt[0]]
+    for i in range(1, M):
+        dz = np.linalg.inv(gt[i - 1]) @ gt[i]
+        noise = np.eye(4)
+        noise[:3, :3] = _rot(rng.normal(0, 0.005, 3))
+        noise[:3, 3] = rng.normal(0, 40.0, 3)
+        drift.append(drift[-1] @ dz @ noise)
+    poses = np.stack(drift)
+    i = np.arange(M - 1)
+    edge_i, edge_j = list(i), list(i + 1)
+    edge_z = list(np.linalg.inv(poses[i]) @ poses[i + 1])
+    edge_w = [weight] * (M - 1)
+    for _ in range(n_loops):
+        a = int(rng.integers(0, M))
+        b = (a + int(rng.integers(M // 4, M - M // 4 + 1))) % M
+        edge_i.append(b)
+        edge_j.append(a)
+        edge_z.append(np.linalg.inv(gt[b]) @ gt[a])
+        edge_w.append(loop_weight)
+    pad = (-n_loops) % 4 if n_loops else 0
+    E = len(edge_i) + pad
+    return dict(
+        poses0=poses.astype(np.float32),
+        edge_i=np.asarray(edge_i + [0] * pad, np.int64),
+        edge_j=np.asarray(edge_j + [0] * pad, np.int64),
+        edge_z=np.asarray(edge_z + [np.eye(4)] * pad, np.float32),
+        edge_weight=np.asarray(edge_w + [0.0] * pad, np.float32),
+        edge_mask=np.arange(E) < E - pad,
+    )
+
+
+# BA replayed from its graph against eager solves on the card, where
+# `index_add_` adds floats with atomics and two eager solves of one problem
+# may differ in the last bits.  BA_CASE is the (keyframes, landmarks,
+# observations a keyframe) of the problem (`tools/run_ba_bench.py`'s
+# `problem_arrays`); BA_LIMITS the largest distance, per `BAResult` field
+# (poses, landmarks in mm; initial and final cost), a graphed solve may lie
+# from its nearest eager solve.  Fixed, and set between the eager solves'
+# spread on the card and the reading of a planted fault (`ba_dropped`: one
+# observation dropped), both of which `chip_smoke.py` [12] prints: the
+# initial cost is a plain sum (0 allowed); the final cost moves less under
+# the fault than the landmarks do, so its limit only bounds gross errors.
+BA_CASE = (64, 4096, 512)
+BA_LIMITS = (0.02, 0.1, 0.0, 1e-4)
+
+
+def ba_dropped(arrays: dict, k: int = 0) -> dict:
+    """`problem_arrays`' problem with observation k dropped: the planted
+    fault the BA limits must catch."""
+    mask = arrays["obs_mask"].copy()
+    mask[k] = False
+    return dict(arrays, obs_mask=mask)
+
+
+def ba_distance(a: tuple, b: tuple) -> list:
+    """Each field's largest absolute difference between two BA results
+    (tuples of arrays or tensors with `.double()`)."""
+    return [float(abs(x.double() - y.double()).max()) for x, y in zip(a, b)]
+
+
+def ba_within(result: tuple, eager: list) -> tuple[list, bool]:
+    """(each field's distance from `result` to its nearest eager result,
+    whether every one is within BA_LIMITS)."""
+    near = [min(d) for d in zip(*[ba_distance(result, e) for e in eager])]
+    return near, all(d <= lim for d, lim in zip(near, BA_LIMITS))
