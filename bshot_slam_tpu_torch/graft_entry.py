@@ -6,10 +6,12 @@ The port's counterpart of the repository's root `__graft_entry__.py`:
     python -m bshot_slam_tpu_torch.graft_entry --dryrun N [--cpu] [--dist-backend gloo]
 
 `entry()` is one full scan-to-map frame at the tiny configuration;
-`dryrun_multichip(n)` runs one sharded step (`parallel.sharded`) over n
+`dryrun_multichip(n)` runs two sharded steps (`parallel.sharded`) over n
 ranks of a process group, each a process of its own, on the cards (rank r on
 card r modulo the cards) or, with `--cpu`, on the CPU.  Ranks that share a
-card need `--dist-backend gloo` (NCCL refuses a duplicate GPU).
+card need `--dist-backend gloo` (NCCL refuses a duplicate GPU).  On NCCL the
+step is captured as a CUDA graph at its first call and replayed at its
+second; the summary gives the captures (0 on gloo or the CPU).
 """
 
 from __future__ import annotations
@@ -66,16 +68,19 @@ def _dryrun_rank(rank: int) -> dict:
     mesh = sharded.make_mesh()
     step, place = sharded.sharded_odometry_step(mesh, cfg, tile=TILE)
     state, pts, pmask, gen = _example_inputs(cfg, sharded.mesh_device(mesh))
-    state, diag = step(place(state), pts, pmask, gen)
+    state = place(state)
+    for _ in range(2):  # on NCCL the first captures, the second replays
+        state, diag = step(state, pts, pmask, gen)
     return dict(mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
                 map_rows=state.map.positions.shape[0],
                 map_size=int(diag.map_size), pose=diag.pose.cpu().numpy(),
-                collectives=sum(c["calls"] for c in comm.counts().values()))
+                collectives=sum(c["calls"] for c in comm.counts().values()),
+                captures=step.graphs.captures, graphed=not step.graphs.eager)
 
 
 def dryrun_multichip(n_ranks: int, device: str = "cuda",
                      backend: str | None = None) -> list:
-    """One sharded odometry step over n ranks ("data" x "map" mesh,
+    """Two sharded odometry steps over n ranks ("data" x "map" mesh,
     `sharded.make_mesh`), each rank a spawned process; returns each rank's
     summary and raises when a rank fails, finds an empty map, or disagrees
     with rank 0 on the pose."""
@@ -90,6 +95,7 @@ def dryrun_multichip(n_ranks: int, device: str = "cuda",
     print(f"dryrun_multichip OK on {n_ranks} ranks ({device}): mesh "
           f"{out[0]['mesh']}, {out[0]['map_rows']} map rows per rank, "
           f"map_size={out[0]['map_size']}, {out[0]['collectives']} collectives, "
+          f"graphed {out[0]['graphed']} ({out[0]['captures']} captures), "
           f"pose=\n{out[0]['pose']}")
     return out
 

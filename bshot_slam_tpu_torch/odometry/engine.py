@@ -18,9 +18,10 @@ The pipelined engine (`pipelined=True`) dispatches each frame
 without a host sync (`pipeline.odometry_step_deferred`) and fetches the
 rows of `fetch_every` frames in one device-to-host copy; a frame whose
 match or dedup window overflowed aborts on the device, and at the drain it
-and every later in-flight frame are re-run in order through the
-synchronous step with the clouds and RANSAC draws they were dispatched
-with, so the records are the synchronous engine's.  At the map's hard
+and every later in-flight frame are re-run in order without window
+compaction (lossless, as the synchronous step's fallback) with the clouds
+and RANSAC draws they were dispatched with, so the records are the
+synchronous engine's.  At the map's hard
 capacity the weakest keypoints of the densest blocks are evicted.  The
 optional backend (`enable_backend`) collects keyframes, and
 `optimize_backend` / `apply_backend_corrections` run loop closure, the
@@ -37,14 +38,17 @@ and the map capacity), as the reference dispatches one `jax.jit` program
 per frame, with the state updated in place as the reference donates it;
 on the CPU the same body runs eagerly on the same buffers.  Both modes
 replay the deferred step; the synchronous engine reads its packed row at
-once and, when a window overflowed (the state passed through), runs the
-eager synchronous step with the same draws.  The backend's pair
+once and, when a window overflowed (the state passed through), replays the
+step without window compaction (its own graph) with the same draws, as the
+reference's program falls back to the dense scan inside itself; the
+pipelined engine re-runs its stalled frames through that graph.  A map
+eviction replays its graph on the state buffers.  The backend's pair
 verification, keyframe histograms, pose-graph solve, corrections and
 keyframe adds replay their graphs likewise (a keyframe eviction, rare and
-no faster replayed, stays eager).  `graphs=False` runs every step and
-backend program eagerly (the counterpart of `jax.disable_jit`: a
-comparison), through an eager `Graphs` that calls each body directly; a
-mesh engine always does.
+no faster replayed, stays eager).  A graphed engine never runs the eager
+step.  `graphs=False` runs every step and backend program eagerly (the
+counterpart of `jax.disable_jit`: a comparison), through an eager
+`Graphs` that calls each body directly.
 
 With `mesh` (a `DeviceMesh` from `parallel.sharded.make_mesh` or
 `parallel.multihost.host_mesh`) the engine runs SPMD: every rank of the
@@ -56,7 +60,12 @@ row-local, and records, keyframes and the backend are every rank's alike.
 The records equal those of one device with the same overrides, bit for
 bit.  `device=None` is then the rank's device.  As in the reference, the
 pipelined device-preprocess path (`host_preprocess=False,
-pipelined=True`) stays single-device.
+pipelined=True`) stays single-device.  A mesh engine is graphed like one
+device's (each key adds the axes) where its collectives can be captured:
+every axis NCCL on the card, or the CPU (`comm.capturable`).  Gloo on
+the card stages each collective through the host with a sync, which a
+capture refuses, so there the engine's `Graphs` is eager.  Window
+compaction is off on a mesh, so its steps never abort.
 """
 
 from __future__ import annotations
@@ -151,7 +160,9 @@ class SlamEngine:
     engine on the same device, which this engine then takes over (its
     captures are reused where the configuration and shapes are the same, as
     the reference's compiled programs outlive an engine): the two must not
-    step in turns.
+    step in turns; a mesh engine makes its own.  On a mesh whose
+    collectives cannot be captured (gloo on the card) `graphs.eager` is
+    True whatever `graphs` asks.
 
     With `enable_backend` the keyframe store holds at least 3 keyframes
     (`BackendConfig.max_keyframes`): a saturated store evicts one that is
@@ -205,8 +216,8 @@ class SlamEngine:
                 raise ValueError("graphs of another device, or with a mesh")
             self.graphs = graphs
         else:
-            self.graphs = graphs_mod.Graphs(self.device,
-                                            eager=not graphs or mesh is not None)
+            self.graphs = graphs_mod.Graphs(self.device, eager=not graphs or (
+                mesh is not None and not comm.capturable(self.device, self.axes)))
         self._warned_drop = False
         self._warned_evict = False
         self.n_evicted = 0  # cumulative keypoints evicted at capacity
@@ -425,16 +436,25 @@ class SlamEngine:
         else:
             self.state, self._ok, diag = self.graphs.step(
                 self.cfg, self.tile, self.state, self._ok, points, pmask, n_valid,
-                draws, self._keep)
+                draws, self._keep, axes=self.axes)
         if self.pipelined:
             return self._enqueue(_Pending(diag, points, pmask, n_valid, draws, cap))
         pk = diag.packed.cpu().numpy()
         if pk[pipeline.IDX_COMMITTED] == 0.0:
             # The graphed synchronous step: a window overflowed and the state
-            # passed through; the eager step (its dense fallback), same draws.
-            self._ok = torch.ones((), dtype=torch.bool, device=self.device)
-            return self._run_sync(points, pmask, n_valid, draws, cap)
+            # passed through; the dense step's graph, same draws.
+            return self._run_dense(points, pmask, n_valid, draws, cap)
         return self._finalize(diag, pk, cap)
+
+    def _run_dense(self, points, pmask, n_valid, draws, cap: int) -> FrameRecord:
+        """The graphed re-run of a frame that aborted: the step without
+        window compaction (which cannot abort) replayed with the frame's
+        draws, and its record."""
+        self.state, self._ok, diag = self.graphs.step(
+            self.cfg, self.tile, self.state,
+            torch.ones((), dtype=torch.bool, device=self.device), points, pmask,
+            n_valid, draws, self._keep, axes=self.axes, dense=True)
+        return self._finalize(diag, diag.packed.cpu().numpy(), cap)
 
     def _run_sync(self, points, pmask, n_valid, rng, cap: int) -> FrameRecord:
         """The synchronous step (host-side window decisions) and its record."""
@@ -524,12 +544,14 @@ class SlamEngine:
         return rec
 
     def _redispatch(self, stalled: List[_Pending]) -> Optional[FrameRecord]:
-        """Re-run the stalled frames in order through the synchronous step
-        with the clouds and draws they were dispatched with; a frame
-        preprocessed on the device is re-ingested at its exact bucket, as
-        the synchronous engine ingests it.  The aborted steps left the state
-        untouched and drew nothing more, so this is the run the synchronous
-        engine makes."""
+        """Re-run the stalled frames in order with the clouds and draws they
+        were dispatched with: graphed, each through the dense step's graph
+        (`_run_dense`: the first overflowed, and a later one may); eager,
+        through the synchronous step.  A frame preprocessed on the device is
+        re-ingested at its exact bucket, as the synchronous engine ingests
+        it.  The aborted steps left the state untouched and drew nothing
+        more, and the dense scan gives the compact window's results, so this
+        is the run the synchronous engine makes."""
         self._ok = torch.ones((), dtype=torch.bool, device=self.device)
         self._cursor_ub = None
         self.n_redispatched += len(stalled)
@@ -540,8 +562,8 @@ class SlamEngine:
                 points, pmask, n_valid = e.points, e.pmask, e.n_valid
             else:
                 points, pmask, n_valid = self._exact_cloud(e.image)
-            rec = self._run_sync(points, pmask, n_valid, e.draws,
-                                 self._capacity())
+            rerun = self._run_sync if self.graphs.eager else self._run_dense
+            rec = rerun(points, pmask, n_valid, e.draws, self._capacity())
         return rec
 
     # -- records ------------------------------------------------------------
@@ -631,8 +653,8 @@ class SlamEngine:
         """Make room for one frame at the hard capacity (a fixed n_evict);
         returns the new cursor."""
         n_evict = min(2 * self.cfg.keypoints.top_k, self.cfg.map.capacity // 2)
-        self.state = self.state._replace(map=mapstore.evict_keypoints(
-            self.state.map, n_evict, None if self.axes is None else self.axes.map))
+        self.state = self.graphs.evict(self.state, n_evict,
+                                       None if self.axes is None else self.axes.map)
         after = int(self.state.map.cursor)
         evicted = cursor - after
         self.n_evicted += evicted

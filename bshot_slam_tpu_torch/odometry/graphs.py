@@ -12,15 +12,30 @@ on the same buffers, so every result is bit for bit the eager run's.
 
 | body | key | static inputs |
 |---|---|---|
-| `pipeline.odometry_step_deferred`, pmask None | ("compact", bucket, capacity, tile, cfg) | points, n_valid (0-d int32), draws |
-| the same with a pmask | ("masked", bucket, capacity, tile, cfg) | points, pmask, n_valid, draws |
+| `pipeline.odometry_step_deferred`, pmask None | ("compact", bucket, capacity, tile, [axes], cfg) | points, n_valid (0-d int32), draws |
+| the same with a pmask | ("masked", bucket, capacity, tile, [axes], cfg) | points, pmask, n_valid, draws |
+| the same without window compaction (an aborted frame's re-run) | ("dense" or "dense_masked", bucket, capacity, tile, [axes], cfg') | as "compact" / "masked" |
 | `pipeline.odometry_step_fused` | ("fused", bucket, capacity, selected is None, tile, cfg) | range_az, vert, selected, draws |
+| `mapstore.evict_keypoints` | ("evict", capacity, n_evict, [axis]) | none: the state buffers' map |
 | `loop_closure._verify_pair` | ("pair", K, inlier_th, iterations, icp_iterations) | both keyframes' kp, words, masks; draws |
 | `loop_closure.bow_rows` over the whole store | ("bow", Mk, K) | descriptors, kp_mask |
 | `posegraph.optimize_pose_graph` | ("posegraph", M, E, iterations, lm_lambda, anchor_weight) | the `PoseGraph` fields |
-| `ba.ba_solve` (`reduce=None`) | ("ba", M, L, O, gn, cg, lm_lambda, anchor_weight) | the `BAProblem` fields |
+| `ba.ba_solve` (`reduce` the all-reduce SUM over [axis]) | ("ba", M, L, O, gn, cg, lm_lambda, anchor_weight, [axis]) | the `BAProblem` fields (this rank's observations) |
 | `corrections.interpolate_corrections` + `reanchor_map` (frame0 0) | ("corr", keyframes, frames, capacity, cfg.map) | corr_kf, kf_frames, frames; the map's positions, blocks, valid, frame_born |
 | `keyframes.add_keyframe` | ("kf_add", Mk, K) | the store, pose, features, frame (0-d), obs_lm |
+
+[axes] and [axis] are there only on a mesh: each axis's `comm.Axis.key`
+(name, size, this rank, backend, process group), so two meshes never share
+a capture.  cfg' is cfg with `window_compact` off: the dense scans, which
+cannot overflow, and which give the compact windows' results (both are
+exact), so an aborted frame's re-run records what the synchronous eager
+step's fallback records.
+
+The reference also compiles its sharded step and sharded BA
+(`parallel/sharded.py`, one program each with shardings) and keeps the
+window fallback and the map eviction inside its programs; here the mesh
+steps, the sharded BA, the dense re-run and the eviction are keys of the
+same set.
 
 A key names every Python value its body closes over: a value outside the
 key would be frozen at capture, so a `Graphs` shared by engines of two
@@ -44,11 +59,18 @@ stream, as that call's result (so every kernel's scratch, cached count
 tensor and library is made outside the capture, and no frame runs twice),
 then captures it; every later use replays it.  A capture that meets a host
 synchronisation raises; nothing falls back to the eager step.  Kernel
-wrappers count the launches of their Python calls, which a replay does not
-make, so each graph records the count delta of its capture and adds it on
-every replay: the counts stay those of the eager run.  On the CPU the same
-body runs eagerly on the same static buffers (no graph), so the CPU tests
-cover the buffer plumbing.
+wrappers count the launches of their Python calls, and `parallel.comm`
+its collectives, neither of which a replay makes, so each graph records
+the count deltas of its capture and adds them on every replay: the counts
+stay those of the eager run.  On the CPU the same body runs eagerly on the
+same static buffers (no graph), so the CPU tests cover the buffer
+plumbing.
+
+Collectives are captured on NCCL: each group's communicator is made by the
+warm-up run (the first collective of the group), and a collective joins
+NCCL's stream to the capturing one and back.  Gloo on CUDA tensors stages
+every collective through the host with a sync, which a capture refuses, so
+a mesh of such axes gets an eager set (`comm.capturable`).
 
 `Graphs(device, eager=True)` runs every body directly on the caller's
 tensors, with no buffers and no capture: the `graphs=False` engine and
@@ -58,6 +80,7 @@ between a program and its graph.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -67,6 +90,7 @@ from bshot_slam_tpu_torch.backend import ba, corrections, keyframes, posegraph
 from bshot_slam_tpu_torch.backend.loop_closure import _verify_pair, bow_rows
 from bshot_slam_tpu_torch.kernels import mapops, neighborhood, preprocess
 from bshot_slam_tpu_torch.odometry import mapstore, pipeline
+from bshot_slam_tpu_torch.parallel import comm
 
 # The kernel wrappers whose `launches` a replay advances.
 WRAPPERS = (neighborhood.neighborhood_accumulate, neighborhood.segratio_accumulate,
@@ -100,11 +124,16 @@ def leaves(tree) -> list:
     return [tree]
 
 
-def _like(tree):
+def clone_tree(tree):
     """New buffers of the same structure, holding `tree`'s values."""
     if isinstance(tree, tuple):
-        return type(tree)(*[_like(x) for x in tree])
+        return type(tree)(*[clone_tree(x) for x in tree])
     return tree.clone()
+
+
+def _axes_key(axes) -> tuple:
+    """The key part of a mesh's axes (`comm.Axis`es): () off a mesh."""
+    return () if axes is None else (tuple(a.key for a in axes),)
 
 
 class _Graph(NamedTuple):
@@ -112,6 +141,7 @@ class _Graph(NamedTuple):
     outputs: object  # what the body returned, in the pool on the card
     graph: Optional[torch.cuda.CUDAGraph]  # None on the CPU
     launches: tuple  # each WRAPPERS launch count one run adds
+    collectives: dict  # the `comm` counts one run adds, by site
 
 
 class Graphs:
@@ -149,7 +179,7 @@ class Graphs:
                 outputs, g = self._capture(static, body)
                 self._graphs[key] = g
                 return outputs
-            g = self._graphs[key] = _Graph(static, None, None, ())
+            g = self._graphs[key] = _Graph(static, None, None, (), {})
         else:
             self._copy_in(key, g.static, args)
         if g.graph is None:
@@ -157,6 +187,7 @@ class Graphs:
         g.graph.replay()
         for w, n in zip(WRAPPERS, g.launches):
             w.launches += n
+        comm.add_counts(g.collectives)
         return g.outputs
 
     @staticmethod
@@ -179,18 +210,19 @@ class Graphs:
         with torch.cuda.stream(stream):  # makes scratch, cached counts, libraries
             outputs = _apply(body(*static))
         current.wait_stream(stream)
-        before = [w.launches for w in WRAPPERS]
+        before, counted = [w.launches for w in WRAPPERS], comm.snapshot()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, pool=self.pool, stream=stream):
                 captured = _apply(body(*static))
-        finally:
+        finally:  # a capture launches nothing and makes no collective
             launches = tuple(w.launches - b for w, b in zip(WRAPPERS, before))
-            for w, b in zip(WRAPPERS, before):  # a capture launches nothing
+            for w, b in zip(WRAPPERS, before):
                 w.launches = b
+            collectives = comm.counts_since(counted)
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
-        return outputs, _Graph(static, captured, graph, launches)
+        return outputs, _Graph(static, captured, graph, launches, collectives)
 
     # -- state buffers ----------------------------------------------------------
 
@@ -200,7 +232,7 @@ class Graphs:
         cap = state.map.positions.shape[0]
         bufs = self._states.get(cap)
         if bufs is None:
-            bufs = self._states[cap] = _like(state)
+            bufs = self._states[cap] = clone_tree(state)
         elif state is not bufs:
             for b, s in zip(leaves(bufs), leaves(state)):
                 if b is not s:
@@ -215,21 +247,31 @@ class Graphs:
     # -- the engine's steps -----------------------------------------------------
 
     def step(self, cfg, tile: int, state, ok, points, pmask, n_valid, draws,
-             keep: bool):
+             keep, axes=None, dense: bool = False):
         """`pipeline.odometry_step_deferred(state, ok, points, pmask,
-        n_valid, draws, cfg, tile)` through its graph; n_valid is a 0-d
-        tensor.  Returns (the state buffers, the ok buffer, diagnostics
-        copied out: `packed`, and with `keep` also `features`, `corr_index`
-        and `corr_inlier`; the other fields are None)."""
+        n_valid, draws, cfg, tile, axes)` through its graph; n_valid is a
+        0-d tensor, `axes` a mesh's `MeshAxes` (the state then holds a
+        `MapShard`).  With `dense` the step runs without window compaction:
+        it cannot abort, and it is the re-run of a frame that did.  Returns
+        (the state buffers, the ok buffer, diagnostics copied out: `packed`;
+        with `keep` also `features`, `corr_index` and `corr_inlier`, the
+        other fields None; with keep "all" every field)."""
         bufs, okb = self.state_buffers(state), self._ok_buffer(ok)
+        if dense:
+            cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+                cfg.runtime, window_compact=False))
 
         def body(points, pmask, n_valid, draws):
             new, committed, diag = pipeline.odometry_step_deferred(
-                bufs, okb, points, pmask, n_valid, draws, cfg, tile)
+                bufs, okb, points, pmask, n_valid, draws, cfg, tile, axes=axes)
             return diag, list(zip(leaves(bufs), leaves(new))) + [(okb, committed)]
 
-        key = ("compact" if pmask is None else "masked", points.shape[0],
-               bufs.map.positions.shape[0], tile, cfg)
+        if dense:
+            kind = "dense" if pmask is None else "dense_masked"
+        else:
+            kind = "compact" if pmask is None else "masked"
+        key = (kind, points.shape[0], bufs.map.positions.shape[0], tile) + _axes_key(
+            axes) + (cfg,)
         diag = self.run(key, body, (points, pmask, n_valid.to(torch.int32).reshape(()),
                                      draws))
         return bufs, okb, _copied(diag, keep)
@@ -251,6 +293,23 @@ class Graphs:
         key = ("fused", bucket, bufs.map.positions.shape[0], sel is None, tile, cfg)
         diag = self.run(key, body, (range_az, vert, sel, draws))
         return bufs, okb, _copied(diag, keep)
+
+    def evict(self, state, n_evict: int, axis=None):
+        """`mapstore.evict_keypoints(state.map, n_evict, axis)` through its
+        graph, written into the state buffers in place (the reference
+        donates the state); returns the buffers.  Eager: a new state."""
+        if self.eager:
+            return state._replace(map=mapstore.evict_keypoints(state.map, n_evict, axis))
+        bufs = self.state_buffers(state)
+
+        def body():
+            m = mapstore.evict_keypoints(bufs.map, n_evict, axis)
+            return None, list(zip(leaves(bufs.map), leaves(m)))
+
+        key = ("evict", bufs.map.positions.shape[0], n_evict) + _axes_key(
+            None if axis is None else (axis,))
+        self.run(key, body, ())
+        return bufs
 
     # -- the backend ------------------------------------------------------------
 
@@ -289,16 +348,24 @@ class Graphs:
         return posegraph.PoseGraphResult(*(t.clone() for t in self.run(key, body, tuple(g))))
 
     def ba(self, prob: ba.BAProblem, gn_iterations: int = 5, cg_iterations: int = 20,
-           lm_lambda: float = 1.0e-4, anchor_weight: float = 1.0e6) -> ba.BAResult:
-        """`ba.ba_solve` (one device, `reduce=None`) through its graph;
-        copied out."""
+           lm_lambda: float = 1.0e-4, anchor_weight: float = 1.0e6,
+           axis=None) -> ba.BAResult:
+        """`ba.ba_solve` through its graph; copied out.  With `axis` (a
+        `comm.Axis`) `prob` holds this rank's observations and every
+        per-observation sum is finished by one all-reduce SUM over the
+        axis (`parallel.sharded.sharded_ba_solve`); else `reduce=None`."""
+
+        def total(x: torch.Tensor) -> torch.Tensor:
+            return comm.all_reduce(x, comm.SUM, axis, "BA: sums")
 
         def body(*fields):
             return ba.ba_solve(ba.BAProblem(*fields), gn_iterations, cg_iterations,
-                               lm_lambda, anchor_weight), []
+                               lm_lambda, anchor_weight,
+                               reduce=None if axis is None else total), []
 
         key = ("ba", prob.poses.shape[0], prob.landmarks.shape[0], prob.obs_kf.shape[0],
-               gn_iterations, cg_iterations, lm_lambda, anchor_weight)
+               gn_iterations, cg_iterations, lm_lambda, anchor_weight) + _axes_key(
+                   None if axis is None else (axis,))
         return ba.BAResult(*(t.clone() for t in self.run(key, body, tuple(prob))))
 
     def corrections(self, map_cfg, corr_kf, kf_frames, frames, m):
@@ -343,12 +410,15 @@ def _apply(result):
     return outputs
 
 
-def _copied(diag: pipeline.StepDiagnostics, keep: bool) -> pipeline.StepDiagnostics:
-    """The diagnostics the engine reads, copied out of the pool; None in
-    every other field, so nothing reads a buffer a later replay rewrites."""
+def _copied(diag: pipeline.StepDiagnostics, keep) -> pipeline.StepDiagnostics:
+    """The diagnostics the caller reads (see `Graphs.step`), copied out of
+    the pool; None in every other field, so nothing reads a buffer a later
+    replay rewrites."""
+    if keep == "all":
+        return clone_tree(diag)
     out = dict.fromkeys(pipeline.StepDiagnostics._fields)
     out["packed"] = diag.packed.clone()
     if keep:
-        out.update(features=_like(diag.features), corr_index=diag.corr_index.clone(),
+        out.update(features=clone_tree(diag.features), corr_index=diag.corr_index.clone(),
                    corr_inlier=diag.corr_inlier.clone())
     return pipeline.StepDiagnostics(**out)

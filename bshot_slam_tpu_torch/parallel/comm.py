@@ -5,14 +5,18 @@ Every collective of the sharded program goes through `all_reduce`,
 `DeviceMesh`, or every rank).  Each call is counted under its call site:
 calls, the payload bytes this rank puts in, and the host synchronisations
 it cost (`counts()`, `reset_counts()`), which `chip_smoke.py` and
-`tools/collective_cost.py` report.
+`tools/collective_cost.py` report.  The counts are kept in Python, so a
+CUDA graph's replay makes none: `odometry.graphs` takes what its capture
+counted (`counts_since`) and adds it on every replay (`add_counts`).
 
 Backends.  With NCCL the CUDA tensors go straight to the collective, which
-runs on NCCL's stream behind the current one: no host sync.  With gloo on
-CPU tensors the same.  With gloo on CUDA tensors (several ranks sharing one
-card, where NCCL refuses the duplicate GPU) each call stages through pinned
-host memory: a device-to-host copy that waits for the device (one sync,
-counted), the collective on the host copy, and an asynchronous copy back.
+runs on NCCL's stream behind the current one: no host sync, so a CUDA
+graph captures it.  With gloo on CPU tensors the same (nothing is captured
+on the CPU).  With gloo on CUDA tensors (several ranks sharing one card,
+where NCCL refuses the duplicate GPU) each call stages through pinned host
+memory: a device-to-host copy that waits for the device (one sync,
+counted), the collective on the host copy, and an asynchronous copy back;
+a capture refuses the sync, so such axes run eagerly (`capturable`).
 
 The odometry step's collectives are exact: integer reductions, and
 gathers that move bits.  A float gather is never built as a SUM of
@@ -68,9 +72,22 @@ class Axis:
         """Every rank of the default process group."""
         return cls("world")
 
+    @property
+    def key(self) -> tuple:
+        """What tells this axis from another in a graph's key: its name,
+        size, this rank's index, the backend and the process group."""
+        return (self.name, self.size, self.rank, self.backend, self.group)
+
     def __repr__(self) -> str:
         return (f"Axis({self.name!r}, rank {self.rank} of {self.size}, "
                 f"{self.backend})")
+
+
+def capturable(device, axes) -> bool:
+    """Whether a CUDA graph can hold the collectives over `axes` on
+    `device`'s tensors: every axis NCCL on the card.  On the CPU nothing is
+    captured, so any axis will do."""
+    return torch.device(device).type != "cuda" or all(a.backend == "nccl" for a in axes)
 
 
 # site -> [calls, payload bytes this rank put in, host syncs for staging]
@@ -84,6 +101,28 @@ def reset_counts() -> None:
 def counts() -> Dict[str, dict]:
     """{site: {"calls", "bytes", "syncs"}} since the last reset."""
     return {k: dict(calls=v[0], bytes=v[1], syncs=v[2]) for k, v in _COUNTS.items()}
+
+
+def snapshot() -> Dict[str, List[int]]:
+    return {k: list(v) for k, v in _COUNTS.items()}
+
+
+def counts_since(before: Dict[str, List[int]]) -> Dict[str, List[int]]:
+    """What was counted since `before` (a `snapshot()`), by site; the
+    counts go back to `before`."""
+    delta = {k: [a - b for a, b in zip(v, before.get(k, (0, 0, 0)))]
+             for k, v in _COUNTS.items()}
+    _COUNTS.clear()
+    _COUNTS.update(before)
+    return {k: d for k, d in delta.items() if any(d)}
+
+
+def add_counts(delta: Dict[str, List[int]]) -> None:
+    """Count `delta` (from `counts_since`) again, as a replay makes it."""
+    for k, d in delta.items():
+        c = _COUNTS.setdefault(k, [0, 0, 0])
+        for i, x in enumerate(d):
+            c[i] += x
 
 
 def _count(site: str, t: torch.Tensor, staged: bool) -> None:

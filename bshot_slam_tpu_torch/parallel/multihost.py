@@ -93,7 +93,7 @@ def host_mesh(axes: Tuple[str, str] = HOST_AXES, ranks_per_host: int | None = No
 def multihost_odometry_step(mesh, cfg: SlamConfig, tile: int = 2048):
     """The sharded odometry step with map rows across HOSTS and query rows
     across each host's ranks: the same program as the single-host mesh,
-    another axis mapping."""
+    another axis mapping (a CUDA graph on NCCL: `step.graphs`)."""
     return sharded.sharded_odometry_step(mesh, cfg, tile, data_axis="devices",
                                          map_axis="hosts")
 

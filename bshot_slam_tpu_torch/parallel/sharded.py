@@ -19,21 +19,30 @@ sharded step gives the single-device step's results bit for bit
 
 Every rank runs the same host program on the same inputs (SPMD), including
 its RANSAC draws from identically seeded generators.
+
+The sharded step and the sharded bundle adjustment replay CUDA graphs
+(`odometry.graphs`), as the reference compiles each into one program, when
+their collectives can be captured: every axis NCCL on the card
+(`comm.capturable`).  On gloo with CUDA tensors each collective stages
+through the host with a sync, which a capture refuses: there they run
+eagerly.  On the CPU the graphs' bodies run on their static buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from bshot_slam_tpu_torch.backend.ba import ba_solve
 from bshot_slam_tpu_torch.config import SlamConfig
+from bshot_slam_tpu_torch.odometry import graphs as graphs_mod
 from bshot_slam_tpu_torch.odometry import mapstore, pipeline
 from bshot_slam_tpu_torch.odometry.pipeline import FrameFeatures, OdometryState
+from bshot_slam_tpu_torch.ops.ransac import uniform_draws
 from bshot_slam_tpu_torch.parallel import comm
 from bshot_slam_tpu_torch.parallel.comm import Axis
 from bshot_slam_tpu_torch.parallel.layout import local_live_rows  # noqa: F401
@@ -137,29 +146,56 @@ def sharded_odometry_step(mesh, cfg: SlamConfig, tile: int = 2048,
 
     step(state, points, pmask, rng) is `pipeline.odometry_step` over the
     mesh, with `mesh_runtime_overrides`; every rank calls it with the same
-    whole cloud and rng.  shard_state places a whole OdometryState on this
-    rank.  On a multi-host mesh pass data_axis="devices",
-    map_axis="hosts"."""
+    whole cloud and rng (a `torch.Generator` or the (H, 3) draws).  It
+    replays through `step.graphs`, a `Graphs` of its own (eager where the
+    collectives cannot be captured): the draws are taken from the
+    generator before the replay (the numbers the eager step draws), and
+    the state it returns is copied out of the graphs' buffers, so the
+    caller's states stay as they were (the reference donates nothing
+    here).  shard_state places a whole OdometryState on this rank.  On a
+    multi-host mesh pass data_axis="devices", map_axis="hosts"."""
     axes = mesh_axes(mesh, data_axis, map_axis)
     cfg = mesh_runtime_overrides(cfg, axes.data.size)
+    dev = mesh_device(mesh)
+    graphs = graphs_mod.Graphs(dev, eager=not comm.capturable(dev, axes))
 
     def step(state, points, pmask, rng):
-        return pipeline.odometry_step(state, points, pmask, rng, cfg, tile,
-                                      axes=axes)
+        if graphs.eager:
+            return pipeline.odometry_step(state, points, pmask, rng, cfg, tile,
+                                          axes=axes)
+        draws = uniform_draws(rng, cfg.match.ransac_iterations, points.device)
+        ok = torch.ones((), dtype=torch.bool, device=points.device)
+        bufs, _, diag = graphs.step(cfg, tile, state, ok, points, pmask,
+                                    torch.sum(pmask, dtype=torch.int32), draws,
+                                    keep="all", axes=axes)
+        return (graphs_mod.clone_tree(bufs),
+                diag._replace(packed=diag.packed[:pipeline.PACKED_LEN]))
 
     def place(state):
         return shard_state(state, mesh, map_axis)
 
+    step.graphs = graphs
     return step, place
 
 
-def sharded_ba_solve(mesh, prob, gn_iterations: int = 5, cg_iterations: int = 20):
+@functools.lru_cache(maxsize=16)
+def ba_graphs(mesh) -> graphs_mod.Graphs:
+    """The `Graphs` that `sharded_ba_solve` replays through on this mesh
+    (one per mesh, as the reference caches one program per mesh): eager
+    where the world's collectives cannot be captured."""
+    dev = mesh_device(mesh)
+    return graphs_mod.Graphs(dev, eager=not comm.capturable(dev, [Axis.world()]))
+
+
+def sharded_ba_solve(mesh, prob, gn_iterations: int = 5, cg_iterations: int = 20,
+                     graphs: Optional[graphs_mod.Graphs] = None):
     """Bundle adjustment with the observations split over every rank of the
     mesh: they are zero-mask padded to a multiple of the rank count, each
     rank takes its contiguous block, each per-observation sum is taken
     locally and then one all-reduce SUM over the ranks; poses and landmarks
     stay replicated.  The sums add in another order than on one device, so
-    the result agrees with `ba_solve` to rounding, not bit for bit."""
+    the result agrees with `ba_solve` to rounding, not bit for bit.  The
+    solve replays through `graphs` (default: the mesh's `ba_graphs`)."""
     axis = Axis.world()
     n = axis.size
     if mesh.mesh.numel() != n:
@@ -175,9 +211,6 @@ def sharded_ba_solve(mesh, prob, gn_iterations: int = 5, cg_iterations: int = 20
 
     local = prob._replace(obs_kf=cut(prob.obs_kf), obs_lm=cut(prob.obs_lm),
                           obs_p=cut(prob.obs_p), obs_mask=cut(prob.obs_mask))
-
-    def total(x: torch.Tensor) -> torch.Tensor:
-        return comm.all_reduce(x, comm.SUM, axis, "BA: sums")
-
-    return ba_solve(local, gn_iterations=gn_iterations,
-                    cg_iterations=cg_iterations, reduce=total)
+    if graphs is None:
+        graphs = ba_graphs(mesh)
+    return graphs.ba(local, gn_iterations, cg_iterations, axis=axis)

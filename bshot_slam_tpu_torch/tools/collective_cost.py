@@ -19,7 +19,9 @@ The ranks run on the card (rank r on card r modulo the cards; ranks that
 share a card need `--dist-backend gloo`) or, with `--cpu`, on the CPU.  The
 tiny configuration by default, `default_config()` with `--full`.  The bytes
 are the logical payload (a ring all-reduce moves about twice that on the
-wire).  Writes one JSON object to `--out`.
+wire).  On NCCL the engine replays its steps from CUDA graphs, whose
+collectives the comm layer counts once per replay, as the eager step
+counts them.  Writes one JSON object to `--out`.
 """
 
 from __future__ import annotations

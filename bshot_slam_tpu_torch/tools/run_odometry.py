@@ -11,8 +11,9 @@ reference's arguments.  `--sharded N` runs the engine over N local ranks of
 a process group (`parallel.sharded`), each a spawned process on card
 r modulo the cards (or the CPU with `--cpu`); every rank reads the same
 input and rank 0 prints and writes the outputs.  Ranks that share a card
-need `--dist-backend gloo`.  `--sharded` takes neither `--udp`, `--live`,
-`--step` nor `--profile`.
+need `--dist-backend gloo`.  On NCCL the sharded steps and `--ba`'s sharded
+solve replay CUDA graphs; on gloo they run eagerly.  `--sharded` takes
+neither `--udp`, `--live`, `--step` nor `--profile`.
 
 Examples:
   python3 bshot_slam_tpu_torch/tools/run_odometry.py capture.pcap --skip 686 --out traj.txt
@@ -261,7 +262,8 @@ def _run(args, ap, mesh=None) -> int:
              if eng.device.type == "cuda" else "")
           + ("" if mesh is None else
              f", sharded over {mesh.mesh.numel()} ranks: mesh "
-             f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}"))
+             f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))}, graphed "
+             f"{not eng.graphs.eager} (eager where gloo stages through the host)"))
     prior_traj = None
     if args.resume:
         from bshot_slam_tpu_torch.checkpoint import load_backend, load_state
@@ -393,7 +395,8 @@ def _run(args, ap, mesh=None) -> int:
             n_obs = int(prob.obs_mask.sum())
             if n_obs:
                 res = (eng.graphs.ba(prob, gn_iterations=8) if mesh is None
-                       else sharded_ba_solve(mesh, prob, gn_iterations=8))
+                       else sharded_ba_solve(mesh, prob, gn_iterations=8,
+                                             graphs=eng.graphs))
                 print(f"BA: {prob.poses.shape[0]} keyframes, "
                       f"{prob.landmarks.shape[0]} landmarks, {n_obs} obs; "
                       f"cost {float(res.initial_cost):.1f} -> "

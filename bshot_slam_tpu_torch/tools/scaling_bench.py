@@ -14,7 +14,9 @@ The ranks run on the cards (rank r on card r modulo the cards) or, with
 `--cpu`, on the CPU.  Ranks that share one card (they need
 `--dist-backend gloo`) or one CPU measure the sharded program's overhead,
 not a speedup: the efficiency means scaling only with a card per rank.
-Prints one JSON line per (bench, rank count).
+On NCCL the step and the solve replay CUDA graphs captured at their
+warm-up call (`captures`); on gloo they run eagerly.  Prints one JSON line
+per (bench, rank count).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _step_rank(rank: int, repeats: int) -> float:
+def _step_rank(rank: int, repeats: int) -> tuple:
     import numpy as np
     import torch
 
@@ -55,16 +57,16 @@ def _step_rank(rank: int, repeats: int) -> float:
     pmask = (torch.arange(P) < P // 2).to(dev)
     state = place(pipeline.init_state(cfg, device="cpu"))
     gen = torch.Generator(device=dev).manual_seed(0)
-    state, _ = step(state, pts_t, pmask, gen)  # first use: builds, warms
+    state, _ = step(state, pts_t, pmask, gen)  # first use: builds, captures
     _sync(dev)
     t0 = time.perf_counter()
     for _ in range(repeats):
         state, _ = step(state, pts_t, pmask, gen)
     _sync(dev)
-    return (time.perf_counter() - t0) / repeats
+    return (time.perf_counter() - t0) / repeats, step.graphs.captures
 
 
-def _ba_rank(rank: int, repeats: int) -> float:
+def _ba_rank(rank: int, repeats: int) -> tuple:
     import numpy as np
     import torch
 
@@ -84,22 +86,23 @@ def _ba_rank(rank: int, repeats: int) -> float:
              + rng.normal(0, 20, (M * OPK, 3))).astype(np.float32)
     prob = BAProblem(*[torch.from_numpy(a).to(dev) for a in (
         poses, lms, obs_kf, obs_lm, obs_p, np.ones(M * OPK, bool))])
-    res = sharded.sharded_ba_solve(mesh, prob, gn_iterations=3)
+    res = sharded.sharded_ba_solve(mesh, prob, gn_iterations=3)  # captures
     _sync(dev)
     t0 = time.perf_counter()
     for _ in range(repeats):
         res = sharded.sharded_ba_solve(mesh, prob, gn_iterations=3)
     _sync(dev)
     del res
-    return (time.perf_counter() - t0) / repeats
+    return (time.perf_counter() - t0) / repeats, sharded.ba_graphs(mesh).captures
 
 
-def report(name: str, times: dict, device: str) -> None:
+def report(name: str, times: dict, captures: dict, device: str) -> None:
     n0 = min(times)
     for n, t in sorted(times.items()):
         print(json.dumps({"bench": name, "ranks": n, "device": device,
                           "sec_per_iter": t,
-                          "efficiency_vs_smallest": times[n0] * n0 / (n * t)}))
+                          "efficiency_vs_smallest": times[n0] * n0 / (n * t),
+                          "captures": captures[n]}))
 
 
 def main(argv=None) -> int:
@@ -125,14 +128,14 @@ def main(argv=None) -> int:
               "speedup", file=sys.stderr)
     benches = {"step": _step_rank, "ba": _ba_rank}
     for name in (["step", "ba"] if args.mode == "both" else [args.mode]):
-        times = {}
+        times, captures = {}, {}
         for n in sizes:
             out = multihost.spawn_local(benches[name], n, args=(args.repeats,),
                                         backend=args.dist_backend, device=device,
                                         timeout=3600)
-            times[n] = max(out)
+            times[n], captures[n] = max(t for t, _ in out), out[0][1]
         report(f"sharded_{'odometry_step' if name == 'step' else 'ba_solve'}",
-               times, device)
+               times, captures, device)
     return 0
 
 

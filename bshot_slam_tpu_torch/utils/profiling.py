@@ -115,12 +115,21 @@ def profiled(warm_up: Callable, work: Callable) -> list:
 def device_profile(fn: Callable, calls: int = 20):
     """(device ms per call, device launches per call) of fn(): the summed
     durations and the count of what `torch.profiler` saw run on the card."""
-    for _ in range(3):  # a trace that lost records shows in the count: again
+    return _device_profile(fn, calls)[:2]
+
+
+def _device_profile(fn: Callable, calls: int):
+    """`device_profile`'s numbers and the profiled passes it took: a trace
+    whose launch count is not a multiple of `calls` lost records, and the
+    pass runs again (at most three), each pass calling fn() calls + 1
+    times."""
+    for passes in range(1, 4):
         on_card = profiled(fn, lambda: [fn() for _ in range(calls)])
         launches = sum(e.count for e in on_card)
         if launches and launches % calls == 0:
             break
-    return sum(e.self_device_time_total for e in on_card) / calls / 1e3, launches / calls
+    return (sum(e.self_device_time_total for e in on_card) / calls / 1e3,
+            launches / calls, passes)
 
 
 def stage_times(stages: dict, iters: int, device) -> dict:
@@ -128,9 +137,11 @@ def stage_times(stages: dict, iters: int, device) -> dict:
     `device`: `wall_ms`, the median host time of `iters` calls each fenced
     by synchronises after one warm-up call; on the card also `event_ms`, the
     median CUDA-event time of the same calls, `device_ms` and `launches` per
-    call from `torch.profiler`, and `host_ms` = wall - device (the part of a
-    call the card does not account for: dispatch, host work and syncs).  On
-    the CPU the device columns are None and `host_ms` is the wall time.
+    call from `torch.profiler` (`profile_passes`: the profiled passes that
+    took, each `iters` + 1 more calls of fn), and `host_ms` = wall - device
+    (the part of a call the card does not account for: dispatch, host work
+    and syncs).  On the CPU the device columns are None and `host_ms` is
+    the wall time.
     Every stage is timed before any is profiled: a profiler session can
     slow the launches that come after it."""
     cuda = torch.device(device).type == "cuda"
@@ -155,10 +166,10 @@ def stage_times(stages: dict, iters: int, device) -> dict:
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls)
         rows[name] = dict(wall_ms=wall, event_ms=statistics.median(events) if cuda else None,
-                          device_ms=None, launches=None, host_ms=wall)
+                          device_ms=None, launches=None, host_ms=wall, profile_passes=None)
     if cuda:
         for name, fn in stages.items():
-            device_ms, launches = device_profile(fn, calls=iters)
-            rows[name].update(device_ms=device_ms, launches=launches,
+            device_ms, launches, passes = _device_profile(fn, iters)
+            rows[name].update(device_ms=device_ms, launches=launches, profile_passes=passes,
                               host_ms=rows[name]["wall_ms"] - device_ms)
     return rows

@@ -33,9 +33,12 @@ Phases, one line each:
      the frames' windows) through abort and re-run, whose records must equal
      the synchronous engine's at that setting;
   4c. eviction at full capacity: the map prefilled to within one frame of
-     `cfg.map.capacity`, so the pipelined engine evicts (`n_evicted`); then
-     `evict_keypoints` on the card against the same call on CPU copies,
-     every field exact, and its time on the card;
+     `cfg.map.capacity`, so the pipelined engine evicts (`n_evicted`), its
+     evictions replayed from a CUDA graph on the state buffers, against the
+     same drive with `graphs=False`, records bit-identical; then
+     `evict_keypoints` on the card, eager and through a `Graphs`, against
+     the same call on CPU copies, every field exact, and the eager and the
+     graphed eviction's times on the card in turns;
   4d. the backend at full width over `bench.py`'s whole drive (129 frames,
      64k-landmark prefill, `pipelined=True, enable_backend=True,
      backend_every=32`): keyframes, pairs verified, closures, the best
@@ -99,9 +102,16 @@ Phases, one line each:
      (ranks share one card: overhead, not scaling), map and live rows per
      rank, query rows per rank, A-E launches per rank, collective calls and
      payload bytes per frame by call site, synchronising calls per frame
-     between drains (0 on NCCL); at 2 ranks also [4c]'s eviction drive
-     (records bit-identical) and the sharded bundle adjustment against the
-     dense solve (the reference's tolerances);
+     between drains (0 on NCCL); at 1 and 2 ranks also [4c]'s eviction
+     drive (records bit-identical) and the sharded bundle adjustment
+     against the dense solve (the reference's tolerances).  At 1 rank
+     (NCCL) the engines, the eviction and the bundle adjustment replay
+     CUDA graphs, and each runs against its eager form in turns (eager,
+     graphed, graphed, eager for the synchronous drive): records, A-E
+     launches and collectives per frame equal, the captures, their seconds
+     and the pool's bytes, the graphed solves within `BA_LIMITS` of the
+     eager ones; on gloo every engine is eager (each collective stages
+     through the host with a sync, which a capture refuses);
   10. the tools on the card (`bshot_slam_tpu_torch/tools/`), each `main`
      in this process with its lines and JSON line printed: `run_golden` (the
      golden PCAP against the CPU gold: under 60 mm from it, ATE under 8% of
@@ -113,9 +123,12 @@ Phases, one line each:
      default) against the eager steps (`graphs=False`), in turns within
      this call (eager, graphed, graphed, eager; the graphed runs replay the
      captures of the earlier phase's engine): [4]'s synchronous and [4b]'s
-     pipelined drives, [4b]'s forced window overflow both ways, [7]'s fused
-     engines and spike, and [4d]'s backend drive; records (loop edges
-     included) bit-identical, kernel launches equal; frames/s and launches
+     pipelined drives, [4b]'s forced window overflow both ways (each
+     aborted frame re-run from the dense step's graph, no eager step),
+     [7]'s fused engines and spike, and [4d]'s backend drive; records
+     (loop edges included) bit-identical, kernel launches equal (the
+     synchronous overflow run: more, each abort replaying two steps,
+     graphed); frames/s and launches
      a frame of each, the captures, their seconds and the bytes of the
      graphs' memory pool of the earlier run, the backend passes' ms whole
      and by part (the drive's pair verification, keyframe histograms and
@@ -140,7 +153,8 @@ Phases, one line each:
      drive makes: a graphed engine on it across the four map buckets (the
      map prefilled to just under each in turn) at three cloud buckets, the
      pose graph at every node bucket (8 to 512) with each loop-edge
-     padding, the corrections at every node bucket, BA, and a drive of
+     padding, the corrections at every node bucket, BA, each capacity's
+     dense re-run step, an eviction at the hard capacity, and a drive of
      [4d]'s circle LONG_LAPS times (its keyframe store fills at 512 and
      evicts); the pool's and the state buffers' bytes after each, and the
      pool's peak, which must stay under POOL_LIMIT;
@@ -152,8 +166,8 @@ Phases, one line each:
      and D's `loop_verification` the 600 x 600 check), the card line again,
      and the result line {"ok": true, "device": {...}}.
 
-Every engine on one device steps through its CUDA graphs unless a phase
-says `graphs=False` (the mesh engines of [9] run eagerly); [6]'s timed pass
+Every engine steps through its CUDA graphs unless a phase says
+`graphs=False` (the gloo mesh engines of [9] are eager); [6]'s timed pass
 and [4]'s profile replay the captures of an earlier engine, as the
 reference's runs reuse its compiled programs.
 
@@ -741,27 +755,33 @@ def drive(eng, sweeps) -> float:
 def sync_census(eng, sweeps):
     """Run the engine over sweeps with the sync debug mode on: per call, the
     synchronising calls and whether the call drained (finalized records);
-    and the source lines of the synchronising calls made outside drains."""
+    and the source lines of the synchronising calls made outside drains.
+    A call that captured a CUDA graph (which synchronises once per key, as
+    a compile would) is counted with the first call and reported as
+    drained; `captured` counts such calls after the first."""
     import torch
 
-    calls, sites = [], [collections.Counter(), collections.Counter()]
+    calls, sites, captured = [], [collections.Counter(), collections.Counter()], 0
     torch.cuda.set_sync_debug_mode("warn")
     try:
         for i, sw in enumerate(sweeps):
-            n_rec = len(eng.records)
+            n_rec, n_cap = len(eng.records), eng.graphs.captures
             with warnings.catch_warnings(record=True) as ws:
                 warnings.simplefilter("always")
                 eng.process_sweep(sw)
             syncs = [w for w in ws if "synchroniz" in str(w.message)]
-            drained = len(eng.records) != n_rec
+            capturing = i > 0 and eng.graphs.captures != n_cap
+            captured += capturing
+            drained = len(eng.records) != n_rec or capturing
             calls.append((len(syncs), drained))
-            if not drained:  # [first call, later calls between drains]
+            if not drained or capturing:  # [first or capturing call, later calls]
                 for w in syncs:
-                    sites[min(i, 1)][f"{pathlib.Path(w.filename).name}:{w.lineno}"] += 1
+                    sites[0 if capturing else min(i, 1)][
+                        f"{pathlib.Path(w.filename).name}:{w.lineno}"] += 1
         eng.flush()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    return calls, sites
+    return calls, sites, captured
 
 
 def pipelined_phase(cfg, sweeps, sync_eng, dev) -> dict:
@@ -781,7 +801,7 @@ def pipelined_phase(cfg, sweeps, sync_eng, dev) -> dict:
     # The census replays the first run's graphs: a capture synchronises
     # (once per key, as a compile would), a replay does not.
     census = fresh(graphs=pipe.graphs)
-    calls, sites = sync_census(census, sweeps)
+    calls, sites, _ = sync_census(census, sweeps)
     between = [n for n, drained in calls[1:] if not drained]
     over = dataclasses.replace(cfg, runtime=dataclasses.replace(
         cfg.runtime, window_cap=OVERFLOW_WINDOW))
@@ -806,27 +826,65 @@ def pipelined_phase(cfg, sweeps, sync_eng, dev) -> dict:
 
 def eviction_phase(cfg, sweeps, dev) -> dict:
     """Phase [4c]: the map starts one frame short of its hard capacity, in
-    dense far blocks (so eviction takes them, not the drive's own map)."""
+    dense far blocks (so eviction takes them, not the drive's own map); the
+    pipelined drive graphed (its evictions replay their graph on the state
+    buffers) and eager.  Then on the map after the drive: `evict_keypoints`
+    on the card twice and through a `Graphs` twice (captured, replayed),
+    each against the call on CPU copies, every field; and the eager and the
+    graphed eviction in turns, eager, graphed, ..., REPEATS each: CUDA
+    events around the call alone (the graphed call's input is copied into
+    its state buffers before the event; the eager call leaves its input as
+    it was)."""
     import torch
 
     from bshot_slam_tpu_torch.odometry import mapstore
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
 
     cap, k = cfg.map.capacity, cfg.keypoints.top_k
-    eng = SlamEngine(cfg, seed=0, device=dev, pipelined=True, fetch_every=FETCH_EVERY)
-    full = prefilled_map(cfg, dev, n=cap - k - 100, far=(1.9e6, 1.95e6))
-    eng.state = eng.state._replace(map=full)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        _, launches = counted(lambda: drive(eng, sweeps[:8]))
+    runs = []
+    for graphs in (True, False):
+        eng = SlamEngine(cfg, seed=0, device=dev, pipelined=True, fetch_every=FETCH_EVERY,
+                         graphs=graphs)
+        full = prefilled_map(cfg, dev, n=cap - k - 100, far=(1.9e6, 1.95e6))
+        eng.state = eng.state._replace(map=full)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, launches = counted(lambda: drive(eng, sweeps[:8]))
+        runs.append((eng, launches))
+    (eng, launches), (eager, eager_launches) = runs
     n_evict = min(2 * k, cap // 2)
-    m = eng.state.map
+    m = mapstore.MapState(*[t.clone() for t in eng.state.map])
+    whole = eng.state._replace(map=m)
     want = mapstore.evict_keypoints(mapstore.MapState(*cpu(*m)), n_evict)
+    graphs = Graphs(dev)
     outs = [mapstore.evict_keypoints(m, n_evict) for _ in range(2)]
+    outs += [[t.clone() for t in graphs.evict(whole, n_evict).map] for _ in range(2)]
     exact = all(torch.equal(g.cpu(), w) for out in outs for g, w in zip(out, want))
+    times = {"eager": [], "graphed": []}
+    bufs = graphs.state_buffers(whole)
+    for _ in range(REPEATS):
+        for side in ("eager", "graphed"):
+            if side == "graphed":
+                graphs.state_buffers(whole)  # the map before eviction, again
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if side == "eager":
+                mapstore.evict_keypoints(m, n_evict)
+            else:
+                graphs.evict(bufs, n_evict)
+            end.record()
+            end.synchronize()
+            times[side].append(start.elapsed_time(end))
     return dict(n_evicted=eng.n_evicted, launches=launches, exact=exact,
+                eager_evicted=eager.n_evicted, eager_launches=eager_launches,
+                records_equal=record_bytes(eng) == record_bytes(eager),
+                graphed_keys=[key[:3] for key in eng.graphs._graphs if key[0] == "evict"],
                 cursor=int(m.cursor), evicted_now=int(m.cursor) - int(want.cursor),
-                ms=time_ms(lambda: mapstore.evict_keypoints(m, n_evict)),
+                ms=statistics.median(times["eager"]),
+                graphed_ms=statistics.median(times["graphed"]),
                 cpu_ms=time_ms(lambda: mapstore.evict_keypoints(
                     mapstore.MapState(*cpu(*m)), n_evict), repeats=5),
                 tail_inliers=[r.n_inliers for r in eng.records[-4:]])
@@ -1481,16 +1539,23 @@ def mesh_rank(rank: int, cfg, sweeps, evict: bool, ba) -> dict:
     process group) on the 24 frames and prefill, synchronous (kernel
     launches, collectives and time counted) and pipelined (synchronising
     calls between drains counted); with `evict`, [4c]'s eviction drive;
-    with `ba`, the sharded bundle adjustment of that problem."""
+    with `ba`, the sharded bundle adjustment of that problem, three solves
+    through the mesh's `Graphs` and three eager.  Where the collectives can
+    be captured (NCCL) the engines are graphed, and the synchronous drive
+    runs eager, graphed, graphed, eager, and the pipelined one graphed and
+    eager; on gloo every engine is eager and each drive runs once."""
     import torch
 
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
     from bshot_slam_tpu_torch.parallel import comm, layout, sharded
 
     stage = [("start", time.perf_counter())]
     mesh = sharded.make_mesh()
     axes = sharded.mesh_axes(mesh)
+    dev = sharded.mesh_device(mesh)
     cap, k = cfg.map.capacity, cfg.keypoints.top_k
+    graphed = comm.capturable(dev, axes)
 
     def fresh(prefill=None, **kw):
         eng = SlamEngine(cfg, seed=0, mesh=mesh, **kw)
@@ -1500,55 +1565,108 @@ def mesh_rank(rank: int, cfg, sweeps, evict: bool, ba) -> dict:
         eng._place_state()
         return eng
 
-    eng = fresh()
-    stage.append(("mesh and engine", time.perf_counter()))
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    comm.reset_counts()
-    times = []
-    for sw in sweeps:
-        t0 = time.perf_counter()
-        eng.process_sweep(sw)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    launches = {n: w.launches for n, w in wrappers.items()}
-    coll = comm.counts()
+    def synchronous(graphs: bool) -> dict:
+        eng = fresh(graphs=graphs)
+        wrappers = kernel_wrappers()
+        for w in wrappers.values():
+            w.launches = 0
+        comm.reset_counts()
+        times, steady = [], []
+        for i, sw in enumerate(sweeps):
+            n_cap = eng.graphs.captures
+            t0 = time.perf_counter()
+            eng.process_sweep(sw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if i and eng.graphs.captures == n_cap:
+                steady.append(times[-1])
+        coll = comm.counts()
+        return dict(eng=eng, fps=(len(times) - 1) / sum(times[1:]),
+                    steady_fps=len(steady) / sum(steady), steady_frames=len(steady),
+                    launches={n: w.launches for n, w in wrappers.items()},
+                    calls_per_frame=sum(c["calls"] for c in coll.values()) / len(sweeps),
+                    bytes_per_frame=sum(c["bytes"] for c in coll.values()) / len(sweeps),
+                    sites={n: (c["calls"] / len(sweeps), c["bytes"] / len(sweeps))
+                           for n, c in coll.items()})
+
+    sides = ("eager", "graphed", "graphed", "eager") if graphed else ("eager",)
+    sync = {"eager": [], "graphed": []}
+    for side in sides:
+        sync[side].append(synchronous(side == "graphed"))
+    stage.append(("synchronous", time.perf_counter()))
+    main = sync["graphed" if graphed else "eager"][0]
+    eng = main["eng"]
     bucket = frame_cloud(cfg, sweeps[-1])[0].shape[0]
     out = dict(
         mesh=dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
         backends={n: comm.Axis.of(mesh, n).backend for n in mesh.mesh_dim_names},
-        fps=(len(times) - 1) / sum(times[1:]), records=record_bytes(eng),
-        launches=launches, map_rows=eng.state.map.positions.shape[0],
+        graphed=not eng.graphs.eager, records=record_bytes(eng),
+        fps={side: [r["fps"] for r in rs] for side, rs in sync.items()},
+        steady_fps={side: [r["steady_fps"] for r in rs] for side, rs in sync.items()},
+        steady_frames=main["steady_frames"],
+        launches=main["launches"], map_rows=eng.state.map.positions.shape[0],
         live_rows=int(layout.local_live_rows(eng.state.map.cursor, axes.map)),
         query_rows=layout.data_rows(bucket, axes.data)[0], bucket=bucket,
-        calls_per_frame=sum(c["calls"] for c in coll.values()) / len(sweeps),
-        bytes_per_frame=sum(c["bytes"] for c in coll.values()) / len(sweeps),
-        sites={n: (c["calls"] / len(sweeps), c["bytes"] / len(sweeps))
-               for n, c in coll.items()})
-    stage.append(("synchronous", time.perf_counter()))
+        **{key: main[key] for key in ("calls_per_frame", "bytes_per_frame", "sites")},
+        captures=eng.graphs.captures, capture_s=eng.graphs.capture_s,
+        pool_bytes=pool_bytes(eng.graphs) if graphed else None)
+    if graphed:
+        eager = sync["eager"][0]
+        out.update(
+            records_eager=record_bytes(eager["eng"]),
+            launches_equal=all(r["launches"] == eager["launches"]
+                               for rs in sync.values() for r in rs),
+            collectives_equal=all(
+                (r["calls_per_frame"], r["bytes_per_frame"], r["sites"])
+                == (eager["calls_per_frame"], eager["bytes_per_frame"], eager["sites"])
+                for rs in sync.values() for r in rs),
+            records_all_equal=all(record_bytes(r["eng"]) == out["records"]
+                                  for rs in sync.values() for r in rs))
+    for rs in sync.values():  # their graphs and pools go before the next drives
+        for r in rs:
+            r.pop("eng")
+    del eng, main
     census = fresh(pipelined=True, fetch_every=FETCH_EVERY)
-    calls, sites = sync_census(census, sweeps)
+    calls, sites, captured = sync_census(census, sweeps)
     stage.append(("pipelined", time.perf_counter()))
     between = [n for n, drained in calls[1:] if not drained]
     out.update(pipe_records=record_bytes(census),
                syncs_per_frame=sum(between) / max(1, len(between)),
-               sync_sites=dict(sites[1]))
+               sync_sites=dict(sites[1]), census_captured=captured)
+    del census
+    if graphed:
+        pipe_eager = fresh(pipelined=True, fetch_every=FETCH_EVERY, graphs=False)
+        drive(pipe_eager, sweeps)
+        out["pipe_records_eager"] = record_bytes(pipe_eager)
+        del pipe_eager
+        stage.append(("pipelined eager", time.perf_counter()))
     if evict:
         full = prefilled_map(cfg, "cpu", n=cap - k - 100, far=(1.9e6, 1.95e6))
         ev = fresh(prefill=full, pipelined=True, fetch_every=FETCH_EVERY)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             drive(ev, sweeps[:8])
-        out.update(evict_records=record_bytes(ev), n_evicted=ev.n_evicted)
+        out.update(evict_records=record_bytes(ev), n_evicted=ev.n_evicted,
+                   evict_graphed=any(key[0] == "evict" for key in ev.graphs._graphs))
+        del ev
         stage.append(("eviction", time.perf_counter()))
     if ba is not None:
         from bshot_slam_tpu_torch.backend.ba import BAProblem
+        from tests.torch_kernel_cases import ba_within
 
-        dev = sharded.mesh_device(mesh)
         prob = BAProblem(**{n: torch.from_numpy(v).to(dev) for n, v in ba.items()})
-        res = sharded.sharded_ba_solve(mesh, prob, gn_iterations=3, cg_iterations=15)
-        out["ba"] = {n: v.cpu().numpy() for n, v in res._asdict().items()}
+        solves = {"graphed": [], "eager": []}
+        for side in ("graphed", "eager") * 3:
+            g = None if side == "graphed" else Graphs(dev, eager=True)
+            solves[side].append(sharded.sharded_ba_solve(
+                mesh, prob, gn_iterations=3, cg_iterations=15, graphs=g))
+        near = [ba_within(r, solves["eager"]) for r in solves["graphed"]]
+        first = solves["graphed"][0]
+        out.update(ba={n: v.cpu().numpy() for n, v in first._asdict().items()},
+                   ba_graphed=not sharded.ba_graphs(mesh).eager,
+                   ba_captures=sharded.ba_graphs(mesh).captures,
+                   ba_near=[max(x) for x in zip(*[d for d, _ in near])],
+                   ba_within=all(w for _, w in near))
         stage.append(("BA", time.perf_counter()))
     out["stage_s"] = {b[0]: b[1] - a[1] for a, b in zip(stage, stage[1:])}
     out["started"] = time.time()
@@ -1560,7 +1678,9 @@ def mesh_phase(cfg, sweeps, dev) -> dict:
     (synchronous on the 24 frames and prefill, [4c]'s eviction drive, the
     dense bundle adjustment); kernels A and B over each data rank's query
     range at the main path's shapes against the launch over every row;
-    then `mesh_rank` on 1 (NCCL), 2 and 4 (gloo) ranks sharing cuda:0."""
+    then `mesh_rank` on 1 (NCCL: graphed and eager), 2 and 4 (gloo: eager)
+    ranks sharing cuda:0, the eviction drive and the bundle adjustment at
+    1 and 2."""
     import torch
 
     from bshot_slam_tpu_torch.backend.ba import BAProblem, ba_solve
@@ -1615,8 +1735,8 @@ def mesh_phase(cfg, sweeps, dev) -> dict:
     for ranks, backend in MESH_RUNS:
         t0, wall0 = time.perf_counter(), time.time()
         out = multihost.spawn_local(
-            mesh_rank, ranks, args=(cfg, sweeps, ranks == 2,
-                                    ba if ranks == 2 else None),
+            mesh_rank, ranks, args=(cfg, sweeps, ranks <= 2,
+                                    ba if ranks <= 2 else None),
             backend=backend, device="cuda", timeout=600)
         runs[ranks] = dict(backend=backend, s=time.perf_counter() - t0, out=out,
                            start_s=max(o["started"] - sum(o["stage_s"].values())
@@ -1668,19 +1788,21 @@ def in_turns(make, frames, warm) -> dict:
     (`graphs=False`, or `warm`, an earlier graphed engine's `Graphs`, whose
     captures the graphed runs replay), `frames(eng)` drives it (flush
     included).  Frames/s and launches a frame of each run, and each side's
-    last engine."""
+    last engine, which counts its eager steps (`run_sync_calls`) and its
+    re-runs through the dense step's graph (`run_dense_calls`)."""
     import torch
 
     out = {"eager": [], "graphed": []}
     for side in ("eager", "graphed", "graphed", "eager"):
         eng = make(False if side == "eager" else warm)
-        eng.run_sync_calls, run_sync = 0, eng._run_sync
+        for name in ("_run_sync", "_run_dense"):
+            setattr(eng, name[1:] + "_calls", 0)
 
-        def counting(*a, eng=eng, run_sync=run_sync):
-            eng.run_sync_calls += 1
-            return run_sync(*a)
+            def counting(*a, eng=eng, name=name, method=getattr(eng, name)):
+                setattr(eng, name[1:] + "_calls", getattr(eng, name[1:] + "_calls") + 1)
+                return method(*a)
 
-        eng._run_sync = counting
+            setattr(eng, name, counting)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         n, launches = counted(lambda: frames(eng))
@@ -1747,7 +1869,10 @@ def graphs_phase(cfg, sweeps, drive_sweeps, dev, earlier: dict) -> dict:
                  pool_bytes=pool_bytes(first.graphs),
                  redispatched=(r["graphed_eng"].n_redispatched,
                                r["eager_eng"].n_redispatched),
-                 eager_steps=r["graphed_eng"].run_sync_calls)
+                 eager_steps=r["graphed_eng"].run_sync_calls,
+                 dense_replays=r["graphed_eng"].run_dense_calls,
+                 dense_keys=sorted(k[:2] for k in first.graphs._graphs
+                                   if k[0].startswith("dense")))
         out[name] = r
     sp = spike_phase(cfg, dev, graphs=False)
     out["spike"] = dict(equal=all(record_bytes(a) == record_bytes(b) for a, b in
@@ -1991,6 +2116,9 @@ def pool_phase(cfg, sweeps, drive_sweeps, dev, graphs) -> dict:
     map is prefilled to 650 rows under it (the frames' inserts may grow
     it), and three frames run at three cloud buckets (a frame's cloud cut
     to CUT_POINTS points, the whole frame, two frames' points together).
+    Each capacity's whole-frame cloud is also replayed through the dense
+    step's graph (an aborted frame's re-run), and the largest map, at the
+    hard capacity, evicts through its graph.
     Then the pose graph at every node bucket (8 to max_keyframes) with each
     loop-edge padding a pass can make (0, 4, 8 or 12 loop edges: at most 8
     proximity and `lc_appearance_top` appearance pairs), the corrections at
@@ -2002,6 +2130,7 @@ def pool_phase(cfg, sweeps, drive_sweeps, dev, graphs) -> dict:
     bytes and the state buffers'; the peak is the largest pool seen, and
     must stay under POOL_LIMIT."""
     from bshot_slam_tpu_torch.backend import ba, posegraph
+    from bshot_slam_tpu_torch.device import upload
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine, pick_bucket
     from bshot_slam_tpu_torch.tools.run_ba_bench import problem_arrays
     from tests.torch_kernel_cases import BA_CASE, pose_graph_case
@@ -2035,7 +2164,16 @@ def pool_phase(cfg, sweeps, drive_sweeps, dev, graphs) -> dict:
                             cloud(both, len(both))):
                 eng.process_compact(pts, nv)
                 note(f"capacity {b}, bucket {pts.shape[0]}")
+            pts, nv = cloud(p0, n0)
+            eng._run_dense(upload(pts, dev), None, upload(np.asarray(nv, np.int32), dev),
+                           eng._next_draws(), eng._capacity())
+            note(f"capacity {b}, bucket {pts.shape[0]}, the dense step")
         f += 2
+    if eng._capacity() == cfg.map.capacity:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            eng._evict(int(eng.state.map.cursor))
+        note(f"an eviction at capacity {eng._capacity()}")
     iters, m = cfg.backend.gn_iterations, 8
     while m <= cfg.backend.max_keyframes:
         for loops in (0, 4, 8, 12):
@@ -2246,13 +2384,19 @@ def main() -> int:
 
     ev = eviction_phase(cfg, drive_sweeps, dev)
     print(f"[4c] eviction: map one frame short of {cfg.map.capacity}; 8 frames "
-          f"pipelined evicted {ev['n_evicted']} keypoints (tail inliers "
-          f"{ev['tail_inliers']}); evict_keypoints at cursor {ev['cursor']} "
-          f"drops {ev['evicted_now']} rows, card equal to CPU copies in every "
-          f"field, twice: {ev['exact']}; {ev['ms']:.3f} ms on the card (CPU "
-          f"{ev['cpu_ms']:.1f} ms); launches {ev['launches']}", flush=True)
-    if not ev["n_evicted"] or not ev["exact"]:
-        raise SmokeError("eviction did not run, or the card differs from the CPU")
+          f"pipelined evicted {ev['n_evicted']} keypoints graphed (evictions replayed "
+          f"from {ev['graphed_keys']}), {ev['eager_evicted']} eager (tail inliers "
+          f"{ev['tail_inliers']}); records bit-identical graphed and eager: "
+          f"{ev['records_equal']}; evict_keypoints at cursor {ev['cursor']} drops "
+          f"{ev['evicted_now']} rows, card equal to CPU copies in every field, eager "
+          f"twice and graphed twice: {ev['exact']}; launches {ev['launches']}", flush=True)
+    print(f"[4c] {card}: one eviction eager {ev['ms']:.4f} ms, graphed (replayed) "
+          f"{ev['graphed_ms']:.4f} ms (CUDA events, median of {REPEATS} each, in turns; "
+          f"the CPU {ev['cpu_ms']:.1f} ms)", flush=True)
+    if not (ev["n_evicted"] == ev["eager_evicted"] > 0 and ev["exact"]
+            and ev["records_equal"] and ev["graphed_keys"]):
+        raise SmokeError("eviction did not run or was not replayed, its records differ "
+                         "graphed and eager, or the card differs from the CPU")
 
     ckpt = str(work / "checkpoint")
     bk = backend_phase(cfg, drive_sweeps, drive_gt, dev, ckpt)
@@ -2426,22 +2570,32 @@ def main() -> int:
           f"the launch over every row: {ms['range_equal']}", flush=True)
     if not ms["range_equal"]:
         raise SmokeError("A or B over a query range differs from the full launch")
+    def rounded(runs: dict) -> dict:
+        return {k: [round(x, 3) for x in v] for k, v in runs.items() if v}
+
     mesh_paths = {}
     for ranks, run in ms["runs"].items():
         out, r0 = run["out"], run["out"][0]
+        how = (f"graphed: {r0['captures']} captures in {r0['capture_s']:.3f} s, pool "
+               f"{r0['pool_bytes']} bytes" if r0["graphed"] else
+               "eager: gloo stages every collective through the host with a sync, "
+               "which a capture refuses")
         print(f"[9] {ranks} rank(s) on cuda:0 ({run['backend']}; mesh {r0['mesh']}, "
-              f"dims {r0['backends']}; spawn to finish {run['s']:.1f} s, of which "
+              f"dims {r0['backends']}; {how}; spawn to finish {run['s']:.1f} s, of which "
               f"process start {run['start_s']:.1f} s, then "
               f"{', '.join(f'{n} {t:.1f} s' for n, t in r0['stage_s'].items())}): "
-              f"{min(o['fps'] for o in out):.3f} frames/s (ranks share one card: "
-              f"overhead, not scaling); map rows per rank {r0['map_rows']}, live rows "
-              f"per rank {[o['live_rows'] for o in out]}; query rows per rank "
+              f"frames/s {rounded(r0['fps'])} after the first frame, "
+              f"{rounded(r0['steady_fps'])} over the {r0['steady_frames']} later frames "
+              f"that captured nothing (ranks share one card: overhead, not scaling); "
+              f"map rows per rank {r0['map_rows']}, live "
+              f"rows per rank {[o['live_rows'] for o in out]}; query rows per rank "
               f"{[o['query_rows'] for o in out]} of bucket {r0['bucket']}; launches per "
               f"rank {[o['launches'] for o in out]}; collectives per frame "
               f"{r0['calls_per_frame']:.2f} calls, {r0['bytes_per_frame']:.0f} bytes "
               f"({', '.join(f'{n} {c:.2f}x {b:.0f} B' for n, (c, b) in r0['sites'].items())}); "
               f"pipelined syncs per frame between drains {[o['syncs_per_frame'] for o in out]} "
-              f"({r0['sync_sites'] or 'none'})", flush=True)
+              f"({r0['sync_sites'] or 'none'}; calls that captured a graph, set aside: "
+              f"{r0['census_captured']})", flush=True)
         same = all(o["records"] == ms["ref"] and o["pipe_records"] == ms["ref"]
                    for o in out)
         print(f"[9] {ranks} rank(s): synchronous and pipelined records bit-identical "
@@ -2450,20 +2604,38 @@ def main() -> int:
         if not same:
             raise SmokeError(f"the mesh's records at {ranks} rank(s) differ from "
                              "one device's")
-        idle = [n for o in out for n in ("neighborhood_accumulate", "segratio_accumulate",
-                                         "hamming_nn_bounded", "euclid_nn_bounded",
-                                         "dedup_blocked_bounded") if not o["launches"][n]]
+        idle = [n for o in out for n in A_TO_E if not o["launches"][n]]
         if idle:
             raise SmokeError(f"kernels never launched on the mesh path: {idle}")
-        if run["backend"] == "nccl" and any(o["syncs_per_frame"] for o in out):
-            raise SmokeError("the pipelined engine syncs between drains on NCCL")
-        mesh_paths[f"mesh_{ranks}_ranks_24"] = r0["launches"]
+        if run["backend"] == "nccl":
+            graphed_ok = all(o["graphed"] and o["captures"] > 0 for o in out)
+            eager_same = all(o["records_all_equal"] and o["records_eager"] == ms["ref"]
+                             and o["pipe_records_eager"] == ms["ref"] for o in out)
+            print(f"[9] {ranks} rank(s), {card}: graphed {graphed_ok}; every synchronous "
+                  f"run (eager, graphed, graphed, eager) and the pipelined runs graphed "
+                  f"and eager bit-identical to one another and to one device: "
+                  f"{eager_same}; collective calls and bytes per frame by site equal "
+                  f"graphed and eager: {all(o['collectives_equal'] for o in out)}; A-E "
+                  f"launches per rank equal graphed and eager: "
+                  f"{all(o['launches_equal'] for o in out)}", flush=True)
+            equal = all(o["collectives_equal"] and o["launches_equal"] for o in out)
+            if not (graphed_ok and eager_same and equal):
+                raise SmokeError("the graphed mesh engine is not graphed, or differs from "
+                                 "the eager one in records, collectives or launches")
+            if any(o["syncs_per_frame"] for o in out):
+                raise SmokeError("the pipelined engine syncs between drains on NCCL")
+            mesh_paths[f"mesh_{ranks}_ranks_24_graphed"] = r0["launches"]
+        else:
+            if any(o["graphed"] for o in out):
+                raise SmokeError("a gloo mesh on the card was graphed")
+            mesh_paths[f"mesh_{ranks}_ranks_24"] = r0["launches"]
         if "n_evicted" in r0:
             ev_same = all(o["evict_records"] == ms["ref_ev"] for o in out)
-            print(f"[9] {ranks} ranks: [4c]'s eviction drive evicted {r0['n_evicted']} "
-                  f"(one device {ms['ref_evicted']}); records bit-identical: "
-                  f"{ev_same}", flush=True)
-            if not (ev_same and r0["n_evicted"] == ms["ref_evicted"] > 0):
+            print(f"[9] {ranks} rank(s): [4c]'s eviction drive evicted {r0['n_evicted']} "
+                  f"(one device {ms['ref_evicted']}), evictions replayed from a graph "
+                  f"{r0['evict_graphed']}; records bit-identical: {ev_same}", flush=True)
+            if not (ev_same and r0["n_evicted"] == ms["ref_evicted"] > 0
+                    and r0["evict_graphed"] == r0["graphed"]):
                 raise SmokeError("the sharded eviction differs from one device's")
         if "ba" in r0:
             d = ms["dense"]
@@ -2473,13 +2645,22 @@ def main() -> int:
                      and np.allclose(o["ba"]["poses"], d["poses"], rtol=1e-3, atol=1e-2)
                      and np.allclose(o["ba"]["landmarks"], d["landmarks"], rtol=1e-3,
                                      atol=1.0) for o in out)
-            print(f"[9] {ranks} ranks: sharded BA cost {float(r0['ba']['initial_cost']):.1f} "
-                  f"-> {float(r0['ba']['final_cost']):.4f} (dense "
+            how = (f"replayed from a graph, {r0['ba_captures']} capture" if r0["ba_graphed"]
+                   else "eager")
+            print(f"[9] {ranks} rank(s): sharded BA ({how}) cost "
+                  f"{float(r0['ba']['initial_cost']):.1f} -> "
+                  f"{float(r0['ba']['final_cost']):.4f} (dense "
                   f"{float(d['final_cost']):.4f}); largest difference from the dense "
                   f"solve (poses, landmarks) {err[:2]}; within rtol 1e-3 / atol 1e-2 "
-                  f"and 1.0: {ok}", flush=True)
-            if not ok:
-                raise SmokeError("the sharded bundle adjustment parts from the dense one")
+                  f"and 1.0: {ok}; three solves each way, each graphed-side solve to its "
+                  f"nearest eager one by field {r0['ba_near']}: within BA_LIMITS "
+                  f"{all(o['ba_within'] for o in out)}", flush=True)
+            if not (ok and all(o["ba_within"] for o in out)
+                    and r0["ba_graphed"] == r0["graphed"]):
+                raise SmokeError("the sharded bundle adjustment parts from the dense one, "
+                                 "or its graphed solves from the eager ones")
+    print("[9] graphed NCCL replay at 2-4 ranks needs a card per rank: NCCL refuses "
+          "two ranks on one card, and gloo stays eager", flush=True)
 
     tl = tools_phase(work)
     for name, t in tl.items():
@@ -2516,16 +2697,31 @@ def main() -> int:
               f"{r['eager'][0]['per_frame']:.2f} (equal per kernel: {r['launches_equal']}); "
               f"records bit-identical graphed vs eager {r['records_equal']}, vs the earlier "
               f"phase's {r['earlier_equal']}; pipelined frames re-run (graphed, eager) "
-              f"{r['redispatched']}, eager steps in the graphed run (re-runs) "
-              f"{r['eager_steps']}; the earlier run's captures {r['captures']} in "
-              f"{r['capture_s']:.3f} s, pool {r['pool_bytes']} bytes", flush=True)
+              f"{r['redispatched']}; in the last graphed run eager steps "
+              f"{r['eager_steps']}, re-runs replayed from the dense step's graph "
+              f"{r['dense_replays']}; the earlier run's captures {r['captures']} "
+              f"(dense keys {r['dense_keys']}) in {r['capture_s']:.3f} s, pool "
+              f"{r['pool_bytes']} bytes", flush=True)
         # A synchronous graphed frame that aborts replays its step and then
-        # runs the eager one: more launches than the eager engine's, there.
+        # the dense one: more launches than the eager engine's, there.
         launches_ok = r["launches_equal"] if name != "overflow_sync_12" else (
-            r["eager_steps"] > 0 and all(
+            r["dense_replays"] > 0 and all(
                 g["per_frame"] > e["per_frame"] for g, e in zip(r["graphed"], r["eager"])))
-        if not (r["records_equal"] and r["earlier_equal"] and launches_ok):
+        dense_ok = True
+        if name.startswith("overflow"):  # every re-run through the dense graph
+            dense_ok = bool(r["dense_keys"]) and r["dense_replays"] > 0 and (
+                "pipelined" not in name or r["dense_replays"] == r["redispatched"][0])
+        if not (r["records_equal"] and r["earlier_equal"] and launches_ok and dense_ok
+                and r["eager_steps"] == 0):
             bad.append(name)
+    o_s, o_p = gp["overflow_sync_12"], gp["overflow_pipelined_12"]
+    print(f"[11] {card}: the window overflow's re-runs replayed from the dense step's "
+          f"graph, no eager step: launches a frame synchronous "
+          f"{o_s['graphed'][0]['per_frame']:.2f}, pipelined "
+          f"{o_p['graphed'][0]['per_frame']:.2f}; frames/s synchronous "
+          f"{[round(x['fps'], 3) for x in o_s['graphed']]}, pipelined "
+          f"{[round(x['fps'], 3) for x in o_p['graphed']]}; dense replays "
+          f"{o_s['dense_replays']} and {o_p['dense_replays']} of 12 frames", flush=True)
     spk = gp["spike"]
     print(f"[11] spike: eager buckets {spk['buckets']}, graphed {spk['buckets_graphed']}; "
           f"{spk['redispatched']} frames re-run eagerly; records bit-identical to the "
@@ -2628,7 +2824,10 @@ def main() -> int:
                          f"{POOL_LIMIT} (or unmeasured)")
 
     paths = {"sync_24": res["launches"], "pipelined_24": pipe["launches"],
-             "eviction_8": ev["launches"], "backend_129": bk["launches"],
+             "eviction_8": ev["launches"], "eviction_8_eager": ev["eager_launches"],
+             **{f"{name}_dense_replay": gp[name]["graphed"][0]["launches"]
+                for name in ("overflow_sync_12", "overflow_pipelined_12")},
+             "backend_129": bk["launches"],
              "pcap_native_stream": pc["launches"], "resume_65": rs["launches"],
              "bench_129": bench["launches"], "fused_sync_24": fu["launches"],
              "fused_pipelined_24": fu["pipe_launches"], "fused_spike": sp["launches"],

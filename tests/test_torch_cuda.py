@@ -17,8 +17,13 @@ over a TILE-aligned range of query rows equal the launch over every row,
 bit for bit.  The engine through its CUDA graphs (`odometry.graphs`:
 synchronous and pipelined, host and device preprocess, through a window
 overflow, with the backend's pair verification) equals `graphs=False` bit
-for bit and counts the same kernel launches; a capture that meets a host
-synchronisation raises.  Two engines whose configurations differ only in a
+for bit and counts the same kernel launches; through a window overflow the
+graphed engine re-runs from the dense step's graph, never eagerly; a map
+eviction replayed from its graph equals the eager one; the mesh engine over
+one NCCL rank replayed from its graphs equals its eager run, collectives
+included, and the sharded bundle adjustment's graph lies within the BA
+limits of the eager solve; a capture that meets a host synchronisation
+raises.  Two engines whose configurations differ only in a
 threshold share one `Graphs` and each equals its own `graphs=False` run;
 the backend's pose graph, keyframe histograms and BA replayed from their
 graphs equal the eager calls (BA: within fixed limits of its nearest eager
@@ -478,12 +483,100 @@ def test_graphed_engine_matches_eager_on_card(dev, mode):
 @pytest.mark.parametrize("pipelined", [False, True])
 def test_graphed_window_overflow_on_card(dev, pipelined):
     """A 256-row window over the growing map: the graphed step aborts on the
-    device; the synchronous engine re-runs the frame eagerly (its dense
-    fallback), the pipelined one drains and re-runs; records as eager."""
+    device; the synchronous engine replays the dense step's graph for the
+    frame, the pipelined one drains and re-runs the stalled frames through
+    it; the graphed engine never runs the eager step; records as eager."""
     (g, _), (e, _) = (_graph_drive(dev, flag, windowed=True, pipelined=pipelined,
                                    fetch_every=3, frames=6) for flag in (True, False))
     assert _record_bits(g) == _record_bits(e)
-    assert (g.n_redispatched if pipelined else g.sync_reruns) > 0
+    assert g.sync_reruns == 0 and "dense" in {k[0] for k in g.graphs._graphs}
+    assert (g.n_redispatched if pipelined else e.sync_reruns) > 0
+
+
+@pytest.mark.parametrize("case", sorted(EVICT_CASES))
+def test_graphed_eviction_on_card(dev, case):
+    """A map eviction replayed from its graph on the state buffers equals
+    `evict_keypoints` on CPU copies, every field, twice."""
+    from bshot_slam_tpu_torch.odometry import pipeline
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+
+    d, n_evict = evict_case(case)
+    t = {f: torch.tensor(d[f].view(np.int32) if d[f].dtype == np.uint32 else d[f])
+         for f in d}
+    want = tmap.evict_keypoints(tmap.MapState(**t), n_evict)
+    cfg = tiny_config()
+    state = pipeline.init_state(cfg, device=dev)._replace(
+        map=tmap.MapState(**{f: x.to(dev) for f, x in t.items()}))
+    graphs = Graphs(dev)
+    for _ in range(2):  # the first captures, the second replays
+        got = graphs.evict(state, n_evict)
+        for f, g, w in zip(tmap.MapState._fields, got.map, want):
+            assert torch.equal(g.cpu(), w), f
+    assert graphs.captures == 1
+
+
+def _mesh_rank(rank: int) -> dict:
+    """A tiny mesh engine over one NCCL rank, graphed and eager; the
+    sharded bundle adjustment graphed and eager (as numpy: a tensor would
+    cross to the parent as a shared-memory handle that the rank's exit
+    closes)."""
+    from bshot_slam_tpu_torch.backend.ba import BAProblem
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+    from bshot_slam_tpu_torch.parallel import comm, sharded
+    from tests.torch_sharded_cases import engine_cfg
+
+    mesh = sharded.make_mesh()
+    cfg = engine_cfg()
+    sweeps, _ = synthetic.render_sequence(  # the CPU case's drive: it evicts
+        10, cfg.sensor, step_mm=350.0, noise_mm=10.0, seed=13,
+        n_firings=cfg.sensor.n_azimuth, yaw_rate_rad=2 * np.pi / 30)
+    out = {}
+    for graphs in (True, False):
+        comm.reset_counts()
+        eng = SlamEngine(cfg, seed=0, tile=256, mesh=mesh, graphs=graphs,
+                         enable_backend=True, backend_every=8)
+        for sw in sweeps:
+            eng.process_sweep(sw)
+        out[graphs] = dict(records=_record_bits(eng), counts=comm.counts(),
+                           eager=eng.graphs.eager, captures=eng.graphs.captures,
+                           evicted=eng.n_evicted,
+                           keys={k[0] for k in eng.graphs._graphs})
+    rng = np.random.default_rng(9)
+    M, L = 4, 30
+    poses = np.tile(np.eye(4, dtype=np.float32), (M, 1, 1))
+    poses[:, 0, 3] = np.arange(M) * 1000.0
+    lm = rng.uniform(-5000, 5000, (L, 3)).astype(np.float32)
+    kf, li = np.repeat(np.arange(M), L), np.tile(np.arange(L), M)
+    obs = (lm[li] - poses[kf, :3, 3] + rng.normal(0, 5, (M * L, 3))).astype(np.float32)
+    dev = sharded.mesh_device(mesh)
+    prob = BAProblem(*[torch.as_tensor(a, device=dev) for a in (
+        poses, lm + 50.0, kf.astype(np.int32), li.astype(np.int32), obs,
+        np.ones(M * L, bool))])
+    out["ba"] = [[t.cpu().numpy() for t in sharded.sharded_ba_solve(mesh, prob, 3, 15,
+                                                                    graphs=g)]
+                 for g in (None, None, Graphs(dev, eager=True))]
+    out["ba_captures"] = sharded.ba_graphs(mesh).captures
+    return out
+
+
+def test_graphed_mesh_on_card(dev):
+    """One NCCL rank: the mesh engine replayed from its graphs (eviction
+    included) gives the eager mesh engine's records bit for bit and counts
+    the same collectives; the sharded bundle adjustment replayed from its
+    graph lies within `BA_LIMITS` of the eager one."""
+    from bshot_slam_tpu_torch.parallel import multihost
+    from tests.torch_kernel_cases import ba_within
+
+    out, = multihost.spawn_local(_mesh_rank, 1, backend="nccl", device="cuda",
+                                 timeout=300)
+    g, e = out[True], out[False]
+    assert not g["eager"] and e["eager"] and g["captures"] >= 2
+    assert g["records"] == e["records"] and g["counts"] == e["counts"]
+    assert g["evicted"] == e["evicted"] > 0 and {"compact", "evict"} <= g["keys"]
+    graphed, again, eager = ([torch.from_numpy(a) for a in r] for r in out["ba"])
+    for r in (graphed, again):
+        assert ba_within(r, [eager])[1]
+    assert out["ba_captures"] == 1 and float(eager[3]) < float(eager[2])
 
 
 def test_graphed_loop_pair_on_card(dev):

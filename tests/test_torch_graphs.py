@@ -23,8 +23,14 @@ in one buffer set per map capacity, outputs copied out.
     eigen-solves round differently), and bit for bit against the same
     engine with `graphs=False`.
 (c) A window overflow through the graphs: the synchronous engine's
-    replayed step aborts and the frame re-runs eagerly, the pipelined
-    engine drains and re-runs; records bit for bit as with `graphs=False`.
+    replayed step aborts and the frame re-runs through the dense step's
+    graph, the pipelined engine drains and re-runs every stalled frame
+    through it; the graphed engine never runs the eager step; records bit
+    for bit as with `graphs=False` (whose re-runs take the synchronous
+    step's compact window where it fits, so this also holds the dense
+    scan to the compact window's results).  A map eviction through its
+    graph (the state buffers' map evicted in place) gives the eager
+    engine's records, and the eager `evict_keypoints`' map, bit for bit.
 (d) `_verify_pair` through one graph for two keyframe pairs against the
     JAX package's `_verify_pair` (inliers equal, pose within 1 mm and 1e-4,
     rmse within 1 mm, as tests/test_torch_backend.py holds it) and bit for
@@ -210,6 +216,13 @@ def test_graphed_engine_matches_reference(sweeps, reference_runs, host_preproces
 # (c) a window overflow through the graphs
 
 
+def _counting(eng, name: str) -> list:
+    """Calls of the engine's method `name`, counted from now."""
+    calls, method = [], getattr(eng, name)
+    setattr(eng, name, lambda *a: (calls.append(1), method(*a))[1])
+    return calls
+
+
 @pytest.mark.parametrize("pipelined", [False, True], ids=["sync", "pipelined"])
 def test_graphed_window_overflow(pipelined):
     cfg = _windowed(tc)
@@ -222,18 +235,55 @@ def test_graphed_window_overflow(pipelined):
         d = convert.state_to_numpy(eng.state)
         eng.state = convert.state_from_numpy(
             _prefilled(d, np.random.default_rng(3), 200, 300, cfg), device="cpu")
-        reruns, run_sync = [], eng._run_sync
-        eng._run_sync = lambda *a, run_sync=run_sync, reruns=reruns: (
-            reruns.append(1), run_sync(*a))[1]
+        counts = _counting(eng, "_run_sync"), _counting(eng, "_run_dense")
         for s in sw:
             eng.process_sweep(s)
         eng.flush()
-        runs.append((eng, len(reruns)))
-    (graphed, reruns), (eager, _) = runs
+        runs.append((eng,) + tuple(len(c) for c in counts))
+    (graphed, g_sync, g_dense), (eager, e_sync, e_dense) = runs
     _same_records(graphed.records, eager.records)
-    # the graphed synchronous engine runs the eager step only on an abort
-    assert (graphed.n_redispatched if pipelined else reruns) > 0
-    assert pipelined or reruns < len(sw)
+    assert g_sync == 0 and e_dense == 0  # a graphed engine never runs the eager step
+    assert "dense" in {k[0] for k in graphed.graphs._graphs}
+    if pipelined:  # every stalled frame re-ran through the dense step's graph
+        assert g_dense == graphed.n_redispatched == eager.n_redispatched == e_sync > 0
+    else:  # the aborted frames only: the others fit their windows
+        assert 0 < g_dense < len(sw) == e_sync
+
+
+def test_graphed_eviction_matches_eager():
+    """A map eviction through its graph: the engine's records bit for bit
+    the eager engine's (synchronous and pipelined); the state buffers'
+    map evicted in place bit for bit as `evict_keypoints`' new map."""
+    cfg = tc.tiny_config()
+    cap, k = cfg.map.capacity, cfg.keypoints.top_k
+    sw, _ = synthetic.render_sequence(3, cfg.sensor, step_mm=300.0, noise_mm=10.0,
+                                      seed=2, n_firings=cfg.sensor.n_azimuth)
+    for pipelined in (False, True):
+        runs = []
+        for graphs in (True, False):
+            eng = SlamEngine(cfg, seed=0, device="cpu", tile=TILE, graphs=graphs,
+                             pipelined=pipelined, fetch_every=2)
+            d = convert.state_to_numpy(eng.state)
+            full = _prefilled(d, np.random.default_rng(4), 0, cap - k - 40, cfg,
+                              far=(1.9e6, 1.92e6))
+            eng.state = convert.state_from_numpy(full, device="cpu")
+            with pytest.warns(UserWarning, match="evicting"):
+                for s in sw:
+                    eng.process_sweep(s)
+                eng.flush()
+            runs.append(eng)
+        graphed, eager = runs
+        _same_records(graphed.records, eager.records)
+        assert graphed.n_evicted == eager.n_evicted > 0
+        assert graphed.state is graphed.graphs._states[cap]
+        assert [key[:3] for key in graphed.graphs._graphs if key[0] == "evict"] == [
+            ("evict", cap, 2 * k)]
+    graphs = Graphs("cpu")
+    state = convert.state_from_numpy(full, device="cpu")
+    want = tmap.evict_keypoints(state.map, 2 * k)
+    got = graphs.evict(state, 2 * k)
+    assert got is graphs._states[cap] and _same_tree(got.map, want)
+    assert int(want.cursor) == int(state.map.cursor) - 2 * k
 
 
 # ---------------------------------------------------------------------------

@@ -16,9 +16,18 @@ Ranks are spawned processes of one gloo process group (one CPU thread each,
     pipelined, and a checkpoint resumed, bit for bit the single-device
     engine's records (2 ranks); the synchronous engine with the device
     preprocess likewise (4 ranks);
+  * the mesh engine through its graphs (on the CPU their bodies on the
+    static buffers, eviction included) bit for bit the `graphs=False`
+    mesh engine, synchronous, pipelined and resumed, with the same
+    collectives counted; its step and eviction keys hold the axes;
+  * the sharded step leaves the state its caller gave it unchanged (it
+    copies its result out of its graphs' buffers);
   * the sharded bundle adjustment within the reference's tolerances of the
     dense solve (poses rtol 1e-3 / atol 1e-2, landmarks rtol 1e-3 /
-    atol 1.0): its sums add in another order;
+    atol 1.0): its sums add in another order; through its mesh's `Graphs`
+    within `BA_LIMITS` of the eager sharded solve;
+  * the collective counts a capture takes and a replay adds back
+    (`comm.snapshot`, `counts_since`, `add_counts`);
   * each collective of `parallel.comm` (4 ranks);
   * kernels A and B over a query range aligned to PLAIN_ROWS (as a data
     axis splits) equal the launch over every row, bit for bit (plain
@@ -151,6 +160,64 @@ def test_engine_resume_bit_identical(spawned):
     for o in out:
         assert o["engine"]["resumed"] == out[1]["engine"]["straight"]
         assert len(o["engine"]["resumed"]) == 6
+
+
+def test_engine_graphed_matches_eager(spawned):
+    out = spawned(2)
+    for r, o in enumerate(out):
+        e = o["engine"]
+        assert not e["eager"] and e["eager_eager"]
+        assert e["sync"] == e["sync_eager"] and e["pipe"] == e["pipe_eager"]
+        assert e["resumed"] == e["resumed_eager"]
+        assert e["evicted"] == e["evicted_eager"] > 0
+        assert e["counts"][True] == e["counts"][False] and e["counts"][True]
+        axes = [("data", 1, 0, "gloo"), ("map", 2, r, "gloo")]
+        for got in (e["axes"], e["pipe_axes"]):
+            assert got["compact"] == axes and got["evict"] == axes[1:]
+
+
+def test_sharded_step_leaves_the_callers_state(spawned):
+    out = spawned(2)
+    for r, o in enumerate(out):
+        st = o["step"]
+        assert st["graphed"] and st["kept"] == [True, True]
+        assert st["axes"] == {"masked": [("data", 1, 0, "gloo"), ("map", 2, r, "gloo")]}
+
+
+def test_sharded_ba_graphed_within_limits(spawned):
+    from tests.torch_kernel_cases import ba_within
+
+    out = spawned(2)
+    fields = ("poses", "landmarks", "initial_cost", "final_cost")
+    per = -(-_ba_problem()["obs_kf"].shape[0] // 2)  # each rank's observations
+    for r, o in enumerate(out):
+        ba = o["ba"]
+        got = tuple(torch.from_numpy(np.asarray(ba[f])) for f in fields)
+        eager = tuple(torch.from_numpy(np.asarray(ba["eager"][f])) for f in fields)
+        near, within = ba_within(got, [eager])
+        assert within, near
+        assert ba["graphed"] and ba["keys"] == [
+            ("ba", 5, 30, per, 3, 15, 1.0e-4, 1.0e6, [("world", 2, r, "gloo")])]
+
+
+def test_comm_counts_taken_and_added_back():
+    """A capture's collectives come out of the counts and each replay adds
+    them back (`odometry.graphs` does this around every capture)."""
+    from bshot_slam_tpu_torch.parallel import comm
+
+    comm.reset_counts()
+    comm._count("a", torch.zeros(4, dtype=torch.int32), False)
+    before = comm.snapshot()
+    comm._count("a", torch.zeros(2, dtype=torch.int64), False)
+    comm._count("b", torch.zeros(3), True)
+    delta = comm.counts_since(before)
+    assert delta == {"a": [1, 16, 0], "b": [1, 12, 1]}
+    assert comm.counts() == {"a": dict(calls=1, bytes=16, syncs=0)}
+    for _ in range(2):
+        comm.add_counts(delta)
+    assert comm.counts() == {"a": dict(calls=3, bytes=48, syncs=0),
+                             "b": dict(calls=2, bytes=24, syncs=2)}
+    comm.reset_counts()
 
 
 def test_sharded_ba_matches_dense(spawned):

@@ -58,9 +58,27 @@ def _maps(m) -> dict:
     return {f: getattr(m, f).numpy().copy() for f in m._fields}
 
 
+def _bits(tree) -> list:
+    from bshot_slam_tpu_torch.odometry.graphs import leaves
+
+    return [t.numpy().tobytes() for t in leaves(tree)]
+
+
+def _axes_of(graphs) -> dict:
+    """{key kind: the (name, size, rank, backend) of each axis in the key}
+    of a `Graphs`' step and eviction keys."""
+    out = {}
+    for k in graphs._graphs:
+        if k[0] in ("compact", "masked", "dense", "dense_masked", "evict"):
+            out[k[0]] = [a[:4] for a in (k[3] if k[0] == "evict" else k[4])]
+    return out
+
+
 def case_step(mesh, single: bool) -> dict:
     """Two sharded steps on the reference's cloud (the second matches the
-    first): packed rows, this rank's map rows and the gathered map; with
+    first): packed rows, this rank's map rows and the gathered map, and
+    whether each step left the state it was given as it was (the step
+    replays through its `Graphs`, whose buffers it copies out of); with
     `single`, the same on one device with the mesh overrides."""
     from bshot_slam_tpu_torch.odometry import pipeline
     from bshot_slam_tpu_torch.parallel import sharded
@@ -69,13 +87,17 @@ def case_step(mesh, single: bool) -> dict:
     step, place = sharded.sharded_odometry_step(mesh, cfg, tile=TILE)
     pts, pmask = (torch.from_numpy(a) for a in step_inputs(cfg))
     state = place(pipeline.init_state(cfg, device="cpu"))
-    packed = []
+    packed, kept = [], []
     for f in range(2):
-        state, diag = step(state, pts, pmask, torch.Generator().manual_seed(f))
+        given = _bits(state)
+        new, diag = step(state, pts, pmask, torch.Generator().manual_seed(f))
+        kept.append(_bits(state) == given and _bits(new) != given)
+        state = new
         packed.append(diag.packed.numpy().copy())
     out = dict(packed=packed, local=_maps(state.map),
                whole=_maps(sharded.gather_state(state, mesh).map),
-               kind=type(state.map).__name__)
+               kind=type(state.map).__name__, kept=kept, graphed=not step.graphs.eager,
+               axes=_axes_of(step.graphs))
     if single:
         c1 = sharded.mesh_runtime_overrides(cfg, 1)
         s1 = pipeline.init_state(c1, device="cpu")
@@ -120,14 +142,17 @@ def _drive(eng, sweeps):
 def case_engine(mesh, single: bool, straight: bool, ckpt_dir: str, n: int = 10,
                 n_a: int = 4) -> dict:
     """The engine sharded through growth, eviction and the backend (a pass
-    every 8 frames), synchronous and pipelined; and a checkpoint after n_a
-    frames (to `ckpt_dir`) resumed by a fresh sharded engine.  With
-    `single`, the first on one device; with `straight`, the uninterrupted
-    run the resumed one continues, on one device."""
+    every 8 frames), synchronous and pipelined, through its graphs (on the
+    CPU their bodies on the static buffers) and eagerly (`graphs=False`),
+    with the collectives each synchronous drive counted and the axes in
+    its graphs' keys; and a checkpoint after n_a frames (to `ckpt_dir`)
+    resumed by a fresh sharded engine, graphed and eager.  With `single`,
+    the first on one device; with `straight`, the uninterrupted run the
+    resumed one continues, on one device."""
     from bshot_slam_tpu_torch import checkpoint as ckpt
     from bshot_slam_tpu_torch.io import synthetic
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
-    from bshot_slam_tpu_torch.parallel import sharded
+    from bshot_slam_tpu_torch.parallel import comm, sharded
 
     warnings.simplefilter("ignore")
     cfg = engine_cfg()
@@ -135,23 +160,33 @@ def case_engine(mesh, single: bool, straight: bool, ckpt_dir: str, n: int = 10,
         n, cfg.sensor, step_mm=350.0, noise_mm=10.0, seed=13,
         n_firings=cfg.sensor.n_azimuth, yaw_rate_rad=2 * np.pi / (3 * n))
     kw = dict(seed=0, tile=TILE, enable_backend=True, backend_every=8)
-    sync = _drive(SlamEngine(cfg, mesh=mesh, **kw), sweeps)
-    pipe = _drive(SlamEngine(cfg, mesh=mesh, pipelined=True, fetch_every=3, **kw),
-                  sweeps)
-    out = dict(sync=records(sync), pipe=records(pipe), evicted=sync.n_evicted,
-               kf=sync._kf_count, rows=sync.state.map.positions.shape[0],
-               capacity=sync._capacity(), kind=type(sync.state.map).__name__)
+    out = dict(counts={})
+    for graphs in (True, False):
+        comm.reset_counts()
+        sync = _drive(SlamEngine(cfg, mesh=mesh, graphs=graphs, **kw), sweeps)
+        out["counts"][graphs] = comm.counts()
+        pipe = _drive(SlamEngine(cfg, mesh=mesh, pipelined=True, fetch_every=3,
+                                 graphs=graphs, **kw), sweeps)
+        tag = "" if graphs else "_eager"
+        out.update({"sync" + tag: records(sync), "pipe" + tag: records(pipe),
+                    "evicted" + tag: sync.n_evicted, "eager" + tag: sync.graphs.eager})
+        if graphs:
+            out.update(kf=sync._kf_count, rows=sync.state.map.positions.shape[0],
+                       capacity=sync._capacity(), kind=type(sync.state.map).__name__,
+                       axes=_axes_of(sync.graphs), pipe_axes=_axes_of(pipe.graphs))
 
     cfg2 = engine_cfg(capacity=1024)
     kw2 = dict(seed=0, tile=TILE, enable_backend=True)
     first = _drive(SlamEngine(cfg2, mesh=mesh, **kw2), sweeps[:n_a])
     ckpt.save_state(ckpt_dir, first.state, first.poses, mesh=mesh)
     ckpt.save_backend(ckpt_dir, first)
-    resumed = SlamEngine(cfg2, mesh=mesh, **kw2)
-    resumed.state, _ = ckpt.load_state(ckpt_dir, mesh=mesh)
-    resumed._place_state()
-    ckpt.load_backend(ckpt_dir, resumed)
-    out["resumed"] = records(_drive(resumed, sweeps[n_a:]))
+    for graphs in (True, False):
+        resumed = SlamEngine(cfg2, mesh=mesh, graphs=graphs, **kw2)
+        resumed.state, _ = ckpt.load_state(ckpt_dir, mesh=mesh)
+        resumed._place_state()
+        ckpt.load_backend(ckpt_dir, resumed)
+        out["resumed" + ("" if graphs else "_eager")] = records(_drive(resumed,
+                                                                      sweeps[n_a:]))
     out["resumed_kind"] = type(resumed.state.map).__name__
     if single:
         one = _drive(SlamEngine(sharded.mesh_runtime_overrides(cfg, 1),
@@ -187,14 +222,23 @@ def case_device_preprocess(mesh, single: bool, n: int = 3) -> dict:
 
 
 def case_ba(mesh, prob: dict, single: bool) -> dict:
-    """The sharded bundle adjustment of a numpy problem; with `single`, the
-    dense solve too."""
+    """The sharded bundle adjustment of a numpy problem through the mesh's
+    `Graphs` (on the CPU its body on the static buffers), and eagerly
+    (`eager`); with `single`, the dense solve too."""
     from bshot_slam_tpu_torch.backend.ba import BAProblem, ba_solve
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
     from bshot_slam_tpu_torch.parallel import sharded
 
     p = BAProblem(**{k: torch.from_numpy(v) for k, v in prob.items()})
     res = sharded.sharded_ba_solve(mesh, p, gn_iterations=3, cg_iterations=15)
     out = {k: v.numpy().copy() for k, v in res._asdict().items()}
+    eager = sharded.sharded_ba_solve(mesh, p, gn_iterations=3, cg_iterations=15,
+                                     graphs=Graphs("cpu", eager=True))
+    out["eager"] = {k: v.numpy().copy() for k, v in eager._asdict().items()}
+    graphs = sharded.ba_graphs(mesh)
+    out["keys"] = [k[:8] + tuple([a[:4] for a in ax] for ax in k[8:])
+                   for k in graphs._graphs]
+    out["graphed"] = not graphs.eager
     if single:
         dense = ba_solve(p, gn_iterations=3, cg_iterations=15)
         out["dense"] = {k: v.numpy().copy() for k, v in dense._asdict().items()}
