@@ -71,6 +71,7 @@ compaction is off on a mesh, so its steps never abort.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import warnings
 from typing import Iterable, List, NamedTuple, Optional
 
@@ -86,6 +87,10 @@ from bshot_slam_tpu_torch.odometry import graphs as graphs_mod
 from bshot_slam_tpu_torch.odometry import mapstore, pipeline
 from bshot_slam_tpu_torch.ops.rangeimage import RangeImage, build_range_image
 from bshot_slam_tpu_torch.parallel import comm, layout
+from bshot_slam_tpu_torch.utils import profiling
+
+_REC = profiling.RECORDER
+_SERIALS = itertools.count()  # each engine's serial, the first part of its frames' ids
 
 
 def pick_bucket(n_valid: int, cfg: SlamConfig) -> int:
@@ -136,6 +141,7 @@ class _Pending(NamedTuple):
     draws: torch.Tensor  # (H, 3) RANSAC draws
     map_cap: int  # map capacity at dispatch (the tail block's offset)
     image: Optional[tuple] = None  # (range_az, vert, sel) on the device
+    frame: Optional[tuple] = None  # its id in the recorder's spans (None: not recording)
 
 
 class SlamEngine:
@@ -167,7 +173,23 @@ class SlamEngine:
     With `enable_backend` the keyframe store holds at least 3 keyframes
     (`BackendConfig.max_keyframes`): a saturated store evicts one that is
     neither the anchor nor in the newest quarter, and a smaller store has
-    none, so the engine refuses it."""
+    none, so the engine refuses it.
+
+    While `utils.profiling.RECORDER` is on, the engine records itself.
+    Each frame's id is (the engine's `serial`, its dispatch index), and
+    its spans carry it: the root `slam.frame` (the outermost `process_*`
+    call), `slam.ingest` (`slam.range_image`, `slam.extract`),
+    `slam.dispatch` (the map check, the uploads in `slam.upload`, the
+    draws and the step, `slam.replay` inside `Graphs`), and, where the
+    frame's row is read, `slam.drain` (`slam.fetch_wait`,
+    `slam.finalize` with the id of the frame finalized) and
+    `slam.redispatch`.  The device marks `frame_start` (before the
+    frame's upload), `step_start` (after its uploads and draws) and
+    `replay_end` (after its step) bracket each dispatch on the device;
+    they are read after the drain's wait for its copy, so recording adds
+    no synchronise.  `host_syncs.<site>` counts each place
+    the engine waits for the device: `fetch`, `packed`, `cursor`,
+    `n_valid`."""
 
     def __init__(self, cfg: SlamConfig, seed: int = 0, tile: int = 2048,
                  device=None, draws: Optional[Iterable] = None,
@@ -224,6 +246,9 @@ class SlamEngine:
         # Pipelined mode.
         self.pipelined = pipelined
         self.fetch_every = max(1, fetch_every)
+        self.serial = next(_SERIALS)
+        self._fid: Optional[tuple] = None  # the recorded frame's id
+        _REC.reserve(3 * (self.fetch_every + 1))  # three marks a frame in flight
         self._pending: List[_Pending] = []
         self._fetch = None  # (entries, pinned rows, event) of a started copy
         self._ok = torch.ones((), dtype=torch.bool, device=self.device)
@@ -286,15 +311,33 @@ class SlamEngine:
 
             self.state = sharded.shard_state(self.state, self.mesh,
                                              self.map_axis, self.device)
-        self._cursor_ub = int(self.state.map.cursor) if self.pipelined else None
+        self._cursor_ub = self._read_cursor() if self.pipelined else None
+
+    def _read_cursor(self) -> int:
+        """The map's cursor on the host: a wait for the device."""
+        _REC.count("host_syncs.cursor")
+        return int(self.state.map.cursor)
 
     # -- ingest -------------------------------------------------------------
 
+    def _frame(self):
+        """`slam.frame`, the root span of the frame this outermost
+        `process_*` call begins (a nested call opens none), under the
+        frame's id: (the engine's serial, its dispatch index)."""
+        if not _REC.on or _REC.is_open("slam.frame"):
+            return profiling.NOOP
+        self._fid = (self.serial, self._frames_in)
+        return _REC.span("slam.frame", self._fid)
+
     def process_sweep(self, sweep: LaserSweep,
                       selected: Optional[np.ndarray] = None):
-        ri = build_range_image(sweep, self.cfg.sensor, selected)
-        return self.process_range_image(ri.range_mm, ri.azimuth_rad,
-                                        ri.vert_rad, ri.selected)
+        with self._frame():
+            with _REC.span("slam.ingest"):
+                with _REC.span("slam.range_image"):
+                    ri = build_range_image(sweep, self.cfg.sensor, selected)
+                ingested = self._ingest(ri.range_mm, ri.azimuth_rad, ri.vert_rad,
+                                        ri.selected)
+            return self._dispatch(ingested)
 
     def process_frame(self, frame):
         """A raw LaserSweep (binned on the host) or an upload-ready
@@ -313,20 +356,38 @@ class SlamEngine:
         the image goes to the device; synchronous, the kept count is read to
         slice the cloud to its exact bucket; pipelined, the fused step runs
         at the predicted bucket without a sync."""
+        with self._frame():
+            with _REC.span("slam.ingest"):
+                ingested = self._ingest(range_mm, azimuth_rad, vert_rad, selected)
+            return self._dispatch(ingested)
+
+    def _ingest(self, range_mm, azimuth_rad, vert_rad, selected):
+        """A range image's ingest (`slam.extract`): host preprocess, the
+        compact cloud (points, n_valid) from `host_cloud`; device
+        preprocess, the image on the device and, synchronous, its cloud at
+        the exact bucket (`_exact_cloud`)."""
+        with _REC.span("slam.extract"):
+            if self.host_preprocess:
+                return host_cloud(range_mm, azimuth_rad, vert_rad, selected, self.cfg)
+            range_az = upload(np.stack([np.asarray(range_mm, np.float32),
+                                        np.asarray(azimuth_rad, np.float32)]),
+                              self.device)
+            vert = self._device_vert(vert_rad)
+            # An all-True select list selects what None does: skip its upload.
+            sel = None
+            if selected is not None and not np.all(selected):
+                sel = upload(np.asarray(selected, np.bool_), self.device)
+            if self.pipelined:
+                return range_az, vert, sel
+            return self._exact_cloud((range_az, vert, sel))
+
+    def _dispatch(self, ingested):
+        """The step of what `_ingest` returned."""
         if self.host_preprocess:
-            return self.process_compact(*host_cloud(
-                range_mm, azimuth_rad, vert_rad, selected, self.cfg))
-        range_az = upload(np.stack([np.asarray(range_mm, np.float32),
-                                    np.asarray(azimuth_rad, np.float32)]),
-                          self.device)
-        vert = self._device_vert(vert_rad)
-        # An all-True select list selects what None does: skip its upload.
-        sel = None
-        if selected is not None and not np.all(selected):
-            sel = upload(np.asarray(selected, np.bool_), self.device)
+            return self.process_compact(*ingested)
         if self.pipelined:
-            return self._dispatch_fused((range_az, vert, sel))
-        return self.process_cloud(*self._exact_cloud((range_az, vert, sel)))
+            return self._dispatch_fused(ingested)
+        return self._step(*ingested)
 
     def _device_vert(self, vert_rad: np.ndarray) -> torch.Tensor:
         """The (per-sensor constant) vertical angles on the device, uploaded
@@ -345,6 +406,7 @@ class SlamEngine:
         pcfg = self.cfg.preprocess
         points, pmask, n_valid = pipeline.ingest(range_az[0], range_az[1], vert,
                                                  sel, pcfg, pcfg.max_points)
+        _REC.count("host_syncs.n_valid")
         b = pick_bucket(int(n_valid), self.cfg)
         return points[:b], pmask[:b], n_valid
 
@@ -352,22 +414,28 @@ class SlamEngine:
         """The pipelined device-preprocess frame: one fused deferred step at
         the predicted bucket.  The first frame reads its kept count once to
         start the prediction."""
-        if self._next_bucket is None:
-            _, _, n_valid = self._exact_cloud(image)
-            self._feed_bucket(int(n_valid))
-        self._maybe_grow_map()
-        cap = self._capacity()
-        draws = self._next_draws()
-        if not self.graphs.eager:
-            self.state, self._ok, diag = self.graphs.fused(
-                self.cfg, self.tile, self.state, self._ok, image,
-                self._next_bucket, draws, self._keep)
-        else:
-            range_az, vert, sel = image
-            self.state, self._ok, diag = pipeline.odometry_step_fused(
-                self.state, self._ok, range_az, vert, sel, self.cfg.preprocess,
-                self.cfg, self._next_bucket, draws, self.tile)
-        return self._enqueue(_Pending(diag, None, None, None, draws, cap, image))
+        fid = self._fid
+        with _REC.span("slam.dispatch"):
+            if self._next_bucket is None:
+                _, _, n_valid = self._exact_cloud(image)
+                self._feed_bucket(int(n_valid))
+            self._maybe_grow_map()
+            cap = self._capacity()
+            _REC.device_mark("frame_start", fid)
+            draws = self._next_draws()
+            _REC.device_mark("step_start", fid)
+            self._frames_in += 1
+            if not self.graphs.eager:
+                self.state, self._ok, diag = self.graphs.fused(
+                    self.cfg, self.tile, self.state, self._ok, image,
+                    self._next_bucket, draws, self._keep)
+            else:
+                range_az, vert, sel = image
+                self.state, self._ok, diag = pipeline.odometry_step_fused(
+                    self.state, self._ok, range_az, vert, sel, self.cfg.preprocess,
+                    self.cfg, self._next_bucket, draws, self.tile)
+            _REC.device_mark("replay_end", fid)
+        return self._enqueue(_Pending(diag, None, None, None, draws, cap, image, fid))
 
     def _feed_bucket(self, n_valid: int) -> None:
         """Predict the next frame's cloud bucket from this count: headroom
@@ -384,25 +452,34 @@ class SlamEngine:
         (bucket, 3) front-compacted, n_valid exact (sent to the device
         with the points, as a 0-d int32 tensor: no host sync, and a graph
         reads it from its buffer rather than baking it in)."""
-        return self._step(upload(np.asarray(points, np.float32), self.device),
-                          None, upload(np.asarray(n_valid, np.int32), self.device))
+        with self._frame():
+            return self._step(np.asarray(points, np.float32), None,
+                              np.asarray(n_valid, np.int32))
 
     def process_cloud(self, points, pmask, n_valid_dev=None):
         """One frame from a (bucket, 3) cloud and its (bucket,) mask (host
         arrays or tensors); `n_valid_dev`, the count of valid points (an int
         or a 0-d tensor), defaults to the mask's count."""
-        points = self._as_device(points, np.float32)
-        pmask = self._as_device(pmask, np.bool_)
-        if n_valid_dev is None:
-            n_valid_dev = torch.sum(pmask, dtype=torch.int32)
-        elif not isinstance(n_valid_dev, torch.Tensor):
-            n_valid_dev = upload(np.asarray(n_valid_dev, np.int32), self.device)
-        return self._step(points, pmask, n_valid_dev)
+        with self._frame():
+            return self._step(points, pmask, n_valid_dev)
 
     def _as_device(self, x, dtype) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
         return upload(np.asarray(x, dtype), self.device)
+
+    def _on_device(self, points, pmask, n_valid):
+        """A cloud (host arrays or tensors) on the engine's device: points,
+        the mask or None, and n_valid as a 0-d tensor (None: the mask's
+        count)."""
+        points = self._as_device(points, np.float32)
+        if pmask is not None:
+            pmask = self._as_device(pmask, np.bool_)
+        if n_valid is None:
+            n_valid = torch.sum(pmask, dtype=torch.int32)
+        elif not isinstance(n_valid, torch.Tensor):
+            n_valid = upload(np.asarray(n_valid, np.int32), self.device)
+        return points, pmask, n_valid
 
     def _next_draws(self) -> torch.Tensor:
         """This frame's (H, 3) RANSAC draws: injected, or from the engine's
@@ -422,31 +499,55 @@ class SlamEngine:
         iterator, or the generator."""
         return self._draws if self._draws is not None else self.generator
 
-    def _step(self, points: torch.Tensor, pmask: Optional[torch.Tensor], n_valid):
-        self._maybe_grow_map()
-        cap = self._capacity()
-        if self.graphs.eager and not self.pipelined:
-            rng = self.generator if self._draws is None else self._next_draws()
-            return self._run_sync(points, pmask, n_valid, rng, cap)
-        draws = self._next_draws()
-        if self.graphs.eager:
-            self.state, self._ok, diag = pipeline.odometry_step_deferred(
-                self.state, self._ok, points, pmask, n_valid, draws, self.cfg,
-                self.tile, axes=self.axes)
-        else:
-            self.state, self._ok, diag = self.graphs.step(
-                self.cfg, self.tile, self.state, self._ok, points, pmask, n_valid,
-                draws, self._keep, axes=self.axes)
+    def _step(self, points, pmask: Optional[torch.Tensor], n_valid):
+        """One frame's step from its cloud (see `_on_device`): the dispatch
+        (the map check, the uploads, the draws and the step), then,
+        pipelined, its place in the queue; synchronous, its packed row and
+        record.  The eager synchronous step (`graphs=False`) reads and
+        records within its dispatch."""
+        fid = self._fid
+        with _REC.span("slam.dispatch"):
+            self._maybe_grow_map()
+            cap = self._capacity()
+            _REC.device_mark("frame_start", fid)
+            with _REC.span("slam.upload"):
+                points, pmask, n_valid = self._on_device(points, pmask, n_valid)
+            self._frames_in += 1
+            if self.graphs.eager and not self.pipelined:
+                rng = self.generator if self._draws is None else self._next_draws()
+                return self._run_sync(points, pmask, n_valid, rng, cap, fid)
+            draws = self._next_draws()
+            _REC.device_mark("step_start", fid)
+            if self.graphs.eager:
+                self.state, self._ok, diag = pipeline.odometry_step_deferred(
+                    self.state, self._ok, points, pmask, n_valid, draws, self.cfg,
+                    self.tile, axes=self.axes)
+            else:
+                self.state, self._ok, diag = self.graphs.step(
+                    self.cfg, self.tile, self.state, self._ok, points, pmask, n_valid,
+                    draws, self._keep, axes=self.axes)
+            _REC.device_mark("replay_end", fid)
         if self.pipelined:
-            return self._enqueue(_Pending(diag, points, pmask, n_valid, draws, cap))
-        pk = diag.packed.cpu().numpy()
+            return self._enqueue(_Pending(diag, points, pmask, n_valid, draws, cap,
+                                          frame=fid))
+        pk = self._read_packed(diag)
         if pk[pipeline.IDX_COMMITTED] == 0.0:
             # The graphed synchronous step: a window overflowed and the state
             # passed through; the dense step's graph, same draws.
-            return self._run_dense(points, pmask, n_valid, draws, cap)
-        return self._finalize(diag, pk, cap)
+            return self._run_dense(points, pmask, n_valid, draws, cap, fid)
+        return self._finalize(diag, pk, cap, frame=fid)
 
-    def _run_dense(self, points, pmask, n_valid, draws, cap: int) -> FrameRecord:
+    def _read_packed(self, diag) -> np.ndarray:
+        """A synchronous step's packed row on the host: a wait for the
+        device (`slam.fetch_wait`)."""
+        with _REC.span("slam.fetch_wait"):
+            _REC.count("host_syncs.packed")
+            pk = diag.packed.cpu().numpy()
+        _REC.read_marks()
+        return pk
+
+    def _run_dense(self, points, pmask, n_valid, draws, cap: int,
+                   frame=None) -> FrameRecord:
         """The graphed re-run of a frame that aborted: the step without
         window compaction (which cannot abort) replayed with the frame's
         draws, and its record."""
@@ -454,9 +555,10 @@ class SlamEngine:
             self.cfg, self.tile, self.state,
             torch.ones((), dtype=torch.bool, device=self.device), points, pmask,
             n_valid, draws, self._keep, axes=self.axes, dense=True)
-        return self._finalize(diag, diag.packed.cpu().numpy(), cap)
+        return self._finalize(diag, self._read_packed(diag), cap, frame=frame)
 
-    def _run_sync(self, points, pmask, n_valid, rng, cap: int) -> FrameRecord:
+    def _run_sync(self, points, pmask, n_valid, rng, cap: int,
+                  frame=None) -> FrameRecord:
         """The synchronous step (host-side window decisions) and its record."""
         if pmask is None:
             self.state, diag = pipeline.odometry_step_compact(
@@ -466,7 +568,7 @@ class SlamEngine:
             self.state, diag = pipeline.odometry_step(
                 self.state, points, pmask, rng, self.cfg, self.tile,
                 n_valid=n_valid, axes=self.axes)
-        return self._finalize(diag, diag.packed.cpu().numpy(), cap)
+        return self._finalize(diag, self._read_packed(diag), cap, frame=frame)
 
     # -- pipelined mode -----------------------------------------------------
 
@@ -474,7 +576,6 @@ class SlamEngine:
         """Queue a frame for a later batched fetch; returns the newest
         already-finalized record."""
         self._pending.append(entry)
-        self._frames_in += 1
         if len(self._pending) == self.fetch_every:
             # The next drain takes exactly these rows: start their copy now
             # so it lands while the host prepares the next frame.
@@ -513,14 +614,21 @@ class SlamEngine:
             self._start_fetch(entries)
             f = self._fetch
         self._fetch = None
-        if f[2] is not None:
-            f[2].synchronize()
+        with _REC.span("slam.fetch_wait"):
+            _REC.count("host_syncs.fetch")
+            if f[2] is not None:
+                f[2].synchronize()
+        _REC.read_marks()  # the device has passed every mark before the copy
         return f[1].numpy().copy()
 
     def flush(self) -> Optional[FrameRecord]:
         """Pipelined mode: finalize all in-flight frames (call after the
-        last process_* call); returns the final record, or None."""
-        return self._drain(keep=0)
+        last process_* call); returns the final record, or None.  Nothing
+        is in flight after it, so the recorder retakes its clock's
+        anchor."""
+        rec = self._drain(keep=0)
+        _REC.reanchor()
+        return rec
 
     def _drain(self, keep: int) -> Optional[FrameRecord]:
         """Fetch and finalize pending frames down to `keep` in flight,
@@ -531,16 +639,18 @@ class SlamEngine:
         if n <= 0:
             return None
         batch, self._pending = self._pending[:n], self._pending[n:]
-        rows = self._fetched(batch)
-        rec = None
-        for i, (entry, pk) in enumerate(zip(batch, rows)):
-            if pk[pipeline.IDX_COMMITTED] == 0.0:
-                stalled = batch[i:] + self._pending
-                self._pending = []
-                self._fetch = None
-                return self._redispatch(stalled)
-            last = i == len(batch) - 1 and not self._pending
-            rec = self._finalize(entry.diag, pk, entry.map_cap, can_backend=last)
+        with _REC.span("slam.drain", batch[-1].frame):
+            rows = self._fetched(batch)
+            rec = None
+            for i, (entry, pk) in enumerate(zip(batch, rows)):
+                if pk[pipeline.IDX_COMMITTED] == 0.0:
+                    stalled = batch[i:] + self._pending
+                    self._pending = []
+                    self._fetch = None
+                    return self._redispatch(stalled)
+                last = i == len(batch) - 1 and not self._pending
+                rec = self._finalize(entry.diag, pk, entry.map_cap, can_backend=last,
+                                     frame=entry.frame)
         return rec
 
     def _redispatch(self, stalled: List[_Pending]) -> Optional[FrameRecord]:
@@ -556,62 +666,66 @@ class SlamEngine:
         self._cursor_ub = None
         self.n_redispatched += len(stalled)
         rec = None
-        for e in stalled:
-            self._maybe_grow_map(exact=True)
-            if e.image is None:
-                points, pmask, n_valid = e.points, e.pmask, e.n_valid
-            else:
-                points, pmask, n_valid = self._exact_cloud(e.image)
-            rerun = self._run_sync if self.graphs.eager else self._run_dense
-            rec = rerun(points, pmask, n_valid, e.draws, self._capacity())
+        with _REC.span("slam.redispatch"):
+            for e in stalled:
+                self._maybe_grow_map(exact=True)
+                if e.image is None:
+                    points, pmask, n_valid = e.points, e.pmask, e.n_valid
+                else:
+                    points, pmask, n_valid = self._exact_cloud(e.image)
+                rerun = self._run_sync if self.graphs.eager else self._run_dense
+                rec = rerun(points, pmask, n_valid, e.draws, self._capacity(), e.frame)
         return rec
 
     # -- records ------------------------------------------------------------
 
     def _finalize(self, diag, pk: np.ndarray, map_cap: int,
-                  can_backend: bool = True) -> FrameRecord:
-        P = pipeline
-        if self._next_bucket is not None and pk.shape[0] > P.PACKED_LEN:
-            self._feed_bucket(int(pk[P.IDX_N_VALID]))  # the pipelined fused path
-        rec = FrameRecord(
-            pose=pk[:16].reshape(4, 4).astype(np.float32),
-            n_inliers=int(pk[P.IDX_N_INLIERS]),
-            n_mutual=int(pk[P.IDX_N_MUTUAL]),
-            gated=bool(pk[P.IDX_GATED] > 0),
-            map_size=int(pk[P.IDX_MAP_SIZE]),
-            icp_rmse=float(pk[P.IDX_ICP_RMSE]),
-            corr_stats=pk[P.IDX_CORR_STATS:P.IDX_CORR_STATS + 3].copy(),
-            n_dropped=int(pk[P.IDX_N_DROPPED]),
-        )
-        if rec.n_dropped > 0 and not self._warned_drop:
-            self._warned_drop = True
-            warnings.warn(
-                f"map capacity {self.cfg.map.capacity} saturated at frame "
-                f"{len(self.records)}: {rec.n_dropped} keypoint(s) dropped",
-                stacklevel=2,
+                  can_backend: bool = True, frame=None) -> FrameRecord:
+        """The record of a frame's packed row (`slam.finalize` under the
+        frame's id), its keyframe and its periodic backend pass."""
+        with _REC.span("slam.finalize", frame):
+            P = pipeline
+            if self._next_bucket is not None and pk.shape[0] > P.PACKED_LEN:
+                self._feed_bucket(int(pk[P.IDX_N_VALID]))  # the pipelined fused path
+            rec = FrameRecord(
+                pose=pk[:16].reshape(4, 4).astype(np.float32),
+                n_inliers=int(pk[P.IDX_N_INLIERS]),
+                n_mutual=int(pk[P.IDX_N_MUTUAL]),
+                gated=bool(pk[P.IDX_GATED] > 0),
+                map_size=int(pk[P.IDX_MAP_SIZE]),
+                icp_rmse=float(pk[P.IDX_ICP_RMSE]),
+                corr_stats=pk[P.IDX_CORR_STATS:P.IDX_CORR_STATS + 3].copy(),
+                n_dropped=int(pk[P.IDX_N_DROPPED]),
             )
-        if self.enable_backend:
-            self._maybe_keyframe(diag, rec, abs_frame=int(pk[P.IDX_FRAME]),
-                                 map_cap=map_cap)
-        if self.keep_corr:
-            kp = diag.features.keypoints.cpu().numpy()
-            kp_w = kp @ rec.pose[:3, :3].T + rec.pose[:3, 3]
-            self.last_corr = {
-                "src_world": kp_w,
-                "index": diag.corr_index.cpu().numpy(),
-                "inlier": (diag.corr_inlier & diag.features.mask).cpu().numpy(),
-                "map_cap": map_cap,
-                "prev_src_world": self._prev_kp_world,
-            }
-            self._prev_kp_world = kp_w
-        self.records.append(rec)
-        if (can_backend and self.enable_backend and self.backend_every
-                and len(self.records) % self.backend_every == 0
-                and self._kf_count >= 2):
-            self.optimize_backend()
-            self.apply_backend_corrections()
-            rec = self.records[-1]  # its pose may have been corrected
-        return rec
+            if rec.n_dropped > 0 and not self._warned_drop:
+                self._warned_drop = True
+                warnings.warn(
+                    f"map capacity {self.cfg.map.capacity} saturated at frame "
+                    f"{len(self.records)}: {rec.n_dropped} keypoint(s) dropped",
+                    stacklevel=2,
+                )
+            if self.enable_backend:
+                self._maybe_keyframe(diag, rec, abs_frame=int(pk[P.IDX_FRAME]),
+                                     map_cap=map_cap)
+            if self.keep_corr:
+                kp = diag.features.keypoints.cpu().numpy()
+                kp_w = kp @ rec.pose[:3, :3].T + rec.pose[:3, 3]
+                self.last_corr = {
+                    "src_world": kp_w,
+                    "index": diag.corr_index.cpu().numpy(),
+                    "inlier": (diag.corr_inlier & diag.features.mask).cpu().numpy(),
+                    "map_cap": map_cap,
+                    "prev_src_world": self._prev_kp_world,
+                }
+                self._prev_kp_world = kp_w
+            self.records.append(rec)
+            if (can_backend and self.enable_backend and self.backend_every
+                    and len(self.records) % self.backend_every == 0
+                    and self._kf_count >= 2):
+                self.optimize_backend()
+                self.apply_backend_corrections()
+                rec = self.records[-1]  # its pose may have been corrected
+            return rec
 
     # -- the map ------------------------------------------------------------
 
@@ -631,9 +745,9 @@ class SlamEngine:
         if pipelined and (self._cursor_ub is None or self._cursor_ub + inc > min(
                 self._capacity(), hard_cap)):
             self._drain(keep=0)  # re-runs of aborted frames may grow the map
-            self._cursor_ub = int(self.state.map.cursor)
+            self._cursor_ub = self._read_cursor()
         cap = self._capacity()
-        cursor = self._cursor_ub if pipelined else int(self.state.map.cursor)
+        cursor = self._cursor_ub if pipelined else self._read_cursor()
         need = cursor + inc
         if need > cap:
             for b in sorted(set(self.cfg.runtime.map_buckets) | {hard_cap}):
@@ -655,7 +769,7 @@ class SlamEngine:
         n_evict = min(2 * self.cfg.keypoints.top_k, self.cfg.map.capacity // 2)
         self.state = self.graphs.evict(self.state, n_evict,
                                        None if self.axes is None else self.axes.map)
-        after = int(self.state.map.cursor)
+        after = self._read_cursor()
         evicted = cursor - after
         self.n_evicted += evicted
         if evicted and not self._warned_evict:

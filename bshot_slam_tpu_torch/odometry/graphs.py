@@ -91,6 +91,9 @@ from bshot_slam_tpu_torch.backend.loop_closure import _verify_pair, bow_rows
 from bshot_slam_tpu_torch.kernels import mapops, neighborhood, preprocess
 from bshot_slam_tpu_torch.odometry import mapstore, pipeline
 from bshot_slam_tpu_torch.parallel import comm
+from bshot_slam_tpu_torch.utils import profiling
+
+_REC = profiling.RECORDER
 
 # The kernel wrappers whose `launches` a replay advances.
 WRAPPERS = (neighborhood.neighborhood_accumulate, neighborhood.segratio_accumulate,
@@ -149,7 +152,11 @@ class Graphs:
     state buffers of one engine (or of one `find_loop_closures` call).
     `captures` and `capture_s` count the captures made and their seconds
     (warm-up included).  With `eager` every body runs directly on the
-    caller's tensors (no buffers, no capture, no pool)."""
+    caller's tensors (no buffers, no capture, no pool).  While
+    `utils.profiling.RECORDER` is on, each capture is a `slam.capture`
+    span (attribute `key`, warm-up included) and every other run a
+    `slam.replay` span (the copy-in and the replay's launch; on the CPU
+    and eager, the body)."""
 
     def __init__(self, device, eager: bool = False):
         self.device = normal_device(device)
@@ -171,20 +178,22 @@ class Graphs:
         is copied into the buffer at the body's end.  Returns the outputs,
         which the next call may overwrite.  Eager: `body(*args)` itself."""
         if self.eager:
-            return _apply(body(*args))
+            with _REC.span("slam.replay"):
+                return _apply(body(*args))
         g = self._graphs.get(key)
         if g is None:
             static = tuple(None if a is None else a.clone() for a in args)
             if self.cuda:
-                outputs, g = self._capture(static, body)
+                outputs, g = self._capture(key, static, body)
                 self._graphs[key] = g
                 return outputs
             g = self._graphs[key] = _Graph(static, None, None, (), {})
-        else:
+            args = static
+        with _REC.span("slam.replay"):
             self._copy_in(key, g.static, args)
-        if g.graph is None:
-            return _apply(body(*g.static))
-        g.graph.replay()
+            if g.graph is None:
+                return _apply(body(*g.static))
+            g.graph.replay()
         for w, n in zip(WRAPPERS, g.launches):
             w.launches += n
         comm.add_counts(g.collectives)
@@ -200,29 +209,30 @@ class Graphs:
             if a is not None and a is not s:
                 s.copy_(a)
 
-    def _capture(self, static: tuple, body: Callable):
+    def _capture(self, key, static: tuple, body: Callable):
         """(this call's outputs, run eagerly on the capture stream, and the
         captured graph of the body)."""
-        t0 = time.perf_counter()
-        stream = _capture_stream(self.device)
-        current = torch.cuda.current_stream(self.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):  # makes scratch, cached counts, libraries
-            outputs = _apply(body(*static))
-        current.wait_stream(stream)
-        before, counted = [w.launches for w in WRAPPERS], comm.snapshot()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool, stream=stream):
-                captured = _apply(body(*static))
-        finally:  # a capture launches nothing and makes no collective
-            launches = tuple(w.launches - b for w, b in zip(WRAPPERS, before))
-            for w, b in zip(WRAPPERS, before):
-                w.launches = b
-            collectives = comm.counts_since(counted)
-        self.captures += 1
-        self.capture_s += time.perf_counter() - t0
-        return outputs, _Graph(static, captured, graph, launches, collectives)
+        with _REC.span("slam.capture", key=key):
+            t0 = time.perf_counter()
+            stream = _capture_stream(self.device)
+            current = torch.cuda.current_stream(self.device)
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):  # makes scratch, cached counts, libraries
+                outputs = _apply(body(*static))
+            current.wait_stream(stream)
+            before, counted = [w.launches for w in WRAPPERS], comm.snapshot()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool, stream=stream):
+                    captured = _apply(body(*static))
+            finally:  # a capture launches nothing and makes no collective
+                launches = tuple(w.launches - b for w, b in zip(WRAPPERS, before))
+                for w, b in zip(WRAPPERS, before):
+                    w.launches = b
+                collectives = comm.counts_since(counted)
+            self.captures += 1
+            self.capture_s += time.perf_counter() - t0
+            return outputs, _Graph(static, captured, graph, launches, collectives)
 
     # -- state buffers ----------------------------------------------------------
 

@@ -110,8 +110,9 @@ def _parser() -> argparse.ArgumentParser:
                          "stopFlag loop (odometry_test.cpp:339-386)")
     ap.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler trace of the frame loop to "
-                         "DIR (Chrome trace; the equivalent of the "
-                         "reference's TicToc prints)")
+                         "DIR (Chrome trace, with the engine's slam.* spans "
+                         "as ranges) and print their per-frame summary (the "
+                         "equivalent of the reference's TicToc prints)")
     ap.add_argument("--backend", action="store_true",
                     help="enable keyframes + B-SHOT loop closure + pose-"
                          "graph optimization")
@@ -183,7 +184,7 @@ def _run(args, ap, mesh=None) -> int:
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
     from bshot_slam_tpu_torch.utils import trajectory as traj_io
     from bshot_slam_tpu_torch.utils.metrics import ate_rmse
-    from bshot_slam_tpu_torch.utils.profiling import trace
+    from bshot_slam_tpu_torch.utils.profiling import RECORDER, frame_stats, trace
 
     device = "cpu" if args.cpu else None  # None: the card, or raise
     cfg = default_config()
@@ -289,7 +290,9 @@ def _run(args, ap, mesh=None) -> int:
         gold_traj = traj_io.load_xyz(args.gold)
     stepping = args.step
     prof = contextlib.ExitStack()
-    if args.profile:
+    if args.profile:  # the engine's slam.* spans show as ranges in the trace
+        RECORDER.enable(eng.device)
+        prof.callback(RECORDER.disable)
         prof.enter_context(trace(args.profile))
     t_start = time.perf_counter()
     for i, sw in enumerate(sweeps):
@@ -329,6 +332,16 @@ def _run(args, ap, mesh=None) -> int:
         live.update(eng, gold_traj)
     if args.profile:
         print(f"profiler trace -> {args.profile}")
+        st = frame_stats(RECORDER.records())
+        RECORDER.clear()
+        if st is not None:
+            def ms(v):
+                return "n/a" if v is None else f"{v:.3f}"
+
+            print(f"per frame: fetch wait {ms(st['fetch_wait_ms'])} ms, dispatch "
+                  f"{ms(st['dispatch_ms'])} ms, syncs {st['syncs_per_frame']:.3f}, step "
+                  f"on the device {ms(st['step_device_ms'])} ms, device gaps "
+                  f"{ms(st['device_gap_pct'])} %")
     n = len(eng.records)
     print(f"{n} frames in {total:.1f}s ({n / total:.2f} fps incl. first-use builds)")
     if args.eval_corr and n > 1:

@@ -3,12 +3,19 @@
 Port of `bshot_slam_tpu.utils.profiling`.  TicToc mirrors the reference's
 wall-clock stage timer (reference: include/tic_toc.h:7-25, printed as
 "t1"/"t2" in lidar_odometry.cpp:128,167).  `fence` waits for queued device
-work (`torch.cuda.synchronize` on the devices of the tensors given),
-`device_timer` times a function on the card with CUDA events, `trace`
+work (`torch.cuda.synchronize` on the devices of the tensors given), `trace`
 wraps `torch.profiler` for deep dives, `profiled` and `device_profile`
 read what `torch.profiler` saw run on the card, and `stage_times` gives a
 stage of the instruments (`tools/run_stage_bench.py`,
 `tools/run_feature_profile.py`) its columns.
+
+`RECORDER`, the process's `Recorder`, holds what the engine and its
+graphs record of themselves while it is on: spans (host intervals with
+their parent and frame), counts, and device marks on the host's clock.  It
+is off unless a caller enables it, and then costs each call site one
+attribute check.  `frame_stats` reduces its records to per-frame numbers
+(fetch wait, dispatch, syncs, the step's device time and the device's
+gaps); `tools/run_odometry.py --profile` prints them.
 
 Not ported, because the port has nothing for them to do:
 `scalarized` folds a jitted function's outputs into one scalar so that a
@@ -20,6 +27,8 @@ kernels build once into `build/kernels/`) and fences with one synchronise.
 
 from __future__ import annotations
 
+import bisect
+import collections
 import contextlib
 import statistics
 import time
@@ -58,25 +67,6 @@ def fence(tree) -> None:
     synchronise per CUDA device among them; CPU tensors are already done."""
     for dev in {t.device for t in _leaves(tree) if t.is_cuda}:
         torch.cuda.synchronize(dev)
-
-
-def device_timer(fn: Callable, *args, reps: int = 5, warmup: int = 1,
-                 **kwargs) -> float:
-    """Mean ms per call of fn(*args) on the current CUDA device, from CUDA
-    events around `reps` calls after `warmup` calls.  Needs a card."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("device_timer needs a CUDA device")
-    for _ in range(warmup):
-        fn(*args, **kwargs)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn(*args, **kwargs)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 @contextlib.contextmanager
@@ -173,3 +163,320 @@ def stage_times(stages: dict, iters: int, device) -> dict:
             rows[name].update(device_ms=device_ms, launches=launches, profile_passes=passes,
                               host_ms=rows[name]["wall_ms"] - device_ms)
     return rows
+
+
+NOOP = contextlib.nullcontext()  # the span of a recorder that is off
+
+
+class _Table:
+    """Rows held in preallocated columns, doubled when full."""
+
+    def __init__(self, fields: tuple, capacity: int):
+        self.fields = fields
+        self.n = 0
+        self.cols = [[None] * capacity for _ in fields]
+
+    def reserve(self, capacity: int) -> None:
+        for col in self.cols:
+            col.extend([None] * (capacity - len(col)))
+
+    def add(self, *row) -> int:
+        i = self.n
+        if i == len(self.cols[0]):
+            for col in self.cols:
+                col.extend([None] * len(col))
+        for col, value in zip(self.cols, row):
+            col[i] = value
+        self.n = i + 1
+        return i
+
+    def rows(self) -> list:
+        return [dict(zip(self.fields, r)) for r in zip(*(c[:self.n] for c in self.cols))]
+
+
+class _Close:
+    """What an open span returns: its exit closes the innermost open span."""
+
+    __slots__ = ("rec",)
+
+    def __init__(self, rec: "Recorder"):
+        self.rec = rec
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        rec = self.rec
+        i = rec._stack.pop()
+        rec._spans.cols[2][i] = time.perf_counter_ns()
+        rng = rec._ranges.pop()
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        return False
+
+
+class Recorder:
+    """The program's own record of where its time goes, kept in memory and
+    read out at the end (`records`); nothing is written to a file.
+
+    - `span(name, frame=None, **attrs)`: a context manager timing a host
+      interval with `time.perf_counter_ns`, recorded with the span open
+      when it began (its parent: the span that caused it) and its frame id
+      (the request it serves; a span given none takes its parent's).  While
+      `torch.profiler` is profiling, it also opens a
+      `record_function` range of its name, so the span shows on the
+      profiler's clock too.
+    - `count(name, n=1)`: adds n to a counter, recorded with the frame of
+      the innermost open span that has one.
+    - `device_mark(name, frame)`: a CUDA event recorded on the current
+      stream.  Marks are read (`read_marks`) only once the device has
+      passed them, after a wait the caller already makes, so marking adds
+      no synchronise.  Each read mark is put on the host's clock through
+      an anchor: an event recorded while nothing is in flight, beside a
+      `perf_counter_ns` reading (`enable`, then `reanchor` after each full
+      drain); a mark's host time is the anchor's plus the device time
+      between the two events.  Events come from a pool that `reserve`
+      sizes to the caller's marks in flight; a new one is made only when
+      the pool runs out.  Without a CUDA device marks record nothing.
+
+    Off (the default) each call returns at its first attribute check:
+    `span` returns the shared `NOOP`, and nothing is allocated.  Spans
+    nest on one thread: the recorder takes no lock."""
+
+    CAPACITY = 1 << 16  # rows of each table, allocated by `enable` (doubled when full)
+
+    def __init__(self):
+        self.on = False
+        self._stack: list = []
+        self._ranges: list = []
+        self._closer = _Close(self)
+        self.clear()
+
+    # -- switching ------------------------------------------------------------
+
+    def enable(self, device=None) -> None:
+        """Start recording; on a CUDA device, wait for it once and take the
+        anchor of the marks' clock."""
+        self.on = True
+        for table in (self._spans, self._counts, self._marks):
+            table.reserve(self.CAPACITY)
+        device = torch.device(device) if device is not None else torch.device("cpu")
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            self.read_marks()
+            if self._anchor is not None:
+                self._pool.append(self._anchor[0])
+            self._anchor = self._anchor_now()
+
+    def disable(self) -> None:
+        """Stop recording, reading the marks the device has passed; what was
+        recorded stays until `clear`."""
+        self.read_marks()
+        self.on = False
+
+    def clear(self) -> None:
+        """Forget every record; refused while a span is open."""
+        if self._stack:
+            raise RuntimeError(f"{len(self._stack)} span(s) open")
+        self._spans = _Table(("name", "start_ns", "end_ns", "parent", "frame", "attrs"), 1)
+        self._counts = _Table(("name", "n", "frame", "t_ns"), 1)
+        self._marks = _Table(("name", "frame", "t_ns"), 1)
+        self._anchor = None
+        self._pool: list = []
+        self._pending = collections.deque()  # (event, name, frame) in record order
+        self.events_made = 0
+
+    # -- spans and counts -----------------------------------------------------
+
+    def span(self, name: str, frame=None, **attrs):
+        if not self.on:
+            return NOOP
+        stack = self._stack
+        parent = stack[-1] if stack else -1
+        if frame is None and parent >= 0:
+            frame = self._spans.cols[4][parent]
+        rng = None
+        if torch._C._autograd._profiler_enabled():
+            from torch.autograd.profiler import record_function
+
+            rng = record_function(name)
+            rng.__enter__()
+        stack.append(self._spans.add(name, time.perf_counter_ns(), None, parent, frame,
+                                     attrs or None))
+        self._ranges.append(rng)
+        return self._closer
+
+    def is_open(self, name: str) -> bool:
+        """Whether a span of this name is open."""
+        names = self._spans.cols[0]
+        return any(names[i] == name for i in self._stack)
+
+    def count(self, name: str, n: int = 1) -> None:
+        if not self.on:
+            return
+        frame = None
+        frames = self._spans.cols[4]
+        for i in reversed(self._stack):
+            if frames[i] is not None:
+                frame = frames[i]
+                break
+        self._counts.add(name, n, frame, time.perf_counter_ns())
+
+    # -- device marks ---------------------------------------------------------
+
+    def _event(self):
+        if self._pool:
+            return self._pool.pop()
+        self.events_made += 1
+        return torch.cuda.Event(enable_timing=True)
+
+    def _anchor_now(self) -> tuple:
+        ev = self._event()
+        t0 = time.perf_counter_ns()
+        ev.record()
+        return ev, (t0 + time.perf_counter_ns()) // 2
+
+    def reserve(self, n: int) -> None:
+        """Make the pool hold events for n marks in flight."""
+        if not self.on or self._anchor is None:
+            return
+        while len(self._pool) + len(self._pending) < n:
+            self._pool.append(torch.cuda.Event(enable_timing=True))
+            self.events_made += 1
+
+    def device_mark(self, name: str, frame) -> None:
+        if not self.on or self._anchor is None:
+            return
+        ev = self._event()
+        ev.record()
+        self._pending.append((ev, name, frame))
+
+    def read_marks(self) -> None:
+        """Put every mark the device has passed on the host's clock, oldest
+        first, stopping at the first it has not reached (no wait)."""
+        pending = self._pending
+        if not self.on or not pending:
+            return
+        anchor, t_anchor = self._anchor
+        while pending and pending[0][0].query():
+            ev, name, frame = pending.popleft()
+            self._marks.add(name, frame, t_anchor + int(anchor.elapsed_time(ev) * 1e6))
+            self._pool.append(ev)
+
+    def reanchor(self) -> None:
+        """Retake the anchor; call only after a wait for everything queued.
+        Marks not yet read keep the anchor they were recorded under, so
+        while any is pending the anchor stays."""
+        if not self.on or self._anchor is None:
+            return
+        self.read_marks()
+        if self._pending:
+            return
+        old = self._anchor[0]
+        self._anchor = self._anchor_now()
+        self._pool.append(old)
+
+    # -- read-out -------------------------------------------------------------
+
+    def records(self) -> dict:
+        """Every record so far: `spans` (dicts of name, start_ns, end_ns,
+        parent: the index of the parent span or -1, frame, attrs, and
+        self_ns: the duration less its children's, None while open),
+        `counts` (name, n, frame, t_ns) and `marks` (name, frame, t_ns on
+        the host's clock), each in the order recorded (spans by start)."""
+        spans = self._spans.rows()
+        for sp in spans:
+            sp["self_ns"] = None if sp["end_ns"] is None else sp["end_ns"] - sp["start_ns"]
+        for sp in spans:
+            if sp["parent"] >= 0 and sp["end_ns"] is not None:
+                parent = spans[sp["parent"]]
+                if parent["self_ns"] is not None:
+                    parent["self_ns"] -= sp["end_ns"] - sp["start_ns"]
+        return {"spans": spans, "counts": self._counts.rows(), "marks": self._marks.rows()}
+
+
+def _innermost(spans: list, starts: list, t: int) -> str:
+    """The name of the innermost span open at host time t, or "host"."""
+    i = bisect.bisect_right(starts, t) - 1
+    while i >= 0:
+        end = spans[i]["end_ns"]
+        if end is None or end > t:
+            return spans[i]["name"]
+        i = spans[i]["parent"]
+    return "host"
+
+
+def frame_stats(records: dict, serials=None) -> dict | None:
+    """What `records` (`Recorder.records()`) say of the frames of the
+    engines `serials` (the first part of each frame id; None: every
+    engine), per frame (its `slam.frame` span): host ms in
+    `slam.fetch_wait`; host ms in `slam.dispatch` less the drains nested in
+    it (a map check that drains the queue: its wait is the fetch wait's);
+    `host_syncs` counts; host self ms by span name; and from the device
+    marks, the mean ms from a frame's `frame_start` to its `replay_end` (of
+    which `upload_device_ms` to its `step_start`: uploads and draws), the
+    share of each engine's span of marks (its first `frame_start` to its
+    last `replay_end`) that lies outside those intervals, %, and the
+    seconds of those gaps by the innermost span open when each began.
+    The device numbers are None without marks (the CPU); the whole is None
+    without frames."""
+    spans = records["spans"]
+
+    def mine(frame) -> bool:
+        return frame is not None and (serials is None or frame[0] in serials)
+
+    n = len({s["frame"] for s in spans if s["name"] == "slam.frame" and mine(s["frame"])})
+    if not n:
+        return None
+    fetch_ns = dispatch_ns = 0
+    self_ns = collections.Counter()
+    for s in spans:
+        if not mine(s["frame"]) or s["end_ns"] is None:
+            continue
+        d = s["end_ns"] - s["start_ns"]
+        self_ns[s["name"]] += s["self_ns"] or 0
+        if s["name"] == "slam.fetch_wait":
+            fetch_ns += d
+        elif s["name"] == "slam.dispatch":
+            dispatch_ns += d
+        elif (s["name"] == "slam.drain" and s["parent"] >= 0
+              and spans[s["parent"]]["name"] == "slam.dispatch"):
+            dispatch_ns -= d
+    syncs = sum(c["n"] for c in records["counts"]
+                if c["name"].startswith("host_syncs") and mine(c["frame"]))
+    marks = collections.defaultdict(dict)  # frame -> mark name -> host ns
+    for m in records["marks"]:
+        if mine(m["frame"]):
+            marks[m["frame"]][m["name"]] = m["t_ns"]
+    busy_ns = extent_ns = steps = upload_ns = uploads = 0
+    gaps = collections.Counter()
+    starts = [s["start_ns"] for s in spans]
+    for serial in sorted({f[0] for f in marks}):
+        frames = sorted((f for f, v in marks.items() if f[0] == serial
+                         and "frame_start" in v and "replay_end" in v), key=lambda f: f[1])
+        if not frames:
+            continue
+        for a, b in zip(frames, frames[1:]):
+            gap = marks[b]["frame_start"] - marks[a]["replay_end"]
+            if gap > 0:
+                gaps[_innermost(spans, starts, marks[a]["replay_end"])] += gap * 1e-9
+        busy_ns += sum(marks[f]["replay_end"] - marks[f]["frame_start"] for f in frames)
+        ups = [marks[f]["step_start"] - marks[f]["frame_start"] for f in frames
+               if "step_start" in marks[f]]
+        upload_ns, uploads = upload_ns + sum(ups), uploads + len(ups)
+        extent_ns += marks[frames[-1]]["replay_end"] - marks[frames[0]]["frame_start"]
+        steps += len(frames)
+    return {
+        "frames": n,
+        "fetch_wait_ms": fetch_ns / n * 1e-6,
+        "dispatch_ms": dispatch_ns / n * 1e-6,
+        "syncs_per_frame": syncs / n,
+        "step_device_ms": busy_ns / steps * 1e-6 if steps else None,
+        "upload_device_ms": upload_ns / uploads * 1e-6 if uploads else None,
+        "device_gap_pct": (1.0 - busy_ns / extent_ns) * 100.0 if extent_ns > 0 else None,
+        "gaps": dict(gaps),
+        "self_ms": {k: v / n * 1e-6 for k, v in self_ns.items()},
+    }
+
+
+RECORDER = Recorder()

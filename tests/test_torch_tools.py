@@ -307,9 +307,6 @@ def test_profiling_helpers(tmp_path):
     profiling.fence({"x": (x, [x])})  # CPU tensors: nothing to wait for
     assert t.toc() > 0
     assert any(p.name.endswith(".json") for p in (tmp_path / "trace").iterdir())
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="needs a CUDA device"):
-            profiling.device_timer(lambda: None)
 
 
 # -- slow: the CLI as a subprocess at the full config --------------------------
