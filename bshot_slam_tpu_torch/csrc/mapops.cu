@@ -1,4 +1,5 @@
-// Bounded nearest-neighbour kernels against the map on Hopper (C, D, E).
+// Bounded nearest-neighbour kernels against the map on Hopper (C, D, E),
+// and the ICP update that consumes D (G).
 //
 // C replaces bshot_slam_tpu/kernels/mapops.py:hamming_nn_bounded: two-sided
 //   Hamming nearest neighbours between ~600 source B-SHOTs and the candidates.
@@ -6,6 +7,9 @@
 //   and its index (the ICP correspondence search, 10 calls per frame).
 // E replaces dedup_blocked_bounded: per newcomer, whether a map row in
 //   [0, n_valid) blocks it (same voxel block, d2 < r^2, seg_ratio >= its own).
+// G replaces no Pallas kernel: it is an ICP iteration past D's search (the
+//   body of bshot_slam_tpu/ops/icp.py's lax.scan), which the plain path runs
+//   as ~235 PyTorch operations of 1.5-2 us each.
 //
 // Candidate rows are live when j < n_valid, or j >= tail_start when
 // tail_start >= 0 (the previous frame's keypoints ride after the map
@@ -90,6 +94,31 @@
 //   check's shape and 4-5x slower in the engine, where the newcomers crowd
 //   into a few blocks.
 //
+// G is one launch of one block of 1024 threads per call.  Its work, ~600
+// rows of 57 bytes, is nothing to the card: the latency of its dependent
+// steps bounds it, so the design keeps them few and in one block.
+//   * Rows are strided over the threads (a loop past 1024 rows).  Pass 1
+//     sums the pair count (0/1 weights: exact) and the pairs' d2; pass 2
+//     the two weighted means, weights w / (n + eps) as se3.kabsch forms
+//     them; pass 3 the nine entries of the centred cross-covariance H.  Each
+//     sum is a thread's rows in order, then a fixed tree (__shfl_down_sync in
+//     each warp, then warp 0 over the 32 warps): no atomics, so G is
+//     bit-identical run to run.
+//   * Thread 0 then does what the plain path does to the 4x4 problem: Horn's
+//     matrix of H / (|H| + eps), the shift by 2 I, 30 power iterations, the
+//     quaternion's rotation, t, the identity below 3 pairs, the composition
+//     with the running pose, the rmse.  Element-wise steps use the _rn
+//     intrinsics in the plain version's order, as F does, so nvcc contracts
+//     nothing; the K=3 and K=4 products are FMA chains in index order.
+//   * After a barrier every thread moves its rows of the source under the
+//     new pose (R p as the FMA chain, then + t), which D reads next; on the
+//     card this equals the plain se3.apply of the same pose bit for bit.
+//   The wrapper allocates the pose, the moved source, the rmse and the count
+//   at the ICP's start (G's init mode writes the identity and the source);
+//   each update writes them in place.  Only the sums' order differs from the
+//   plain path's (torch's reductions, cuBLAS's products): a step's rotation
+//   agrees to ~1e-8 and its translation to ~1e-3 mm (PERF.md section 6).
+//
 // Work per pair of valid live rows (kernels/mapops.py holds the same counts
 // for the bound): C, in the cheapest form known (`hamming` below), 11 XOR, 14
 // logic instructions of 7 carry-save adders, 3 weighted adds and a minimum
@@ -100,7 +129,9 @@
 // of a newcomer and a live row, one integer compare of the block keys and
 // one f32 compare of the seg ratios, and for the pairs that pass both, 3
 // integer compares of the block coordinates and the 8 of a distance test.
-// At a small live map a launch costs about its launch overhead.
+// At a small live map a launch costs about its launch overhead.  G, per
+// source row 52 f32 instructions, per call 17 sums through the tree and
+// ~934 in the serial part (ICP_ROW_OPS, ICP_CALL_OPS).
 #include "common.cuh"
 
 namespace {
@@ -522,6 +553,238 @@ dedup_kernel(const float* __restrict__ pos, const int32_t* __restrict__ blk,
   if (tid == 0) counters[g] = 0;  // ready for the next call on this stream
 }
 
+// ---- Kernel G -------------------------------------------------------------
+
+constexpr int kGThreads = 1024;
+constexpr int kGWarps = kGThreads / 32;  // 32: one lane per warp in the last stage
+constexpr int kGSums = 9;                // most sums a block reduction takes at once
+constexpr int kGPower = 30;              // Horn's shifted power iterations
+constexpr float kGEps = 1e-8f;           // se3.py's _EPS
+
+// The block's sums of v[0..n) over its threads, in a fixed tree: each warp
+// halves by __shfl_down_sync (16, 8, 4, 2, 1), then warp 0 sums the 32
+// warps' partials the same way.  Every thread gets the sums.  No atomics:
+// the order, and so the bits, are the same on every run.
+template <int N>
+__device__ __forceinline__ void g_block_sum(float (&v)[N], float (*part)[kGWarps],
+                                            float* tot) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float x = v[k];
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, off));
+    if (lane == 0) part[k][warp] = x;
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float x = part[k][lane];
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, off));
+      if (lane == 0) tot[k] = x;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < N; ++k) v[k] = tot[k];
+  __syncthreads();  // tot and part are free again
+}
+
+// Whether source row i and its nearest candidate make a pair (icp.py's
+// pair_ok: a valid source, a candidate found, d2 within the distance).
+__device__ __forceinline__ bool g_pair(const uint8_t* sm, const float* nn_d2, int i,
+                                       float mcd2) {
+  const float d2 = nn_d2[i];
+  return sm[i] && d2 < 1e30f && d2 <= mcd2;
+}
+
+// Row i's normalised weight w / (sum w + eps) and its candidate's position,
+// dst row nn[i], or dst row i where nn is null (the candidates gathered
+// already), read only for a pair (a row with no candidate has index 0,
+// which an empty candidate set does not hold); other rows weigh 0 and take
+// (0, 0, 0): like their true position, times a weight of 0, they add zeros
+// to every sum.
+__device__ __forceinline__ void g_row(const uint8_t* sm, const float* dst,
+                                      const float* nn_d2, const int32_t* nn, int i,
+                                      float mcd2, float wsum, float& wn, float* p) {
+  const bool ok = g_pair(sm, nn_d2, i, mcd2);
+  wn = __fdiv_rn(ok ? 1.0f : 0.0f, wsum);
+  const size_t j = ok ? (size_t)(nn ? nn[i] : i) : 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) p[a] = ok ? dst[3 * j + a] : 0.0f;
+}
+
+// a[0..3] . b[0..3] as the FMA chain in index order (a K=4 product).
+__device__ __forceinline__ float dot4(float a0, float a1, float a2, float a3,
+                                      float b0, float b1, float b2, float b3) {
+  return __fmaf_rn(a3, b3, __fmaf_rn(a2, b2, __fmaf_rn(a1, b1, __fmul_rn(a0, b0))));
+}
+
+// se3.kabsch's tail for one problem, given the cross-covariance H (row
+// major) and both weighted means: Horn's 4x4 matrix K of H / (|H| + eps),
+// shifted by 2 I, 30 power iterations from (1, 1, 1, 1) normalised by
+// |q| + eps each, the quaternion's rotation and t = mu_dst - R mu_src.
+// Writes the step's top three rows (R | t) to Ts.  Each element-wise step
+// is its PyTorch operation's rounding (unfused _rn intrinsics in the
+// plain version's order); the K=3 and K=4 products are FMA chains.
+__device__ void g_kabsch_tail(const float* H, const float* ms, const float* md,
+                              float* Ts) {
+  float ss = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 9; ++e) ss = __fadd_rn(ss, __fmul_rn(H[e], H[e]));
+  const float scale = __fadd_rn(__fsqrt_rn(ss), kGEps);
+  float S[9];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) S[e] = __fdiv_rn(H[e], scale);
+  const float xx = S[0], xy = S[1], xz = S[2], yx = S[3], yy = S[4], yz = S[5],
+              zx = S[6], zy = S[7], zz = S[8];
+  const float a = __fsub_rn(yz, zy), b = __fsub_rn(zx, xz), c = __fsub_rn(xy, yx);
+  const float d = __fadd_rn(xy, yx), e = __fadd_rn(zx, xz), f = __fadd_rn(yz, zy);
+  // K + 2 I; an off-diagonal + 0 changes no value.
+  const float K[4][4] = {
+      {__fadd_rn(__fadd_rn(__fadd_rn(xx, yy), zz), 2.0f), a, b, c},
+      {a, __fadd_rn(__fsub_rn(__fsub_rn(xx, yy), zz), 2.0f), d, e},
+      {b, d, __fadd_rn(__fsub_rn(__fadd_rn(-xx, yy), zz), 2.0f), f},
+      {c, e, f, __fadd_rn(__fadd_rn(__fsub_rn(-xx, yy), zz), 2.0f)}};
+  float q0 = 1.0f, q1 = 1.0f, q2 = 1.0f, q3 = 1.0f;
+  for (int it = 0; it < kGPower; ++it) {
+    const float p0 = dot4(K[0][0], K[0][1], K[0][2], K[0][3], q0, q1, q2, q3);
+    const float p1 = dot4(K[1][0], K[1][1], K[1][2], K[1][3], q0, q1, q2, q3);
+    const float p2 = dot4(K[2][0], K[2][1], K[2][2], K[2][3], q0, q1, q2, q3);
+    const float p3 = dot4(K[3][0], K[3][1], K[3][2], K[3][3], q0, q1, q2, q3);
+    const float den = __fadd_rn(__fsqrt_rn(dot4(p0, p1, p2, p3, p0, p1, p2, p3)), kGEps);
+    q0 = __fdiv_rn(p0, den);
+    q1 = __fdiv_rn(p1, den);
+    q2 = __fdiv_rn(p2, den);
+    q3 = __fdiv_rn(p3, den);
+  }
+  // quat_to_matrix, w = q0: 1 - 2 (y y + z z), 2 (x y - w z), ...
+  const float w = q0, x = q1, y = q2, z = q3;
+  const float R[9] = {
+      __fsub_rn(1.0f, __fmul_rn(2.0f, __fadd_rn(__fmul_rn(y, y), __fmul_rn(z, z)))),
+      __fmul_rn(2.0f, __fsub_rn(__fmul_rn(x, y), __fmul_rn(w, z))),
+      __fmul_rn(2.0f, __fadd_rn(__fmul_rn(x, z), __fmul_rn(w, y))),
+      __fmul_rn(2.0f, __fadd_rn(__fmul_rn(x, y), __fmul_rn(w, z))),
+      __fsub_rn(1.0f, __fmul_rn(2.0f, __fadd_rn(__fmul_rn(x, x), __fmul_rn(z, z)))),
+      __fmul_rn(2.0f, __fsub_rn(__fmul_rn(y, z), __fmul_rn(w, x))),
+      __fmul_rn(2.0f, __fsub_rn(__fmul_rn(x, z), __fmul_rn(w, y))),
+      __fmul_rn(2.0f, __fadd_rn(__fmul_rn(y, z), __fmul_rn(w, x))),
+      __fsub_rn(1.0f, __fmul_rn(2.0f, __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y))))};
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    Ts[4 * r] = R[3 * r];
+    Ts[4 * r + 1] = R[3 * r + 1];
+    Ts[4 * r + 2] = R[3 * r + 2];
+    Ts[4 * r + 3] = __fsub_rn(md[r], dot3(R[3 * r], R[3 * r + 1], R[3 * r + 2],
+                                          ms[0], ms[1], ms[2]));
+  }
+}
+
+// G: one ICP iteration after kernel D, in one block (see the header).
+// init: T = I and cur = src under it, rmse = 0, n_pairs = 0, no pairs read.
+// Otherwise cur holds the source under T and (nn_d2, nn) its nearest
+// candidates (nn null: row i's is dst row i); T becomes the Kabsch step (identity below 3 pairs) composed
+// with T, cur the source under it, and rmse and n_pairs this iteration's.
+__global__ void __launch_bounds__(kGThreads)
+icp_update_kernel(const float* __restrict__ src, const uint8_t* __restrict__ sm,
+                  const float* __restrict__ dst, const float* __restrict__ nn_d2,
+                  const int32_t* __restrict__ nn, int k, float mcd2, int init,
+                  float* __restrict__ T, float* __restrict__ cur,
+                  float* __restrict__ rmse, int32_t* __restrict__ n_pairs) {
+  __shared__ float part[kGSums][kGWarps];
+  __shared__ float tot[kGSums];
+  __shared__ float Tn[16];
+  const int tid = threadIdx.x;
+
+  if (init) {
+    if (tid < 16) Tn[tid] = tid % 5 == 0 ? 1.0f : 0.0f;
+    if (tid == 0) {
+      *rmse = 0.0f;
+      *n_pairs = 0;
+    }
+  } else {
+    // Pass 1: the pair count (sum of 0/1 weights, exact in f32) and the
+    // sum of the pairs' d2 for the rmse.
+    float s1[2] = {0.0f, 0.0f};
+    for (int i = tid; i < k; i += kGThreads) {
+      if (g_pair(sm, nn_d2, i, mcd2)) {
+        s1[0] = __fadd_rn(s1[0], 1.0f);
+        s1[1] = __fadd_rn(s1[1], nn_d2[i]);
+      }
+    }
+    g_block_sum(s1, part, tot);
+    const float n = s1[0];
+    const float wsum = __fadd_rn(n, kGEps);
+
+    // Pass 2: the weighted means, weights w / (sum w + eps).
+    float s2[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int i = tid; i < k; i += kGThreads) {
+      float wn, p[3];
+      g_row(sm, dst, nn_d2, nn, i, mcd2, wsum, wn, p);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        s2[a] = __fadd_rn(s2[a], __fmul_rn(cur[3 * i + a], wn));
+        s2[3 + a] = __fadd_rn(s2[3 + a], __fmul_rn(p[a], wn));
+      }
+    }
+    g_block_sum(s2, part, tot);
+
+    // Pass 3: the centred cross-covariance H[a][b] = sum w src_c[a] dst_c[b].
+    float s3[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int i = tid; i < k; i += kGThreads) {
+      float wn, p[3], ws[3], dc[3];
+      g_row(sm, dst, nn_d2, nn, i, mcd2, wsum, wn, p);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        ws[a] = __fmul_rn(wn, __fsub_rn(cur[3 * i + a], s2[a]));
+        dc[a] = __fsub_rn(p[a], s2[3 + a]);
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b) s3[3 * a + b] = __fmaf_rn(ws[a], dc[b], s3[3 * a + b]);
+    }
+    g_block_sum(s3, part, tot);
+
+    if (tid == 0) {
+      float Ts[16];
+      if (n >= 3.0f) {
+        g_kabsch_tail(s3, s2, s2 + 3, Ts);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 12; ++e) Ts[e] = e % 5 == 0 ? 1.0f : 0.0f;
+      }
+      Ts[12] = Ts[13] = Ts[14] = 0.0f;
+      Ts[15] = 1.0f;
+      float Tp[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) Tp[e] = T[e];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+          Tn[4 * r + cc] = dot4(Ts[4 * r], Ts[4 * r + 1], Ts[4 * r + 2], Ts[4 * r + 3],
+                                Tp[cc], Tp[4 + cc], Tp[8 + cc], Tp[12 + cc]);
+      *rmse = __fsqrt_rn(__fdiv_rn(s1[1], fmaxf(n, 1.0f)));
+      *n_pairs = (int32_t)n;
+    }
+  }
+  __syncthreads();
+  if (tid < 16) T[tid] = Tn[tid];
+  // The source under the new pose: R p + t, R p as the FMA chain.
+  for (int i = tid; i < k; i += kGThreads) {
+    const float px = src[3 * i], py = src[3 * i + 1], pz = src[3 * i + 2];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      cur[3 * i + r] = __fadd_rn(dot3(Tn[4 * r], Tn[4 * r + 1], Tn[4 * r + 2], px, py, pz),
+                                 Tn[4 * r + 3]);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -576,6 +839,20 @@ int bshot_dedup_blocked_bounded(const float* pos, const int32_t* blk,
   const dim3 grid(nsplit, (k + kENew - 1) / kENew);
   dedup_kernel<<<grid, kEThreads, 0, (cudaStream_t)stream>>>(
       pos, blk, seg, mpos, mblk, mseg, mvalid, nv, k, c, r2, part, counters, out);
+  return (int)cudaGetLastError();
+}
+
+// One block.  init != 0: T = I, cur = src, rmse = 0, n_pairs = 0 (sm, dst,
+// nn_d2 and nn unread).  Otherwise one ICP update in place of T (16 floats,
+// row major) and cur (k x 3), with the pairs' rmse and count; nn may be
+// null, dst then holding each source row's candidate in its row.  k >= 0.
+int bshot_icp_update(const float* src, const uint8_t* sm, const float* dst,
+                     const float* nn_d2, const int32_t* nn, int k, float mcd2,
+                     int init, float* T, float* cur, float* rmse,
+                     int32_t* n_pairs, void* stream) {
+  if (k < 0) return (int)cudaErrorInvalidValue;
+  icp_update_kernel<<<1, kGThreads, 0, (cudaStream_t)stream>>>(
+      src, sm, dst, nn_d2, nn, k, mcd2, init, T, cur, rmse, n_pairs);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,5 @@
-"""Map-facing bounded nearest-neighbour ops: CUDA kernels C, D and E.
+"""Map-facing bounded nearest-neighbour ops, CUDA kernels C, D and E, and
+the ICP update that consumes D, kernel G.
 
 C, `hamming_nn_bounded`, replaces the Pallas kernel
 bshot_slam_tpu/kernels/mapops.py:hamming_nn_bounded (two-sided Hamming
@@ -35,12 +36,26 @@ scratch per device, stream and shape.  The work per pair of valid live
 rows, by instruction class, is in `HAMMING_PAIR_OPS`, `EUCLID_PAIR_OPS`, `DEDUP_PAIR_OPS` and
 `DEDUP_SAME_BLOCK_OPS` (csrc/mapops.cu says how they are counted);
 `chip_smoke.py` turns them into the bound at the main path's shapes.
+
+G, `icp_update`, replaces no Pallas kernel: it is an ICP iteration's
+update after D (`ops/icp.py`), which the plain path runs as ~235 PyTorch
+operations (the weighted Kabsch step of `geometry/se3.py`, the identity
+fallback, the composition, the rmse and the next iteration's source
+points).  One launch per call, one block: the sums in a fixed tree, Horn's
+solve in one thread, then every thread moves its rows of the source.  The
+pose and the moved source are updated in place (`IcpState`), so an ICP of
+n iterations is one G launch to start and n of D and G.  Its work per
+source row and per call is in `ICP_ROW_OPS`, `ICP_ROW_BYTES`,
+`ICP_CALL_OPS` and `ICP_CALL_BYTES`.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from bshot_slam_tpu_torch.geometry import se3
 from bshot_slam_tpu_torch.kernels import (
     BIG, _build, device_count_arg, on_cpu, pair_d2, ptr, require, scratch,
     stream_arg,
@@ -70,6 +85,20 @@ HAMMING_MAX_ROWS = 1 << 20
 # Kernel E: newcomers per block (two per lane) and most rows a block stages.
 DEDUP_NEWCOMERS = 64
 DEDUP_ROWS = 640
+# Kernel G's work by instruction class and its bytes.  Per source row, 52
+# f32: the pair test and sums of pass 1 (4), the pair test, weight and
+# means' products and adds of pass 2 (15), the pair test, weight, centring
+# and 9 FMAs of pass 3 (21), the move under the new pose (12).  Bytes per
+# row, each read or written once: source, mask, d2, index, candidate, the
+# moved source read and written.  Per call: 17 sums through the block's
+# tree (5 adds a lane in each of 1024 + 32 lanes) and the serial part in
+# one thread, ~934 (Horn's matrix 45, 30 power iterations of 26, the
+# rotation 30, t 12, the composition 64, the rmse 3), whose latency, not
+# its count, is what bounds G.
+ICP_ROW_OPS = {"f32": 52}
+ICP_ROW_BYTES = 12 + 1 + 4 + 4 + 12 + 12 + 12
+ICP_CALL_OPS = {"f32": 17 * 5 * (1024 + 32) + 934}
+ICP_CALL_BYTES = 16 * 4 * 2 + 8
 
 
 def popcount_distances(a_words: torch.Tensor, b_words: torch.Tensor) -> torch.Tensor:
@@ -308,3 +337,86 @@ def _dedup_scratch(dev, stream: int, k: int, c: int):
         return bufs, tuple(ptr(b) for b in bufs)
 
     return (nsplit, *scratch(dev, stream, ("dedup", k, c), make)[1])
+
+
+class IcpState(NamedTuple):
+    """An ICP's running state, which kernel G updates in place."""
+
+    transform: torch.Tensor  # (4, 4) f32: the composed steps
+    cur: torch.Tensor  # (K, 3) f32: the source points under `transform`
+    rmse: torch.Tensor  # () f32: the last update's pair RMSE (0 at the start)
+    n_pairs: torch.Tensor  # () int32: the last update's pairs (0 at the start)
+
+
+def icp_update_plain(T, cur, nn_pos, nn_d2, src_mask, max_corr_dist: float, eye):
+    """Plain PyTorch version of kernel G's update, as `ops/icp.py`'s plain
+    loop runs it: (transform, rmse, pair count as f32) after one weighted
+    Kabsch step of `cur` onto its nearest candidates `nn_pos`."""
+    pair_ok = src_mask & (nn_d2 < 1e30) & (
+        nn_d2 <= max_corr_dist * max_corr_dist
+    )
+    w = pair_ok.to(torch.float32)
+    T_step = se3.kabsch(cur, nn_pos, w)
+    n = torch.sum(w)
+    T_step = torch.where(n >= 3, T_step, eye)
+    T = se3.compose(T_step, T)
+    rmse = torch.sqrt(
+        torch.sum(torch.where(pair_ok, nn_d2, 0.0)) / torch.clamp(n, min=1.0)
+    )
+    return T, rmse, n
+
+
+def icp_update(src: torch.Tensor, src_mask: torch.Tensor, dst: torch.Tensor,
+               nn_d2: torch.Tensor | None = None, nn: torch.Tensor | None = None,
+               max_corr_dist: float = 1.0e9,
+               state: IcpState | None = None) -> IcpState:
+    """Kernel G.  Without `state`: a new ICP state, the identity and the
+    source under it.  With it: one iteration's update after kernel D gave
+    the nearest candidates (`nn_d2`, `nn`) of `state.cur` among `dst` --
+    the Kabsch step of the pairs within `max_corr_dist` (the identity below
+    3 pairs) composed onto the transform, the source moved under it, and
+    the pairs' rmse and count.  With `nn` None, `dst` holds each source
+    row's candidate in its row (K, 3), as a mesh's owner fetch gives them.
+    On the card `state` is updated in place and returned; on the CPU a new
+    state is returned."""
+    if on_cpu(src, src_mask, dst, nn_d2, nn):
+        eye = torch.eye(4, dtype=torch.float32, device=src.device)
+        if state is None:
+            return IcpState(eye, se3.apply(eye, src),
+                            torch.zeros((), dtype=torch.float32),
+                            torch.zeros((), dtype=torch.int32))
+        nn_pos = dst if nn is None else dst[nn.long()]
+        T, rmse, n = icp_update_plain(state.transform, state.cur, nn_pos,
+                                      nn_d2, src_mask, max_corr_dist, eye)
+        return IcpState(T, se3.apply(T, src), rmse, n.to(torch.int32))
+    k, dev = src.shape[0], src.device
+    require(src, "src", torch.float32, (k, 3))
+    init = state is None
+    if init:
+        state = IcpState(torch.empty((4, 4), dtype=torch.float32, device=dev),
+                         torch.empty((k, 3), dtype=torch.float32, device=dev),
+                         torch.empty((), dtype=torch.float32, device=dev),
+                         torch.empty((), dtype=torch.int32, device=dev))
+    else:
+        require(src_mask, "src_mask", torch.bool, (k,))
+        require(dst, "dst", torch.float32, (k if nn is None else dst.shape[0], 3))
+        require(nn_d2, "nn_d2", torch.float32, (k,))
+        if nn is not None:
+            require(nn, "nn", torch.int32, (k,))
+        require(state.transform, "transform", torch.float32, (4, 4))
+        require(state.cur, "cur", torch.float32, (k, 3))
+        require(state.rmse, "rmse", torch.float32, ())
+        require(state.n_pairs, "n_pairs", torch.int32, ())
+    P, I = _build.P, _build.I
+    fn = _build.bind("mapops", "bshot_icp_update",
+                     [P] * 5 + [I, _build.F, I] + [P] * 5)
+    _build.check(fn(ptr(src), ptr(src_mask), ptr(dst), ptr(nn_d2), ptr(nn), k,
+                    max_corr_dist * max_corr_dist, int(init), ptr(state.transform),
+                    ptr(state.cur), ptr(state.rmse), ptr(state.n_pairs),
+                    stream_arg(dev)),
+                 "icp_update")
+    icp_update.launches += 1
+    return state
+
+
+icp_update.launches = 0

@@ -81,6 +81,7 @@ between a program and its graph.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -98,7 +99,8 @@ _REC = profiling.RECORDER
 # The kernel wrappers whose `launches` a replay advances.
 WRAPPERS = (neighborhood.neighborhood_accumulate, neighborhood.segratio_accumulate,
             mapops.hamming_nn_bounded, mapops.euclid_nn_bounded,
-            mapops.dedup_blocked_bounded, preprocess.ground_walk)
+            mapops.dedup_blocked_bounded, preprocess.ground_walk,
+            mapops.icp_update)
 
 _STREAMS: dict = {}
 
@@ -222,10 +224,17 @@ class Graphs:
             current.wait_stream(stream)
             before, counted = [w.launches for w in WRAPPERS], comm.snapshot()
             graph = torch.cuda.CUDAGraph()
+            # No cyclic collection during the capture: it could free an
+            # unreachable CUDA graph (an engine left in a reference cycle),
+            # whose destroy a capture does not permit, and the capture fails.
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.graph(graph, pool=self.pool, stream=stream):
                     captured = _apply(body(*static))
             finally:  # a capture launches nothing and makes no collective
+                if collecting:
+                    gc.enable()
                 launches = tuple(w.launches - b for w, b in zip(WRAPPERS, before))
                 for w, b in zip(WRAPPERS, before):
                     w.launches = b

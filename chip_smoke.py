@@ -6,8 +6,10 @@
 Phases, one line each:
   1. the card (nvidia-smi name and power limit) and the kernel build;
   2. the first 24 frames of the benchmark drive (synthetic HDL-32E);
-  3. each CUDA kernel A-E at the main path's shapes against its plain
-     PyTorch version: integer outputs exactly equal to the plain version
+  3. each CUDA kernel A-E and G at the main path's shapes against its plain
+     PyTorch version (G, the ICP update: one update after D at [3]'s D
+     inputs, pair count exact, transform and rmse within the stated
+     tolerance): integer outputs exactly equal to the plain version
      run on CPU copies of the inputs, float outputs within the stated
      tolerance, no row differing from the plain version run on the card,
      every kernel bit-identical over two runs on the same inputs; kernel and
@@ -24,7 +26,8 @@ Phases, one line each:
      first one's graphs (device busy time per frame, the device kernels that
      take the most of it);
      the port's own kernels per frame (kernel D: one device launch per
-     ICP iteration; B and C: at most two device launches per call, E one);
+     ICP iteration, G one more; B and C: at most two device launches per
+     call, E and G one);
   4b. the pipelined engine (`pipelined=True, fetch_every=8`) over the same
      24 frames and prefilled map: records bit-identical to phase [4]'s
      synchronous run, frames/s of both, and the synchronising calls per
@@ -516,9 +519,10 @@ def map_inputs(cfg, dev, seed: int = 3):
 
 
 def check_mapops(cfg, dev):
-    """Kernels C, D and E at the main path's shapes."""
+    """Kernels C, D, E and G at the main path's shapes."""
     import torch
 
+    from bshot_slam_tpu_torch.geometry import se3
     from bshot_slam_tpu_torch.kernels import mapops as M
 
     d = map_inputs(cfg, dev)
@@ -607,6 +611,56 @@ def check_mapops(cfg, dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         tolerance=f"flags exact ({int(want.sum())} of {K} blocked)",
     ))
+
+    # G: one ICP update after D, from G's start (the identity), on D's
+    # inputs above; the plain update on CPU copies and on the card.
+    mcd = cfg.match.icp_max_corr_dist_mm
+    src, sm, dst = d["q"], d["a_mask"], d["ref"]
+    d2, nn = M.euclid_nn_bounded(src, sm, dst, d["b_mask"], nv_d, tail_start=tail)
+    start = M.icp_update(src, sm, dst)
+    got = M.icp_update(src, sm, dst, d2, nn, mcd, M.icp_update(src, sm, dst))
+    again = M.icp_update(src, sm, dst, d2, nn, mcd, M.icp_update(src, sm, dst))
+    eye = torch.eye(4)
+    cd2, cnn = d2.cpu(), nn.cpu()
+    want = M.icp_update_plain(eye, c["q"], c["ref"][cnn.long()], cd2, c["a_mask"], mcd, eye)
+    card = M.icp_update_plain(eye.to(dev), src, dst[nn.long()], d2, sm, mcd, eye.to(dev))
+
+    def off(g, w):  # (rotation, translation, rmse relative) differences
+        T, rmse = g.transform.cpu(), float(g.rmse)
+        return (float((T[:3, :3] - w[0][:3, :3].cpu()).abs().max()),
+                float((T[:3, 3] - w[0][:3, 3].cpu()).abs().max()),
+                abs(rmse - float(w[1])) / max(float(w[1]), 1e-30))
+
+    cpu_off, card_off = off(got, want), off(got, card)
+    tol = (1e-6, 1e-3, 1e-5)
+    pairs = int(got.n_pairs)
+    if pairs < 3:
+        raise SmokeError(f"G's check has {pairs} pairs; the Kabsch step is not run")
+    b_ms, b_by = bound(K * M.ICP_ROW_BYTES + M.ICP_CALL_BYTES,
+                       {c_: n * K + M.ICP_CALL_OPS.get(c_, 0)
+                        for c_, n in M.ICP_ROW_OPS.items()})
+    rows.append(dict(
+        name="icp_update", shapes=f"src ({K},3), dst ({Cb},3), {pairs} pairs",
+        source="bshot_slam_tpu_torch/csrc/mapops.cu",
+        replaces="none: bshot_slam_tpu/ops/icp.py:52 (the scan body after the NN search)",
+        int_mismatch=int(pairs != int(want[2])) + int(pairs != int(card[2]))
+        + int(not (torch.equal(start.transform.cpu(), eye) and torch.equal(start.cur, src))),
+        float_out_of_tol=sum(x > t for x, t in zip(cpu_off + card_off, tol + tol)),
+        max_abs_err=max(cpu_off[:2] + card_off[:2]),
+        card_plain_rows_differ=int(float((got.cur - se3.apply(got.transform, src))
+                                         .abs().max()) > 1e-3),
+        deterministic=same_bits([t.reshape(-1) for t in got],
+                                [t.reshape(-1) for t in again]),
+        **measure(lambda: M.icp_update(src, sm, dst, d2, nn, mcd, got),
+                  lambda: se3.apply(M.icp_update_plain(
+                      got.transform, got.cur, dst[nn.long()], d2, sm, mcd,
+                      eye.to(dev))[0], src)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        tolerance=f"pairs exact; against the CPU {cpu_off[0]:.2e} / {cpu_off[1]:.2e} mm / "
+                  f"{cpu_off[2]:.2e}, the card {card_off[0]:.2e} / {card_off[1]:.2e} mm / "
+                  f"{card_off[2]:.2e} (rotation within 1e-6, translation 1e-3 mm, rmse "
+                  f"1e-5 relative: the sums in another order); the start exact",
+    ))
     return rows
 
 
@@ -627,6 +681,7 @@ def run_engine(cfg, sweeps, gt, dev):
         "hamming_nn_bounded": mapops.hamming_nn_bounded,
         "euclid_nn_bounded": mapops.euclid_nn_bounded,
         "dedup_blocked_bounded": mapops.dedup_blocked_bounded,
+        "icp_update": mapops.icp_update,
     }
     eng = SlamEngine(cfg, seed=0, device=dev)
     eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
@@ -669,10 +724,10 @@ def host_preprocess_ms(cfg, sweeps) -> float:
 
 # The __global__ functions of csrc/*.cu, as the profiler names them.
 PORT_KERNELS = ("pack_cloud_kernel", "accumulate_kernel", "segratio_kernel",
-                "hamming_kernel", "euclid_kernel", "dedup_kernel")
+                "hamming_kernel", "euclid_kernel", "dedup_kernel", "icp_update_kernel")
 # Most device launches a call of a wrapper may make.
 MAX_DEVICE_LAUNCHES = {"segratio_accumulate": 2, "hamming_nn_bounded": 2,
-                       "dedup_blocked_bounded": 1, "ground_walk": 1}
+                       "dedup_blocked_bounded": 1, "ground_walk": 1, "icp_update": 1}
 
 
 def profile_engine(cfg, sweeps, dev, graphs=None, n: int = 6):
@@ -718,6 +773,7 @@ def kernel_wrappers():
         "euclid_nn_bounded": mapops.euclid_nn_bounded,
         "dedup_blocked_bounded": mapops.dedup_blocked_bounded,
         "ground_walk": preprocess.ground_walk,
+        "icp_update": mapops.icp_update,
     }
 
 
@@ -2362,6 +2418,15 @@ def main() -> int:
     if icp > cfg.match.icp_iterations:  # a trace can lose records, not add them
         raise SmokeError(f"kernel D made {icp} device launches per frame, more than "
                          f"one per ICP iteration ({cfg.match.icp_iterations})")
+    icp = sum(c for k, _, c in own if k == "icp_update_kernel")
+    if icp > cfg.match.icp_iterations + 1:
+        raise SmokeError(f"kernel G made {icp} device launches per frame, more than "
+                         f"one per ICP iteration and its start")
+    g, d, it = (res["launches"]["icp_update"], res["launches"]["euclid_nn_bounded"],
+                cfg.match.icp_iterations)
+    if g != d // it * (it + 1) or g < N_FRAMES * (it + 1):
+        raise SmokeError(f"kernel G's wrapper counted {g} launches over {N_FRAMES} "
+                         f"frames (D {d}), not the iterations + 1 an ICP")
 
     pipe = pipelined_phase(cfg, sweeps, sync_eng, dev)
     print(f"[4b] pipelined (fetch_every {FETCH_EVERY}): {N_FRAMES} frames, "

@@ -23,11 +23,23 @@ eviction replayed from its graph equals the eager one; the mesh engine over
 one NCCL rank replayed from its graphs equals its eager run, collectives
 included, and the sharded bundle adjustment's graph lies within the BA
 limits of the eager solve; a capture that meets a host synchronisation
-raises.  Two engines whose configurations differ only in a
-threshold share one `Graphs` and each equals its own `graphs=False` run;
+raises, and a capture runs with Python's cyclic collector off.  Two
+engines whose configurations differ only in a threshold share one
+`Graphs` and each equals its own `graphs=False` run;
 the backend's pose graph, keyframe histograms and BA replayed from their
 graphs equal the eager calls (BA: within fixed limits of its nearest eager
 run, whose `index_add_` adds floats with atomics; a planted fault is not).
+Kernel G (the ICP update) on each case of `G_CASES`: its start is the
+identity and the source, and each update, given the plain update's points
+and correspondences, agrees with it (pair counts exact, rotation entries
+within 1e-6, translations within 1e-3 mm, rmse within 1e-5 relative: the
+sums run in another order), one device launch a call, bit-identical over
+two runs; the whole ICP through G against the plain update's loop on the
+card, in step at every iteration within those limits, and free-running
+within 1e-5 and 0.01 mm until a correspondence flips, a flip only at a
+tie of the expanded d2, the final poses then within a stated gap
+(`icp_traces_agree`), 21 launches an ICP of 10 iterations; a graphed frame advances `icp_update.launches` by the
+iterations + 1.
 """
 
 import numpy as np
@@ -35,6 +47,7 @@ import pytest
 import torch
 
 from bshot_slam_tpu_torch import tiny_config
+from bshot_slam_tpu_torch.geometry import se3
 from bshot_slam_tpu_torch.io import synthetic
 from bshot_slam_tpu_torch.kernels import mapops as M
 from bshot_slam_tpu_torch.kernels import neighborhood as K
@@ -42,9 +55,9 @@ from bshot_slam_tpu_torch.odometry import mapstore as tmap
 from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 from tests.torch_kernel_cases import (
     A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES,
-    EVICT_CASES, F_CASES, accumulate_case, dedup_case, euclid_case, evict_case,
-    hamming_case, iss_corners, keyframe_pair, overflow_sequence, segratio_case,
-    walk_case,
+    EVICT_CASES, F_CASES, G_CASES, accumulate_case, dedup_case, euclid_case,
+    evict_case, hamming_case, icp_case, icp_trace, icp_traces_agree, iss_corners,
+    keyframe_pair, overflow_sequence, segratio_case, walk_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -473,6 +486,9 @@ def test_graphed_engine_matches_eager_on_card(dev, mode):
     assert e.graphs.eager and g.graphs.captures == len(g.graphs._graphs) >= 1
     assert _record_bits(g) == _record_bits(e) and len(g.records) == 6
     assert g_launch == e_launch and g_launch[0] > 0
+    icp = g_launch[-1]  # kernel G, the last of graphs.WRAPPERS
+    per_frame = g.cfg.match.icp_iterations + 1
+    assert icp == 6 * per_frame if not mode.get("enable_backend") else icp > 6 * per_frame
     if mode.get("enable_backend"):
         assert [(x.kf_i, x.kf_j, x.n_inliers, x.z.tobytes()) for x in g.loop_edges] == \
             [(x.kf_i, x.kf_j, x.n_inliers, x.z.tobytes()) for x in e.loop_edges]
@@ -611,6 +627,26 @@ def test_capture_with_host_sync_raises(dev):
     torch.cuda.synchronize()
 
 
+def test_capture_holds_off_the_cyclic_collector_on_card(dev):
+    """A capture runs with Python's cyclic collector off (on again after):
+    a collection then could free an unreachable CUDA graph, an engine's
+    left in a reference cycle, whose destroy a capture does not permit."""
+    import gc
+
+    from bshot_slam_tpu_torch.odometry.graphs import Graphs
+
+    seen = []
+
+    def body(x):
+        seen.append(gc.isenabled())
+        return x + 1.0, ()
+
+    graphs, x = Graphs(dev), torch.zeros(4, device=dev)
+    graphs.run("k", body, (x,))
+    assert torch.equal(graphs.run("k", body, (x,)), x + 1.0)
+    assert seen == [True, False] and gc.isenabled() and graphs.captures == 1
+
+
 def test_shared_graphs_key_the_config_on_card(dev):
     """Engines of two configurations that differ only in the RANSAC inlier
     threshold replay from one `Graphs`, one after the other (engines that
@@ -716,3 +752,118 @@ def test_graphed_ba_on_card(dev):
     assert not ba_within(ba.ba_solve(dropped), eager)[1]
     assert graphs.captures == 1
     assert float(eager[0].final_cost) < float(eager[0].initial_cost)
+
+
+def _icp_on(c, dev):
+    return [torch.tensor(c[k]).to(dev) for k in ("src", "src_mask", "dst", "dst_mask")]
+
+
+def _icp_bits(x):
+    return [t.clone() for t in x]
+
+
+@pytest.mark.parametrize("name", G_CASES)
+def test_icp_update_case_on_card(dev, name):
+    """G's start, then two updates, each against the plain update on the
+    card given the same transform, points and correspondences (D's, once):
+    pair counts exact, rotation entries within 1e-6, translations within
+    1e-3 mm, rmse within 1e-5 relative (the sums run in another order);
+    the moved source within 1e-3 mm of the plain apply of G's transform;
+    the candidates gathered already (`nn` None, as on a mesh) bit-identical
+    to the indexed ones; one device launch a call; two runs bit-identical."""
+    from bshot_slam_tpu_torch.utils.profiling import device_profile
+
+    c = icp_case(name)
+    src, sm, dst, dm = _icp_on(c, dev)
+    mcd = c["max_corr_dist"]
+    eye = torch.eye(4, device=dev)
+    runs = []
+    for _ in range(2):
+        st = M.icp_update(src, sm, dst)
+        assert torch.equal(st.transform, eye) and torch.equal(st.cur, src)
+        assert float(st.rmse) == 0.0 and int(st.n_pairs) == 0
+        bits = []
+        for _ in range(2):
+            T0, cur0 = st.transform.clone(), st.cur.clone()
+            d2, nn = M.euclid_nn_bounded(cur0, sm, dst, dm, c["n_valid"], c["tail_start"])
+            T, rmse, n = M.icp_update_plain(T0, cur0, dst[nn.long()], d2, sm, mcd, eye)
+            st = M.icp_update(src, sm, dst, d2, nn, mcd, st)
+            assert int(st.n_pairs) == int(n)
+            assert float((st.transform[:3, :3] - T[:3, :3]).abs().max()) <= 1e-6
+            assert float((st.transform[:3, 3] - T[:3, 3]).abs().max()) <= 1e-3
+            assert torch.equal(st.transform[3], eye[3])
+            assert abs(float(st.rmse) - float(rmse)) <= 1e-5 * float(rmse)
+            moved = se3.apply(st.transform, src)
+            assert float((st.cur - moved).abs().max()) <= 1e-3
+            bits += _icp_bits(st)
+        runs.append(bits)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    d2, nn = M.euclid_nn_bounded(st.cur, sm, dst, dm, c["n_valid"], c["tail_start"])
+    indexed = M.icp_update(src, sm, dst, d2, nn, mcd, M.IcpState(*_icp_bits(st)))
+    gathered = M.icp_update(src, sm, dst[nn.long()].contiguous(), d2, None, mcd,
+                            M.IcpState(*_icp_bits(st)))
+    assert all(torch.equal(a, b) for a, b in zip(indexed, gathered))
+    assert device_profile(lambda: M.icp_update(src, sm, dst, d2, nn, mcd, st))[1] == 1
+    assert device_profile(lambda: M.icp_update(src, sm, dst))[1] == 1
+
+
+@pytest.mark.parametrize("name", G_CASES)
+def test_icp_case_on_card(dev, name):
+    """The whole ICP through G (`icp_point_to_point` on card tensors)
+    against the plain update's loop on the card (`icp_trace`).  In step:
+    at each of the 10 iterations G is given the plain loop's transform,
+    points and D's output for them, and its update agrees with the plain
+    one (pairs exact, rotation entries within 1e-6, translations within
+    1e-3 mm, rmse within 1e-5 relative, the moved source within 1e-3 mm of
+    the plain apply of G's transform).  Free-running, iteration by
+    iteration: within 1e-5 and 0.01 mm until a correspondence flips, a
+    flip only at a tie of the expanded d2, and the final poses after a
+    flip within `ICP_FLIP_ROT` and `ICP_FLIP_MM` (`icp_traces_agree`;
+    which cases flip, and where, PERF.md records).  The recorded G loop
+    is `icp_point_to_point`'s bit for bit; two runs bit-identical; 11 G
+    and 10 D launches an ICP."""
+    from bshot_slam_tpu_torch.ops import icp
+
+    c = icp_case(name)
+    args = _icp_on(c, dev)
+    src, sm, dst, dm = args
+    mcd = c["max_corr_dist"]
+    kw = (10, mcd, c["n_valid"], c["tail_start"])
+    g, p = icp_trace(c, dev, True), icp_trace(c, dev, False)
+    eye = torch.eye(4, device=dev)
+    for it, (cur, nn_p, T, n, rmse) in enumerate(p):
+        T0 = eye if it == 0 else torch.tensor(p[it - 1][2], device=dev)
+        cur = torch.tensor(cur, device=dev)
+        d2, nn = M.euclid_nn_bounded(cur, sm, dst, dm, c["n_valid"], c["tail_start"])
+        assert np.array_equal(nn.cpu().numpy(), nn_p)
+        st = M.IcpState(T0.clone(), cur.clone(), torch.zeros((), device=dev),
+                        torch.zeros((), dtype=torch.int32, device=dev))
+        st = M.icp_update(src, sm, dst, d2, nn, mcd, st)
+        got_T = st.transform.cpu().numpy()
+        assert int(st.n_pairs) == int(n), f"iteration {it}: pairs"
+        assert np.abs(got_T[:3, :3] - T[:3, :3]).max() <= 1e-6, f"iteration {it}: rotation"
+        assert np.abs(got_T[:3, 3] - T[:3, 3]).max() <= 1e-3, f"iteration {it}: translation"
+        assert abs(float(st.rmse) - float(rmse)) <= 1e-5 * float(rmse), f"iteration {it}: rmse"
+        moved = se3.apply(st.transform, src)
+        assert float((st.cur - moved).abs().max()) <= 1e-3, f"iteration {it}: points"
+    n_g, n_d = M.icp_update.launches, M.euclid_nn_bounded.launches
+    got = icp.icp_point_to_point(*args, *kw)
+    assert (M.icp_update.launches - n_g, M.euclid_nn_bounded.launches - n_d) == (11, 10)
+    again = icp.icp_point_to_point(*args, *kw)
+    T, n, rmse = g[-1][2:]
+    for result in (got, again):
+        assert np.array_equal(result.transform.cpu().numpy(), T)
+        assert (int(result.n_pairs), float(result.rmse)) == (int(n), float(rmse))
+    icp_traces_agree(g, p, c["dst"], c["src_mask"])
+
+
+def test_icp_launches_on_card(dev):
+    """An ICP of 10 iterations is 21 device launches: G's start, then D and
+    G an iteration."""
+    from bshot_slam_tpu_torch.ops import icp
+    from bshot_slam_tpu_torch.utils.profiling import device_profile
+
+    c = icp_case("k600_tail")
+    args = _icp_on(c, dev)
+    kw = (10, c["max_corr_dist"], c["n_valid"], c["tail_start"])
+    assert device_profile(lambda: icp.icp_point_to_point(*args, *kw))[1] == 21

@@ -1,4 +1,4 @@
-"""Port parity at the edges: kernels A to E (plain versions) vs the reference.
+"""Port parity at the edges: kernels A to E and G (plain versions) vs the reference.
 
 Every case of `tests/torch_kernel_cases.py` goes through the port's
 `neighborhood_accumulate` / `segratio_accumulate` / `hamming_nn_bounded` /
@@ -8,11 +8,21 @@ the same cases there) and through the reference: its Pallas kernels in
 interpret mode, and for A's moment features and B's scores also its
 `lax.scan` path.  Counts, sign counts, minima, argmins, d2 and dedup flags
 are exact;
+G's cases run through the port's ICP loop (`icp_point_to_point`'s, with
+G's plain version on the CPU) against the reference's, iteration by
+iteration: pair counts exact, rotations within 1e-5, translations and
+points within 0.01 mm, rmse within 1e-5 relative (Kabsch's sums in another
+order), until a correspondence flips, and a flip only at a tie of the
+expanded d2, the final poses then within a stated gap; where nothing
+flips, also against the reference's own `icp_point_to_point`;
 A's sums agree to 1e-5 * count * max|feat|, B's CVS sum to 1e-5 * count *
 |ctvec| * r + 1e-2 and its CVSN sum of cosines to 1e-5 * count + 1e-3
 (summation order only).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,16 +31,18 @@ import torch
 from bshot_slam_tpu.config import KeypointConfig
 from bshot_slam_tpu.kernels import mapops as jm
 from bshot_slam_tpu.kernels import neighborhood as jk
+from bshot_slam_tpu.ops import icp as jicp
 from bshot_slam_tpu.ops import keypoints as jkp
 from bshot_slam_tpu.ops.bshot import unpack_bits as j_unpack
 from bshot_slam_tpu_torch.config import KeypointConfig as TKeypointConfig
 from bshot_slam_tpu_torch.kernels import mapops as tm
 from bshot_slam_tpu_torch.kernels import neighborhood as tk
+from bshot_slam_tpu_torch.ops import icp as ticp
 from bshot_slam_tpu_torch.ops import keypoints as tkp
 from tests.torch_kernel_cases import (
-    A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES,
-    accumulate_case, dedup_case, euclid_case, hamming_case, live_rows,
-    segratio_case,
+    A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES, G_CASES,
+    accumulate_case, dedup_case, euclid_case, hamming_case, icp_case, icp_trace,
+    icp_traces_agree, live_rows, segratio_case,
 )
 
 BIG = np.float32(3.0e38)
@@ -279,3 +291,67 @@ def test_dedup_empty_side(k, c):
     for fn in (tm.dedup_blocked_bounded, tm.dedup_blocked_bounded_plain):
         got = fn(*args, c, DEDUP_RADIUS)
         assert got.dtype == torch.bool and got.shape == (k,) and not got.any()
+
+
+
+@functools.partial(jax.jit, static_argnames=("max_corr_dist",))
+def _ref_icp_body(T, src, src_mask, dst, dst_mask, max_corr_dist):
+    """One iteration of the reference's ICP (`bshot_slam_tpu.ops.icp`'s
+    dense body), compiled as the reference compiles it: (T', cur, nn, n,
+    rmse)."""
+    from bshot_slam_tpu.geometry import se3 as jse3
+
+    cur = jse3.apply(T, src)
+    d2 = jnp.where(dst_mask[None, :], jkp._pair_d2(cur, dst), jnp.inf)
+    nn, nn_d2 = jnp.argmin(d2, axis=1), jnp.min(d2, axis=1)
+    ok = src_mask & jnp.isfinite(nn_d2) & (nn_d2 <= max_corr_dist * max_corr_dist)
+    w = ok.astype(jnp.float32)
+    n = jnp.sum(w)
+    step = jnp.where(n >= 3, jse3.kabsch(cur, dst[nn], w), jnp.eye(4, dtype=T.dtype))
+    rmse = jnp.sqrt(jnp.sum(jnp.where(ok, nn_d2, 0.0)) / jnp.maximum(n, 1.0))
+    return jse3.compose(step, T), cur, nn, n, rmse
+
+
+def _ref_icp_trace(c):
+    """The reference's ICP loop, recording each iteration."""
+    args = [_j(c[k]) for k in ("src", "src_mask", "dst", "dst_mask")]
+    T, out = jnp.eye(4, dtype=jnp.float32), []
+    for _ in range(10):
+        T, cur, nn, n, rmse = _ref_icp_body(T, *args, c["max_corr_dist"])
+        out.append(tuple(np.asarray(x) for x in (cur, nn, T, n, rmse)))
+    return out
+
+
+@pytest.mark.parametrize("name", G_CASES)
+def test_icp_case(name):
+    """The port's ICP on the CPU (G's plain version) against the
+    reference's, iteration by iteration from the same inputs (dead target
+    rows masked, so the dense search sees the live rows): within the
+    tolerances until a correspondence flips, and a flip only at a tie of
+    the expanded d2 (`icp_traces_agree`).  The recorded loop gives
+    `icp_point_to_point`'s result bit for bit; where nothing flips, that
+    result also agrees with the reference's own `icp_point_to_point`
+    (pairs exact, rotation 1e-5, translation 0.01 mm, rmse 1e-3 relative:
+    its `lax.scan` compiles the iterations together)."""
+    c = icp_case(name)
+    port = icp_trace(c, "cpu", False)
+    got = ticp.icp_point_to_point(*[_t(c[k]) for k in ("src", "src_mask", "dst",
+                                                       "dst_mask")],
+                                  10, c["max_corr_dist"], c["n_valid"], c["tail_start"])
+    T, n, rmse = port[-1][2:]
+    assert np.array_equal(got.transform.numpy(), T)
+    assert (float(got.rmse), int(got.n_pairs)) == (rmse, n)
+    flip, _ = icp_traces_agree(port, _ref_icp_trace(c), c["dst"], c["src_mask"])
+    if flip is None:
+        ref = jicp.icp_point_to_point(*[_j(c[k]) for k in ("src", "src_mask", "dst",
+                                                           "dst_mask")],
+                                      10, c["max_corr_dist"])
+        T_r = np.asarray(ref.transform)
+        assert int(ref.n_pairs) == n
+        assert np.abs(T[:3, :3] - T_r[:3, :3]).max() <= 1e-5
+        assert np.abs(T[:3, 3] - T_r[:3, 3]).max() <= 0.01
+        assert abs(rmse - float(ref.rmse)) <= 1e-3 * float(ref.rmse)
+    if name in ("few_pairs", "no_pairs"):
+        assert np.array_equal(T, np.eye(4, dtype=np.float32)) and n == (name == "few_pairs") * 2
+    else:
+        assert n >= 3 and np.abs(T - np.eye(4)).max() > 1.0

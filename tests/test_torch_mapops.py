@@ -5,7 +5,12 @@ The port's `hamming_nn_bounded`, `euclid_nn_bounded` and
 the CUDA kernels reproduce exactly) against the reference's Pallas kernels
 in interpret mode: a cursor that is not tile-aligned, a live tail, rows with
 no valid candidate (3e38, index 0), planted ties (lowest index) and the
-dedup blocker rules.  Integers exact; d2 rtol 1e-6.
+dedup blocker rules.  Integers exact; d2 rtol 1e-6.  Kernel G (the ICP
+update) engages by its inputs alone: `icp_point_to_point` runs G's start
+and updates, on a mesh axis with the gathered candidates, and on CPU
+tensors their plain version, which launches no G and gives the plain
+update loop's result bit for bit; a graph's replay advances G's launch
+count as it does the other kernels'.
 """
 
 import jax.numpy as jnp
@@ -19,6 +24,8 @@ from bshot_slam_tpu.ops.bshot import unpack_bits as j_unpack
 from bshot_slam_tpu_torch.kernels import mapops as tm
 from bshot_slam_tpu_torch.ops import bshot as tb
 from bshot_slam_tpu_torch.ops import hamming as th
+from bshot_slam_tpu_torch.ops import icp as ticp
+from tests.torch_kernel_cases import icp_case, icp_trace
 
 BIG = 3.0e38
 
@@ -174,3 +181,67 @@ def test_dedup_vs_pallas():
             & (mseg[None, :nv] >= seg[:, None])).any(1)
     np.testing.assert_array_equal(got.numpy(), rule)
     assert 0 < rule.sum() < K
+
+
+def _icp_args(name="k600_tail"):
+    c = icp_case(name)
+    return ([torch.tensor(c[k]) for k in ("src", "src_mask", "dst", "dst_mask")],
+            dict(iterations=10, max_corr_dist=c["max_corr_dist"],
+                 n_valid_dst=c["n_valid"], tail_start=c["tail_start"]))
+
+
+def test_icp_engages_kernel_g_by_its_inputs(monkeypatch):
+    """One loop for every caller: G's start, then one update an iteration,
+    each update picking its version by the tensors' device.  CPU tensors:
+    no G launch, the plain update loop's result (`icp_trace`) bit for bit.
+    With a mesh axis (here one rank's combine and owner fetch, which give
+    D's own answer back): the same calls, each update given the gathered
+    candidates, the same result bit for bit, and no G launch on the CPU."""
+    args, kw = _icp_args()
+    T, n, rmse = icp_trace(icp_case("k600_tail"), "cpu", False)[-1][2:]
+    calls = []
+    update = ticp.icp_update
+
+    def spy(*a, **k):
+        calls.append("start" if len(a) == 3 else "gathered" if a[4] is None else "nn")
+        return update(*a, **k)
+
+    class OneRank:
+        global_index = staticmethod(lambda nn, tail_start, axis: nn)
+        argmin_combine = staticmethod(lambda d2, g, axis, site: (d2, g))
+        fetch_rows = staticmethod(lambda g, dst, tail_start, axis, site: dst[g.long()])
+
+    monkeypatch.setattr(ticp, "icp_update", spy)
+    monkeypatch.setattr(ticp, "layout", OneRank)
+    before = tm.icp_update.launches
+    for axis, kind in ((None, "nn"), (object(), "gathered")):
+        calls.clear()
+        got = ticp.icp_point_to_point(*args, **kw, axis=axis)
+        assert calls == ["start"] + [kind] * kw["iterations"]
+        assert np.array_equal(got.transform.numpy(), T)
+        assert (int(got.n_pairs), float(got.rmse)) == (int(n), float(rmse))
+    assert tm.icp_update.launches == before
+
+
+def test_graph_replay_advances_icp_update_launches(monkeypatch):
+    """`graphs.WRAPPERS` holds G's wrapper, so a replay adds the launches
+    its capture counted to `icp_update.launches`, as for A-F."""
+    from bshot_slam_tpu_torch.odometry import graphs
+
+    assert tm.icp_update in graphs.WRAPPERS
+    n = [0] * len(graphs.WRAPPERS)
+    n[graphs.WRAPPERS.index(tm.icp_update)] = 11
+    n[graphs.WRAPPERS.index(tm.euclid_nn_bounded)] = 10
+    replays = []
+
+    class Replay:
+        def replay(self):
+            replays.append(1)
+
+    g = graphs.Graphs("cpu")
+    x = torch.zeros(3)
+    g._graphs["k"] = graphs._Graph((x,), "out", Replay(), tuple(n), {})
+    before = [w.launches for w in graphs.WRAPPERS]
+    assert g.run("k", None, (torch.ones(3),)) == "out" and replays == [1]
+    assert torch.equal(x, torch.ones(3))
+    assert [w.launches - b for w, b in zip(graphs.WRAPPERS, before)] == n

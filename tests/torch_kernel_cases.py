@@ -1,9 +1,10 @@
-"""Seeded edge cases for the port's kernels A to F, map eviction and loop
-verification (numpy only).
+"""Seeded edge cases for the port's kernels A to G, map eviction and loop
+verification (numpy only; `icp_trace` imports torch when it is called).
 
 `tests/test_torch_kernel_cases.py`, `tests/test_torch_backend.py` and (for
 F, the ground walk) `tests/test_torch_preprocess.py` run them through the
-port's plain versions against the reference on the CPU;
+port's plain versions against the reference on the CPU (G, the ICP update,
+through the port's ICP loop with G's plain version, `icp_trace`);
 `tests/test_torch_cuda.py` runs the CUDA kernels (and eviction on the card)
 against the plain versions.  A case is a dict of numpy arrays and scalars,
 made from a fixed seed by name.
@@ -38,6 +39,12 @@ E_CASES = (
     "valid_past_nv", "collisions", "on_radius", "straddle", "negative_blocks",
     "dense",
 )
+# Kernel G, the ICP update: 600 keypoints with and without the previous
+# frame's tail, ragged counts (over one block's 1024 threads, and small),
+# most sources masked, fewer than 3 pairs (the identity step), none, and a
+# finite correspondence distance that cuts pairs.
+G_CASES = ("k600", "k600_tail", "k1100", "k37", "masked", "few_pairs",
+           "no_pairs", "max_corr")
 # Kernel E's tensor arguments, in order (n_valid follows them).
 E_ARGS = ("pos", "blk", "seg", "map_pos", "map_blk", "map_seg", "map_valid")
 DEDUP_RADIUS = 800.0
@@ -146,6 +153,139 @@ def euclid_case(name: str) -> dict:
             ref[j + 128 * (k + 1)] = ref[j]
             qm[k] = True
     return dict(q=q, q_mask=qm, ref=ref, ref_mask=rm, n_valid=nv, tail_start=tail)
+
+
+def icp_case(name: str) -> dict:
+    """Inputs of `icp_point_to_point`: src, src_mask, dst, dst_mask,
+    n_valid, tail_start, max_corr_dist.  The source is K keypoints; the
+    target a 2048-row map window whose first 1531 rows are live (dead rows
+    masked), holding 70% of the source moved by a rigid transform plus
+    40 mm noise among outliers, then, in the tail cases, K rows of a
+    previous frame near the moved source."""
+    rng = np.random.default_rng(3000 + G_CASES.index(name))
+    K = {"k1100": 1100, "k37": 37}.get(name, 600)
+    W, nv = 2048, 1531
+    src = rng.uniform(-2e4, 2e4, (K, 3)).astype(np.float32)
+    th = 0.02
+    R = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0],
+                  [0, 0, 1]])
+    moved = src @ R.T + np.array([300.0, -200.0, 30.0])
+    dst = rng.uniform(-2e4, 2e4, (W, 3))
+    rows = rng.choice(nv, int(0.7 * min(K, nv)), replace=False)
+    dst[rows] = moved[:len(rows)] + rng.normal(0, 40, (len(rows), 3))
+    dst[nv:] = 0.0
+    dst_mask = np.zeros(W, bool)
+    dst_mask[:nv] = rng.random(nv) > 0.05
+    tail = -1
+    if name == "k600_tail":
+        tail = W
+        dst = np.concatenate([dst, moved + rng.normal(0, 20, (K, 3))])
+        dst_mask = np.concatenate([dst_mask, rng.random(K) > 0.1])
+    src_mask = rng.random(K) > (0.6 if name == "masked" else 0.05)
+    if name in ("few_pairs", "no_pairs"):
+        src_mask[:] = False
+        src_mask[[3, 17]] = name == "few_pairs"
+    return dict(src=src, src_mask=src_mask, dst=dst.astype(np.float32),
+                dst_mask=dst_mask, n_valid=nv, tail_start=tail,
+                max_corr_dist=150.0 if name == "max_corr" else 1.0e9)
+
+
+# After a tied correspondence flips, how far the two runs' final poses may
+# part: a flipped pair moves the targets' weighted mean by |c_a - c_b| / n,
+# tens of mm over hundreds of pairs.  Reading: 3.44e-6 and 0.0764 mm on
+# k600_tail, the port's loop against the reference's and G against the
+# plain update alike (PERF.md, PR 19).
+ICP_FLIP_ROT = 1e-5
+ICP_FLIP_MM = 0.25
+
+
+def icp_flip_is_tie(p_a, p_b, cand_a, cand_b, ulps: int = 4) -> np.ndarray:
+    """Per row, whether candidates cand_a (the nearest to point p_a) and
+    cand_b (the nearest to p_b) tie in kernel D's expanded squared
+    distance at both points: their exact squared distances from the point
+    differ by at most `ulps` units in the last place of the expansion's
+    terms, |p|^2 + |c|^2 in float32, at p_a and at p_b.  At mm-scale
+    coordinates that unit is ~100-1000 mm^2, so two candidates a few mm
+    apart in distance can round alike, and points moved by a rounding
+    difference pick either."""
+    def tied(p, a, b):
+        p, a, b = (np.asarray(x, np.float64) for x in (p, a, b))
+        da, db = ((p - a) ** 2).sum(-1), ((p - b) ** 2).sum(-1)
+        terms = np.float32((p * p).sum(-1) + np.maximum((a * a).sum(-1), (b * b).sum(-1)))
+        return np.abs(da - db) <= ulps * np.spacing(terms)
+
+    return tied(p_a, cand_a, cand_b) & tied(p_b, cand_a, cand_b)
+
+
+def icp_trace(c: dict, device, kernel: bool) -> list:
+    """An ICP of 10 iterations of case `c` on `device`, through kernel G's
+    start and updates (`kernel`; G's plain branch on the CPU: the loop of
+    `icp_point_to_point`) or the plain update `icp_update_plain`,
+    recording each iteration as `icp_traces_agree` takes it (the points
+    searched, their nearest candidates, the transform, n_pairs, rmse), as
+    numpy."""
+    import torch
+
+    from bshot_slam_tpu_torch.geometry import se3
+    from bshot_slam_tpu_torch.kernels import mapops as M
+
+    src, sm, dst, dm = (torch.tensor(c[k]).to(device)
+                        for k in ("src", "src_mask", "dst", "dst_mask"))
+    eye = torch.eye(4, device=device)
+    st = M.icp_update(src, sm, dst) if kernel else None
+    T, out = eye, []
+    for _ in range(10):
+        cur = st.cur.clone() if kernel else se3.apply(T, src)
+        d2, nn = M.euclid_nn_bounded(cur, sm, dst, dm, c["n_valid"], c["tail_start"])
+        if kernel:
+            st = M.icp_update(src, sm, dst, d2, nn, c["max_corr_dist"], st)
+            T, rmse, n = st.transform, st.rmse, st.n_pairs
+        else:
+            T, rmse, n = M.icp_update_plain(T, cur, dst[nn.long()], d2, sm,
+                                            c["max_corr_dist"], eye)
+        out.append(tuple(t.cpu().numpy() for t in (cur, nn, T, n, rmse)))
+    return out
+
+
+def icp_traces_agree(a: list, b: list, dst: np.ndarray, src_mask: np.ndarray,
+                     rot: float = 1e-5, mm: float = 0.01):
+    """Compare two ICP runs, each a list of per-iteration records (cur
+    (K, 3) the points searched, nn (K,) their nearest candidates, T (4, 4)
+    after the iteration, n_pairs, rmse), as numpy.  Up to the first
+    iteration whose correspondences differ (of valid sources: a masked
+    one's is never used; every iteration if none do),
+    the pair counts are equal and the transforms and points agree within
+    `rot` (rotation entries) and `mm` (translations, points), the rmse
+    within 1e-5 relative where both searched the same points and 1e-3
+    where the points differ (each pair's d2 moves by up to a unit of the
+    expansion's terms, ~100-1000 mm^2, as its point moves); at that iteration every row whose nearest candidate differs
+    is a tie (`icp_flip_is_tie`), after which the two runs are two answers
+    to a tied problem, whose final transforms still agree within
+    `ICP_FLIP_ROT` and `ICP_FLIP_MM`.  Returns (the iteration of the first
+    flip or None, the rows that flipped there)."""
+    assert len(a) == len(b)
+    for it, (ra, rb) in enumerate(zip(a, b)):
+        cur_a, nn_a, T_a, n_a, rmse_a = ra
+        cur_b, nn_b, T_b, n_b, rmse_b = rb
+        assert np.abs(cur_a - cur_b).max(initial=0.0) <= mm, f"iteration {it}: points"
+        rows = np.flatnonzero((nn_a != nn_b) & src_mask)
+        if len(rows):
+            tie = icp_flip_is_tie(cur_a[rows], cur_b[rows], dst[nn_a[rows]],
+                                  dst[nn_b[rows]])
+            assert tie.all(), f"iteration {it}: rows {rows[~tie]} flipped without a tie"
+            T_a, T_b = a[-1][2], b[-1][2]
+            assert np.abs(T_a[:3, :3] - T_b[:3, :3]).max() <= ICP_FLIP_ROT, \
+                f"flip at iteration {it}: final rotation"
+            assert np.abs(T_a[:3, 3] - T_b[:3, 3]).max() <= ICP_FLIP_MM, \
+                f"flip at iteration {it}: final translation"
+            return it, rows
+        assert int(n_a) == int(n_b), f"iteration {it}: pairs {n_a} against {n_b}"
+        assert np.abs(T_a[:3, :3] - T_b[:3, :3]).max() <= rot, f"iteration {it}: rotation"
+        assert np.abs(T_a[:3, 3] - T_b[:3, 3]).max() <= mm, f"iteration {it}: translation"
+        rtol = 1e-5 if np.array_equal(cur_a, cur_b) else 1e-3
+        assert abs(float(rmse_a) - float(rmse_b)) <= rtol * abs(float(rmse_b)), \
+            f"iteration {it}: rmse {rmse_a} against {rmse_b}"
+    return None, np.zeros(0, np.int64)
 
 
 def segratio_case(name: str) -> dict:
