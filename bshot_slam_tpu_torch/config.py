@@ -61,6 +61,23 @@ VLP16_SENSOR = SensorConfig(
     n_azimuth=2176,
 )
 
+HDL64E_SENSOR = SensorConfig(
+    name="HDL-64E S2",
+    n_rings=64,
+    # Firing order, the HDL-64E S2 manual's nominal block spacing (no
+    # per-unit calibration): the upper block's lasers 0-31 from +2 deg in
+    # steps of 1/3 deg, the lower block's 32-63 from -8.83 deg in steps of
+    # 1/2 deg, down to -24.33 deg.
+    vertical_angles_deg=(
+        tuple(2.0 - i / 3.0 for i in range(32))
+        + tuple(-8.83 - j / 2.0 for j in range(32))
+    ),
+    distance_scale_mm=2.0,
+    # ~2083 firings a turn at 10 Hz (1.33 M returns/s over 64 lasers):
+    # fewer than the bins, so no two firings of a ring share one.
+    n_azimuth=2176,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class PreprocessConfig:
@@ -311,6 +328,26 @@ class SlamConfig:
 
 def default_config() -> SlamConfig:
     return SlamConfig()
+
+
+def hdl64e_config() -> SlamConfig:
+    """The KITTI odometry benchmark's sensor (Geiger, Lenz and Urtasun, CVPR
+    2012): a Velodyne HDL-64E S2 1.73 m above the road on a VW Passat, with
+    `default_config()`'s settings at full width.  Its clouds hold up to
+    131072 kept points (kernels A and B's `MAX_ROWS`), so the cloud ladder
+    goes on past 49152 in coarse steps.  The self-car box is assumed: the
+    Passat's 4.78 x 1.82 m footprint with the sensor over its middle."""
+    base = SlamConfig()
+    return base.replace(
+        sensor=HDL64E_SENSOR,
+        preprocess=dataclasses.replace(
+            base.preprocess, sensor_height_mm=1730.0, max_points=131072,
+            car_x_mm=(-910.0, 910.0), car_y_mm=(-2390.0, 2390.0),
+            car_z_mm=(-1730.0, 100.0)),
+        runtime=dataclasses.replace(
+            base.runtime,
+            cloud_buckets=base.runtime.cloud_buckets + (65536, 98304, 131072)),
+    )
 
 
 def tiny_config() -> SlamConfig:

@@ -3,19 +3,24 @@
 Port of `bshot_slam_tpu.io.native_decoder`.  The library is built from the
 port's own copy of the source, `native/velodyne_decoder.cpp`, at first use:
 
-    g++ -O3 -std=c++17 -fPIC -shared -o build/native/velodyne_decoder-<hash>.so \
-        native/velodyne_decoder.cpp -lpthread
+    g++ -O3 -fno-math-errno -std=c++17 -fPIC -shared \
+        -o build/native/velodyne_decoder-<hash>.so native/velodyne_decoder.cpp -lpthread
 
 (`kernels/_build.start_build`: named by a hash of the source and the
 flags, written to a temporary name and renamed, so processes building at
 once do not collide).  It is built without `-march=native`, so the library
 runs on any x86-64 host (the reference's committed `native/*.so` was built
-for the host that made it, and the port never loads it).  A failed build raises with the compiler's output; nothing
+for the host that made it, and the port never loads it).
+`-fno-math-errno` lets the compiler put `sqrt` on SIMD lanes (the
+classify's row passes); it changes no result, only that `errno` is left
+alone.  A failed build raises with the compiler's output; nothing
 falls back to the python path quietly.  Entry points: `decode_pcap_native`
 (whole capture into sweeps), `NativeSweepStream` (a C++ producer thread
-that parses and bins each rotation into a `RangeImage`) and
-`preprocess_extract_native` (classify + compact extract of one sweep, the
-plain version being `ops.preprocess_host`).
+that parses and bins each rotation into a `RangeImage`),
+`build_range_image` (one decoded sweep binned, the plain version being
+`ops.rangeimage.build_range_image`) and `preprocess_extract_native`
+(classify + compact extract of one sweep, the plain version being
+`ops.preprocess_host`).
 """
 
 from __future__ import annotations
@@ -29,13 +34,13 @@ from typing import List, Optional
 import numpy as np
 
 from bshot_slam_tpu_torch.config import SensorConfig
-from bshot_slam_tpu_torch.io.velodyne import LaserSweep
+from bshot_slam_tpu_torch.io.velodyne import LaserSweep, sensor_type
 from bshot_slam_tpu_torch.kernels import _build
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "native" / "velodyne_decoder.cpp"
 BUILD_DIR = _PKG.parent / "build" / "native"
-GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+GXX_FLAGS = ("-O3", "-fno-math-errno", "-std=c++17", "-fPIC", "-shared")
 
 _LOCK = threading.Lock()
 _lib = None
@@ -104,6 +109,14 @@ def _load() -> ctypes.CDLL:
             lib.vd_stream_next.argtypes = [stream_p, f32p, f32p]
             lib.vd_stream_close.restype = None
             lib.vd_stream_close.argtypes = [stream_p]
+            lib.vd_bin_sweep.restype = ctypes.c_int
+            lib.vd_bin_sweep.argtypes = [
+                ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_uint8),
+                ctypes.c_int64, ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
+                ctypes.c_int, ctypes.c_float, f32p, f32p,
+                ctypes.POINTER(ctypes.c_uint8),
+            ]
             lib.vd_preprocess_extract.restype = ctypes.c_int64
             lib.vd_preprocess_extract.argtypes = [
                 f32p, f32p, f32p, ctypes.c_int, ctypes.c_int,
@@ -132,7 +145,9 @@ def decode_pcap_native(
     """Native parse+decode of a PCAP capture into complete sweeps.
 
     Returns None when the file is unreadable or not a little-endian classic
-    pcap (as the reference does)."""
+    pcap (as the reference does); ValueError for a sensor the decoder cannot
+    read (`velodyne.sensor_type`)."""
+    sensor_type(sensor)
     lib = _load()
     cap = lib.vd_decode_pcap(str(path).encode(), sensor.n_rings)
     if not cap:
@@ -174,17 +189,15 @@ class NativeSweepStream:
 
     def __init__(self, path: str, sensor: SensorConfig, skip: int = 0,
                  queue: int = 4):
-        from bshot_slam_tpu_torch.ops.rangeimage import sorted_vertical_angles_rad
+        from bshot_slam_tpu_torch.ops.rangeimage import row_of_ring, sorted_vertical_angles_rad
 
         self._handle = None
+        sensor_type(sensor)  # ValueError for a sensor the decoder cannot read
         self._lib = _load()
-        row_of_ring = np.argsort(
-            np.argsort(np.asarray(sensor.vertical_angles_deg), kind="stable"),
-            kind="stable",
-        ).astype(np.int32)
+        rows = row_of_ring(sensor)
         self._handle = self._lib.vd_stream_open(
             str(path).encode(), sensor.n_rings, sensor.n_azimuth,
-            row_of_ring.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             ctypes.c_float(sensor.distance_scale_mm), skip, queue,
         )
         if not self._handle:
@@ -224,6 +237,46 @@ class NativeSweepStream:
         self.close()
 
 
+def build_range_image(sweep: LaserSweep, sensor: SensorConfig,
+                      selected_indices: Optional[np.ndarray] = None):
+    """`ops.rangeimage.build_range_image` with the firings binned in the
+    library: the same `RangeImage`, bit for bit, of the sweep's arrays in
+    the decoders' dtypes (float64 azimuths, int32 rings, uint16 ticks).
+    Raises IndexError for a ring outside the sensor and ValueError for an
+    azimuth below 0 or not a number."""
+    from bshot_slam_tpu_torch.ops import rangeimage
+
+    range_mm, azimuth_rad, selected = rangeimage.blank_image(sensor)
+    sel = None
+    if selected_indices is not None:
+        sel = np.zeros(len(sweep), np.uint8)
+        sel[np.asarray(selected_indices, np.int64)] = 1
+    az = np.ascontiguousarray(sweep.azimuth_deg, np.float64)
+    ring = np.ascontiguousarray(sweep.ring, np.int32)
+    dist = np.ascontiguousarray(sweep.distance, np.uint16)
+    rows = rangeimage.row_of_ring(sensor)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    rc = _load().vd_bin_sweep(
+        az.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        ring.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        dist.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        None if sel is None else sel.ctypes.data_as(u8p), len(sweep),
+        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), sensor.n_rings,
+        sensor.n_azimuth, ctypes.c_float(sensor.distance_scale_mm),
+        range_mm.ctypes.data_as(f32p), azimuth_rad.ctypes.data_as(f32p),
+        selected.ctypes.data_as(u8p))
+    if rc == -1:
+        raise IndexError(f"a ring id outside the {sensor.n_rings} rings of "
+                         f"{sensor.name}")
+    if rc == -2:
+        raise ValueError("an azimuth below 0 degrees or not a number")
+    return rangeimage.RangeImage(
+        range_mm=range_mm, azimuth_rad=azimuth_rad,
+        vert_rad=rangeimage.sorted_vertical_angles_rad(sensor),
+        selected=selected, timestamp_us=sweep.timestamp_us)
+
+
 def preprocess_extract_native(range_mm, azimuth_rad, vert_rad, cfg,
                               selected, max_points: int):
     """Native classify + compact-extract of one sweep (mirrors
@@ -247,7 +300,7 @@ def preprocess_extract_native(range_mm, azimuth_rad, vert_rad, cfg,
         cfg.car_z_mm[0], cfg.car_z_mm[1],
     )
     classes = np.empty((R, A), np.int32)
-    xyz = np.empty((R, A, 3), np.float32)
+    scratch = np.empty(3 * R * A, np.float32)  # the cells' X, Y and Z planes
     pts = np.empty((max_points, 3), np.float32)
     if selected is not None:
         sel = np.ascontiguousarray(np.asarray(selected, bool).astype(np.uint8))
@@ -261,7 +314,7 @@ def preprocess_extract_native(range_mm, azimuth_rad, vert_rad, cfg,
         r.ctypes.data_as(f32p), a.ctypes.data_as(f32p),
         v.ctypes.data_as(f32p), R, A, ctypes.byref(c), sel_p,
         classes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        xyz.ctypes.data_as(f32p), pts.ctypes.data_as(f32p), max_points,
+        scratch.ctypes.data_as(f32p), pts.ctypes.data_as(f32p), max_points,
     )
     if n < 0:
         raise ValueError(f"vd_preprocess_extract refused a ({R}, {A}) image")

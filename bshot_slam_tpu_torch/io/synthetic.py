@@ -252,6 +252,7 @@ def render_sequence(
     seed: int = 0,
     n_firings: int | None = None,
     adversarial: bool = False,
+    sensor_height_mm: float = 2450.0,
 ) -> Tuple[List[LaserSweep], np.ndarray]:
     """Render a posed sweep sequence; returns (sweeps, gt_poses (n,4,4)).
 
@@ -260,6 +261,7 @@ def render_sequence(
     if scene is None:
         scene = adversarial_scene(seed) if adversarial else default_scene(seed)
     poses = straight_trajectory(n_frames, step_mm=step_mm,
+                                sensor_height_mm=sensor_height_mm,
                                 yaw_rate_rad=yaw_rate_rad)
     sweeps = [
         render_sweep(scene, sensor, poses[i], noise_mm=noise_mm, seed=seed + i,

@@ -23,6 +23,7 @@ from bshot_slam_tpu_torch.io.velodyne import (
     PACKET_SIZE,
     LaserSweep,
     decode_packets,
+    sensor_type,
     split_sweeps,
 )
 
@@ -36,6 +37,7 @@ class UdpCapture:
         queue_size: int = 8,
         packets_per_batch: int = 64,
     ):
+        sensor_type(sensor)  # ValueError for a sensor the decoder cannot read
         self.sensor = sensor
         self._queue: "queue.Queue[LaserSweep]" = queue.Queue(queue_size)
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)

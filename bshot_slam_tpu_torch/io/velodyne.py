@@ -28,6 +28,22 @@ LASER_PER_FIRING = 32
 FIRING_PER_PKT = 12
 SENSOR_HDL32E = 0x21
 SENSOR_VLP16 = 0x22
+# The HDL-64E's packets interleave two blocks of 32 lasers, and its angles
+# and distance corrections come from the unit's own calibration file
+# (db.xml): without one its packets would decode into wrong points.
+HDL64E_REFUSAL = ("decoding HDL-64E packets needs the unit's per-laser "
+                  "calibration (db.xml), which the port does not read; "
+                  "only the 16- and 32-ring sensors decode")
+
+
+def sensor_type(sensor: SensorConfig) -> int:
+    """The factory byte of the sensor's packets; ValueError for a sensor
+    whose packets the decoders cannot read (any but 16 or 32 rings)."""
+    if sensor.n_rings == 16:
+        return SENSOR_VLP16
+    if sensor.n_rings == 32:
+        return SENSOR_HDL32E
+    raise ValueError(f"{sensor.name} ({sensor.n_rings} rings): {HDL64E_REFUSAL}")
 
 # One firing block: u16 block id, u16 azimuth (0.01 deg), 32 x (u16 dist, u8 int)
 _FIRING_DTYPE = np.dtype(
@@ -83,7 +99,7 @@ def decode_packets(
     # Sensor-type gate (reference asserts the factory byte,
     # VelodyneCapture.h:443; here mismatched packets are skipped): 0
     # tolerates factory-byte-less streams.
-    expected = SENSOR_VLP16 if n_lasers == 16 else SENSOR_HDL32E
+    expected = sensor_type(sensor)
     st = pkts["sensor_type"]
     pkts = pkts[(st == 0) | (st == expected)]
 
@@ -179,6 +195,7 @@ def encode_packets(sweep_list: Sequence[LaserSweep], sensor: SensorConfig) -> np
     emitted one azimuth per block with all rings, zero-padded to whole
     packets.
     """
+    kind = sensor_type(sensor)
     firings = []  # (azimuth_centideg, dist[32], inten[32])
     for sweep in sweep_list:
         az_vals, inverse = np.unique(sweep.azimuth_deg, return_inverse=True)
@@ -201,6 +218,6 @@ def encode_packets(sweep_list: Sequence[LaserSweep], sensor: SensorConfig) -> np
         pkt[p]["firings"][f]["azimuth"] = az
         pkt[p]["firings"][f]["returns"]["distance"] = dist
         pkt[p]["firings"][f]["returns"]["intensity"] = inten
-    pkt["sensor_type"] = SENSOR_VLP16 if sensor.n_rings == 16 else SENSOR_HDL32E
+    pkt["sensor_type"] = kind
     pkt["mode"] = 0x37
     return out

@@ -14,7 +14,8 @@
 // preceded in the pcap record by a 42-byte Ethernet+IPv4+UDP header.
 //
 // Build: bshot_slam_tpu_torch/io/native_decoder.py compiles this file at
-// first use (g++ -O3 -std=c++17 -fPIC -shared -lpthread, no -march) into
+// first use (g++ -O3 -fno-math-errno -std=c++17 -fPIC -shared -lpthread, no
+// -march) into
 // build/native/libvelodyne_decoder-<hash of source and flags>.so.
 
 #include <cstdint>
@@ -72,9 +73,16 @@ struct DecodedCapture {
   int64_t n_sweeps;  // number of COMPLETE sweeps (tail dropped)
 };
 
+// Whether packets of an n_rings sensor decode here: the VLP-16 and the
+// HDL-32E.  An HDL-64E's two 32-laser blocks need the unit's calibration
+// file (db.xml) and would decode into wrong points without it.
+static bool decodable_rings(int n_rings) { return n_rings == 16 || n_rings == 32; }
+
 // Decode a classic-pcap Velodyne capture. n_rings is 16 (VLP-16) or 32
-// (HDL-32E).  Returns nullptr on unreadable/invalid input.
+// (HDL-32E).  Returns nullptr on unreadable/invalid input or another
+// n_rings.
 DecodedCapture* vd_decode_pcap(const char* path, int n_rings) {
+  if (!decodable_rings(n_rings)) return nullptr;
   FILE* f = std::fopen(path, "rb");
   if (!f) return nullptr;
   std::fseek(f, 0, SEEK_END);
@@ -350,10 +358,12 @@ extern "C" {
 
 // Open a streaming decode of `path`.  `row_of_ring` maps firing ring id ->
 // vertical-angle-sorted row (length n_rings).  Returns nullptr when the
-// file is unreadable or not a little-endian classic pcap.
+// file is unreadable or not a little-endian classic pcap, or when n_rings
+// is not 16 or 32.
 VdStream* vd_stream_open(const char* path, int n_rings, int n_azimuth,
                          const int32_t* row_of_ring,
                          float distance_scale_mm, int skip, int queue_cap) {
+  if (!decodable_rings(n_rings)) return nullptr;
   FILE* f = std::fopen(path, "rb");
   if (!f) return nullptr;
   std::fseek(f, 0, SEEK_END);
@@ -443,6 +453,36 @@ constexpr int kClassGround = 1;
 constexpr int kClassSelfcar = 2;
 constexpr int kClassOccluded = 3;
 constexpr float kEps = 1e-6f;
+
+// The sine and cosine of the last two distinct azimuths a column met: the
+// lasers of one firing share its azimuth, and an empty cell holds its
+// bin's centre, so most cells of a column repeat one of two values.  Keyed
+// by the float's bits (sin(-0) is -0), so each value is the one std::sin
+// and std::cos give.
+struct TrigCache {
+  uint32_t key[2] = {0, 0};
+  float sin_[2] = {0.0f, 0.0f}, cos_[2] = {0.0f, 0.0f};
+  int filled = 0, next = 0;
+
+  void get(float az, float* s, float* c) {
+    uint32_t bits;
+    std::memcpy(&bits, &az, sizeof bits);
+    for (int e = 0; e < filled; ++e) {
+      if (key[e] == bits) {
+        *s = sin_[e];
+        *c = cos_[e];
+        return;
+      }
+    }
+    *s = std::sin(az);
+    *c = std::cos(az);
+    key[next] = bits;
+    sin_[next] = *s;
+    cos_[next] = *c;
+    next ^= 1;
+    if (filled < 2) ++filled;
+  }
+};
 }  // namespace
 
 extern "C" {
@@ -458,19 +498,170 @@ struct PreprocessCfg {
   float car_x0, car_x1, car_y0, car_y1, car_z0, car_z1;
 };
 
+}  // extern "C"
+
+namespace {
+
+// What the walk reads: the image, the rings' trig, the thresholds.
+struct WalkInput {
+  const float* range_mm;
+  const float* az_rad;
+  int n_rings, n_az;
+  const float* cv;  // cos of each row's vertical angle
+  const float* sv;  // sin of each row's vertical angle
+  const PreprocessCfg* cfg;
+  float horiz0;  // horizontal range of the walk's start point
+  // Outside [s_lo, s_hi] the gradient's sine alone settles its comparisons.
+  bool banded;
+  float s_lo, s_hi;
+};
+
+// Bottom-up ground walk (reference: preprocess.cpp:73-166; rules mirror
+// _ground_walk_host), writing every cell's class and the planes xs, ys, zs
+// of the cells' XYZ.  The columns are independent, so the walk keeps each
+// column's state and sweeps the rows in order, each row in passes over its
+// columns: the azimuths' sines and cosines (a column repeats one or two
+// azimuths, so through its TrigCache), the points and their gradients,
+// then the rules.  The second and third passes hold no branch and no call,
+// so the compiler runs them on SIMD lanes, eight wide where the host has
+// AVX2 (a second copy, picked when the library loads); IEEE arithmetic,
+// with no fused multiply-add, gives each lane what the scalar code gives.
+__attribute__((target_clones("avx2", "default")))
+void walk(const WalkInput& in, int32_t* classes_out, float* xs, float* ys,
+          float* zs) {
+  const int W = in.n_az;
+  const PreprocessCfg& cfg = *in.cfg;
+  const float H = cfg.sensor_height_mm, grad_th = cfg.grad_th_deg;
+  std::vector<float> px(W), py(W), pz(W), pn(W), thz(W), sa(W), ca(W), sr(W);
+  std::vector<int32_t> pig(W, 1), lost(W, 0), set_th(W, 0), steep(W),
+      gentle(W);
+  std::vector<TrigCache> trig(W);
+  for (int j = 0; j < W; ++j) {
+    const float az0 = in.az_rad[j];  // row 0's azimuth for this column
+    px[j] = in.horiz0 * std::sin(az0);
+    py[j] = in.horiz0 * std::cos(az0);
+    pz[j] = -H;
+    pn[j] = std::sqrt(px[j] * px[j] + py[j] * py[j] + pz[j] * pz[j]);
+    thz[j] = pz[j];
+  }
+  const float lowpt_th = cfg.lowpt_th_mm, height_th = cfg.height_th_mm;
+  const float cx0 = cfg.car_x0, cx1 = cfg.car_x1, cy0 = cfg.car_y0,
+              cy1 = cfg.car_y1, cz0 = cfg.car_z0, cz1 = cfg.car_z1;
+
+  for (int r = 0; r < in.n_rings; ++r) {
+    const size_t row = static_cast<size_t>(r) * W;
+    const float* __restrict d_r = in.range_mm + row;
+    const float* __restrict az_r = in.az_rad + row;
+    float* __restrict x_ = xs + row;
+    float* __restrict y_ = ys + row;
+    float* __restrict z_ = zs + row;
+    for (int j = 0; j < W; ++j) trig[j].get(az_r[j], &sa[j], &ca[j]);
+
+    // The cell's XYZ, float32 exactly as preprocess_host.polar_to_xyz_host,
+    // and the sine of its gradient from the column's previous point.
+    {
+      const float cvr = in.cv[r], svr = in.sv[r];
+      const float* __restrict s_ = sa.data();
+      const float* __restrict c_ = ca.data();
+      const float* __restrict qx = px.data();
+      const float* __restrict qy = py.data();
+      const float* __restrict qz = pz.data();
+      float* __restrict g_ = sr.data();
+      for (int j = 0; j < W; ++j) {
+        const float d = d_r[j];
+        const float x = d * cvr * s_[j], y = d * cvr * c_[j], z = d * svr;
+        const float dx = x - qx[j], dy = y - qy[j], dz = z - qz[j];
+        const float nrm = std::sqrt(dx * dx + dy * dy + dz * dz);
+        float s = dz / (nrm + kEps);
+        s = s > 1.0f ? 1.0f : s;
+        s = s < -1.0f ? -1.0f : s;
+        x_[j] = x; y_[j] = y; z_[j] = z; g_[j] = s;
+      }
+    }
+    // grad > grad_th and grad < grad_th, grad = asin(s) in degrees.  asin
+    // rises with s: outside a band of 1e-4 around sin(grad_th) in s (1e-4
+    // rad or more in angle, thousands of asinf's rounding errors) s alone
+    // settles both, so asinf runs only inside it (and for NaN).
+    for (int j = 0; j < W; ++j) {
+      steep[j] = in.banded && sr[j] > in.s_hi;
+      gentle[j] = in.banded && sr[j] < in.s_lo;
+    }
+    for (int j = 0; j < W; ++j) {
+      if (steep[j] | gentle[j]) continue;
+      const float grad = std::asin(sr[j]) * 57.29577951308232f;
+      steep[j] = grad > grad_th;
+      gentle[j] = grad < grad_th;
+    }
+
+    // The rules, each column from its state after the row before.
+    const int32_t* __restrict st_ = steep.data();
+    const int32_t* __restrict ge_ = gentle.data();
+    float* __restrict qx = px.data();
+    float* __restrict qy = py.data();
+    float* __restrict qz = pz.data();
+    float* __restrict qn = pn.data();
+    float* __restrict tz = thz.data();
+    int32_t* __restrict pg = pig.data();
+    int32_t* __restrict ls = lost.data();
+    int32_t* __restrict ts = set_th.data();
+    int32_t* __restrict cl = classes_out + row;
+    for (int j = 0; j < W; ++j) {
+      const float d = d_r[j], x = x_[j], y = y_[j], z = z_[j];
+      const float norm_prev = qn[j], z_prev = qz[j];
+      const int32_t gentle_j = ge_[j];
+      int32_t g = pg[j], th_set = ts[j];
+      float th_z = tz[j];
+      // Rule 1: remember a threshold point.
+      const int32_t cond1 = g & (st_[j] | (d == 0.0f) | (d < norm_prev));
+      th_set |= cond1;
+      th_z = cond1 ? z_prev : th_z;
+      // Rule 2: ground continuation / lower-ground re-attach.
+      const int32_t g_keep = g & gentle_j & (ls[j] ^ 1);
+      const int32_t lower = (g ^ 1) & (z < lowpt_th) & gentle_j;
+      int32_t cls = (g_keep | lower) ? kClassGround : kClassKeep;
+      g = g_keep | lower;
+      th_set = lower ? 0 : th_set;
+      // Rule 3: lost point.
+      const int32_t lost_new = d == 0.0f;
+      cls = lost_new ? kClassGround : cls;
+      g = lost_new ? 0 : g;
+      // Rule 4: range shortened vs previous.
+      const int32_t shorter = (d < norm_prev) & (d != 0.0f);
+      cls = shorter ? kClassKeep : cls;
+      g = shorter ? 0 : g;
+      // Rule 5: threshold-point restart.
+      const int32_t restart = th_set & ((z - th_z) < height_th) & (z < z_prev);
+      th_set = restart ? 0 : th_set;
+      cls = restart ? kClassGround : cls;
+      g = restart ? 1 : g;
+      // Rule 6: self-car crop box.
+      const int32_t car = (x >= cx0) & (x <= cx1) & (y >= cy0) & (y <= cy1) &
+                          (z >= cz0) & (z <= cz1);
+      cl[j] = car ? kClassSelfcar : cls;
+      pg[j] = g; ts[j] = th_set; tz[j] = th_z; ls[j] = lost_new;
+      qx[j] = x; qy[j] = y; qz[j] = z;
+      qn[j] = std::sqrt(x * x + y * y + z * z);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
 // Classify every cell and emit kept XYZ points (azimuth-major order).
 // `selected` is an optional (n_rings*n_az) 0/1 mask (NULL = all selected,
-// matching save_sel=True semantics).  Returns the number of kept points
-// written to points_out (capped at max_points), or -1 on bad arguments.
+// matching save_sel=True semantics).  `xyz_scratch` holds 3*n_rings*n_az
+// floats (the cells' X, Y and Z planes).  Returns the number of kept
+// points written to points_out (capped at max_points), or -1 on bad
+// arguments.
 int64_t vd_preprocess_extract(
     const float* range_mm, const float* az_rad, const float* vert_rad,
     int n_rings, int n_az, const PreprocessCfg* cfg,
     const uint8_t* selected,
-    int32_t* classes_out, float* xyz_out, float* points_out,
+    int32_t* classes_out, float* xyz_scratch, float* points_out,
     int64_t max_points) {
   if (n_rings <= 0 || n_az <= 0 || !cfg) return -1;
-  const float grad_th = cfg->grad_th_deg;
-  const float H = cfg->sensor_height_mm;
 
   // Per-ring vertical trig.
   std::vector<float> cv(n_rings), sv(n_rings);
@@ -478,82 +669,24 @@ int64_t vd_preprocess_extract(
     cv[r] = std::cos(vert_rad[r]);
     sv[r] = std::sin(vert_rad[r]);
   }
+  const float grad_th = cfg->grad_th_deg;
+  const double s_th = std::sin(static_cast<double>(grad_th) * (kPi / 180.0));
+  const WalkInput in{range_mm, az_rad, n_rings, n_az, cv.data(), sv.data(), cfg,
+                     -cfg->sensor_height_mm / std::tan(cfg->vert_init_rad),
+                     grad_th > -80.0f && grad_th < 80.0f,
+                     static_cast<float>(s_th - 1e-4),
+                     static_cast<float>(s_th + 1e-4)};
+  const size_t cells = static_cast<size_t>(n_rings) * n_az;
+  float* xs = xyz_scratch;
+  float* ys = xyz_scratch + cells;
+  float* zs = xyz_scratch + 2 * cells;
 
-  // XYZ for every cell (row-major (ring, az)), float32 exactly as
-  // preprocess_host.polar_to_xyz_host.
-  for (int r = 0; r < n_rings; ++r) {
-    for (int a = 0; a < n_az; ++a) {
-      const size_t i = static_cast<size_t>(r) * n_az + a;
-      const float d = range_mm[i];
-      const float az = az_rad[i];
-      xyz_out[3 * i + 0] = d * cv[r] * std::sin(az);
-      xyz_out[3 * i + 1] = d * cv[r] * std::cos(az);
-      xyz_out[3 * i + 2] = d * sv[r];
-    }
-  }
-
-  const float horiz0 = -H / std::tan(cfg->vert_init_rad);
-
-  // Bottom-up ground walk, all columns independent (reference:
-  // preprocess.cpp:73-166; rules mirror _ground_walk_host).
-  for (int a = 0; a < n_az; ++a) {
-    const float az0 = az_rad[a];  // row 0's azimuth for this column
-    float p_prev[3] = {horiz0 * std::sin(az0), horiz0 * std::cos(az0), -H};
-    float p_th[3] = {p_prev[0], p_prev[1], p_prev[2]};
-    bool pig = true, lost = false, set_th = false;
-
-    for (int r = 0; r < n_rings; ++r) {
-      const size_t i = static_cast<size_t>(r) * n_az + a;
-      const float d = range_mm[i];
-      const float* p = &xyz_out[3 * i];
-      const float z = p[2];
-      const float dx = p[0] - p_prev[0], dy = p[1] - p_prev[1],
-                  dz = p[2] - p_prev[2];
-      const float nrm = std::sqrt(dx * dx + dy * dy + dz * dz);
-      float s = dz / (nrm + kEps);
-      if (s > 1.0f) s = 1.0f;
-      if (s < -1.0f) s = -1.0f;
-      const float grad = std::asin(s) * 57.29577951308232f;
-      const float norm_prev = std::sqrt(p_prev[0] * p_prev[0] +
-                                        p_prev[1] * p_prev[1] +
-                                        p_prev[2] * p_prev[2]);
-
-      // Rule 1: remember a threshold point.
-      const bool cond1 = pig && ((grad > grad_th) || (d == 0.0f) ||
-                                 (d < norm_prev));
-      if (cond1) {
-        set_th = true;
-        p_th[0] = p_prev[0]; p_th[1] = p_prev[1]; p_th[2] = p_prev[2];
-      }
-      // Rule 2: ground continuation / lower-ground re-attach.
-      const bool g_keep = pig && (grad < grad_th) && !lost;
-      const bool lower = !pig && (z < cfg->lowpt_th_mm) && (grad < grad_th);
-      int cls = (g_keep || lower) ? kClassGround : kClassKeep;
-      pig = g_keep || lower;
-      if (lower) set_th = false;
-      // Rule 3: lost point.
-      const bool lost_new = d == 0.0f;
-      if (lost_new) { cls = kClassGround; pig = false; }
-      // Rule 4: range shortened vs previous.
-      if ((d < norm_prev) && (d != 0.0f)) { cls = kClassKeep; pig = false; }
-      // Rule 5: threshold-point restart.
-      if (set_th && ((z - p_th[2]) < cfg->height_th_mm) && (z < p_prev[2])) {
-        set_th = false; cls = kClassGround; pig = true;
-      }
-      // Rule 6: self-car crop box.
-      if (p[0] >= cfg->car_x0 && p[0] <= cfg->car_x1 &&
-          p[1] >= cfg->car_y0 && p[1] <= cfg->car_y1 &&
-          z >= cfg->car_z0 && z <= cfg->car_z1) {
-        cls = kClassSelfcar;
-      }
-      classes_out[i] = cls;
-      lost = lost_new;
-      p_prev[0] = p[0]; p_prev[1] = p[1]; p_prev[2] = p[2];
-    }
-  }
+  walk(in, classes_out, xs, ys, zs);
 
   // Occlusion pass (reference: preprocess.cpp:168-199; mirrors
-  // _occlusion_host's previous-valid-neighbor comparison + scatter).
+  // _occlusion_host's previous-valid-neighbor comparison + scatter), then
+  // each cell kept for extraction.
+  std::vector<uint8_t> keep(cells);
   for (int r = 0; r < n_rings; ++r) {
     const size_t row = static_cast<size_t>(r) * n_az;
     int prev_idx = -1;
@@ -572,6 +705,10 @@ int64_t vd_preprocess_extract(
       if (valid || a == 0) prev_idx = a;
     }
   }
+  for (size_t i = 0; i < cells; ++i) {
+    keep[i] = (range_mm[i] > 0.0f) & (classes_out[i] == kClassKeep) &
+              (!selected || selected[i] != 0);
+  }
 
   // Compact extraction, azimuth-major then vertical (reference:
   // preprocess.cpp:201-216 column-major map walk).
@@ -579,15 +716,52 @@ int64_t vd_preprocess_extract(
   for (int a = 0; a < n_az && n < max_points; ++a) {
     for (int r = 0; r < n_rings && n < max_points; ++r) {
       const size_t i = static_cast<size_t>(r) * n_az + a;
-      if (range_mm[i] <= 0.0f || classes_out[i] != kClassKeep) continue;
-      if (selected && !selected[i]) continue;
-      points_out[3 * n + 0] = xyz_out[3 * i + 0];
-      points_out[3 * n + 1] = xyz_out[3 * i + 1];
-      points_out[3 * n + 2] = xyz_out[3 * i + 2];
+      if (!keep[i]) continue;
+      points_out[3 * n + 0] = xs[i];
+      points_out[3 * n + 1] = ys[i];
+      points_out[3 * n + 2] = zs[i];
       ++n;
     }
   }
   return n;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Range-image binning of one decoded sweep, bit for bit
+// bshot_slam_tpu_torch/ops/rangeimage.py's build_range_image (the engine's
+// host ingest bins every sweep; numpy's scatter takes ~4 ms at 64 rings).
+// ---------------------------------------------------------------------------
+
+extern "C" {
+
+// Bin `n` firings (azimuth in degrees, ring id, distance ticks, and an
+// optional 0/1 select flag each) into caller-filled (n_rings, n_az) images:
+// row row_of_ring[ring], column trunc(az / 360 * n_az) capped at n_az - 1;
+// range = ticks * distance_scale_mm in float32, azimuth = az * (pi / 180)
+// rounded to float32, select flag where `selected` is given; a later
+// firing overwrites an earlier one in the same cell.  Returns 0; with
+// nothing written, -1 where a ring lies outside the image and -2 where an
+// azimuth is negative, not a number or too large for a column.
+int vd_bin_sweep(const double* azimuth_deg, const int32_t* ring,
+                 const uint16_t* distance, const uint8_t* selected, int64_t n,
+                 const int32_t* row_of_ring, int n_rings, int n_az,
+                 float distance_scale_mm, float* range_mm, float* azimuth_rad,
+                 uint8_t* selected_out) {
+  for (int64_t k = 0; k < n; ++k) {
+    if (ring[k] < 0 || ring[k] >= n_rings) return -1;
+    if (!(azimuth_deg[k] >= 0.0 && azimuth_deg[k] < 1e15)) return -2;
+  }
+  for (int64_t k = 0; k < n; ++k) {
+    int64_t col = static_cast<int64_t>(azimuth_deg[k] / 360.0 * n_az);
+    if (col > n_az - 1) col = n_az - 1;
+    const size_t cell = static_cast<size_t>(row_of_ring[ring[k]]) * n_az + col;
+    range_mm[cell] = static_cast<float>(distance[k]) * distance_scale_mm;
+    azimuth_rad[cell] = static_cast<float>(azimuth_deg[k] * (kPi / 180.0));
+    if (selected) selected_out[cell] = selected[k];
+  }
+  return 0;
 }
 
 }  // extern "C"

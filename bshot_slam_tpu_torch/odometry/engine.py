@@ -79,13 +79,14 @@ import numpy as np
 import torch
 
 from bshot_slam_tpu_torch.backend import keyframes as kf_mod
-from bshot_slam_tpu_torch.config import SlamConfig
+from bshot_slam_tpu_torch.config import CLASS_KEEP, SlamConfig
 from bshot_slam_tpu_torch.device import resolve_device, upload
 from bshot_slam_tpu_torch.io import native_decoder
+from bshot_slam_tpu_torch.io.native_decoder import build_range_image
 from bshot_slam_tpu_torch.io.velodyne import LaserSweep
 from bshot_slam_tpu_torch.odometry import graphs as graphs_mod
 from bshot_slam_tpu_torch.odometry import mapstore, pipeline
-from bshot_slam_tpu_torch.ops.rangeimage import RangeImage, build_range_image
+from bshot_slam_tpu_torch.ops.rangeimage import RangeImage
 from bshot_slam_tpu_torch.parallel import comm, layout
 from bshot_slam_tpu_torch.utils import profiling
 
@@ -103,17 +104,36 @@ def pick_bucket(n_valid: int, cfg: SlamConfig) -> int:
     return cap
 
 
+def kept_rows(classes: np.ndarray, range_mm: np.ndarray,
+              selected: Optional[np.ndarray]) -> int:
+    """Cells of a classified range image that extraction keeps, before any
+    cap: valid, class keep and selected."""
+    keep = (np.asarray(classes) == CLASS_KEEP) & (np.asarray(range_mm) > 0)
+    if selected is not None:
+        keep &= np.asarray(selected, bool)
+    return int(np.count_nonzero(keep))
+
+
 def host_cloud(range_mm: np.ndarray, azimuth_rad: np.ndarray,
                vert_rad: np.ndarray, selected: Optional[np.ndarray],
                cfg: SlamConfig):
     """The engine's host ingest of one range image: native classify + compact
     extract, padded with zeros to the smallest bucket holding the kept
-    points.  Returns (points (bucket, 3) float32, n_valid)."""
-    pts, nv, _ = native_decoder.preprocess_extract_native(
-        range_mm, azimuth_rad, vert_rad, cfg.preprocess, selected,
-        cfg.preprocess.max_points)
+    points.  Returns (points (bucket, 3) float32, n_valid).  Kept points
+    past `max_points` are dropped; while the recorder is on, each call
+    counts `cloud.rows` (n_valid), `cloud.bucket_rows` (the bucket) and
+    `cloud.truncated_rows` (the kept points dropped)."""
+    cap = cfg.preprocess.max_points
+    pts, nv, classes = native_decoder.preprocess_extract_native(
+        range_mm, azimuth_rad, vert_rad, cfg.preprocess, selected, cap)
     points = np.zeros((pick_bucket(nv, cfg), 3), np.float32)
     points[:nv] = pts
+    if _REC.on:
+        _REC.count("cloud.rows", nv)
+        _REC.count("cloud.bucket_rows", points.shape[0])
+        # Below the cap nothing was dropped: the full count only at it.
+        _REC.count("cloud.truncated_rows",
+                   kept_rows(classes, range_mm, selected) - nv if nv == cap else 0)
     return points, nv
 
 

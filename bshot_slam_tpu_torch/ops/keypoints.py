@@ -180,8 +180,9 @@ def iss_keypoints(points: torch.Tensor, mask: torch.Tensor, cfg: KeypointConfig,
     minimum neighbours; then non-max suppression on l3 within the non-max
     radius, and the `max_out` largest, ties to the lowest index.
 
-    Kernel A takes at most 131072 rows (the reference has no such limit);
-    the clouds here hold at most `max_points` (49152) rows."""
+    Kernel A takes at most `kernels.neighborhood.MAX_ROWS` (131072) rows
+    (the reference has no such limit); the clouds here hold at most the
+    configuration's `max_points` rows, which is at most `MAX_ROWS`."""
     cnt, psum, outer = neighborhood_moments(points, mask, cfg.iss_salient_radius_mm,
                                             tile)
     safe = torch.clamp(cnt, min=1.0)

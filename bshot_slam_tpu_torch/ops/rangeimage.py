@@ -47,6 +47,25 @@ def sorted_vertical_angles_rad(sensor: SensorConfig) -> np.ndarray:
     )
 
 
+def row_of_ring(sensor: SensorConfig) -> np.ndarray:
+    """(n_rings,) int32: the sorted row of each ring id (firing order)."""
+    return np.argsort(
+        np.argsort(np.asarray(sensor.vertical_angles_deg), kind="stable"),
+        kind="stable",
+    ).astype(np.int32)
+
+
+def blank_image(sensor: SensorConfig) -> tuple:
+    """(range_mm, azimuth_rad, selected) of a sweep with no firing: range 0,
+    each bin's centre azimuth, every cell selected."""
+    R, A = sensor.n_rings, sensor.n_azimuth
+    az_bin_centers = (np.arange(A, dtype=np.float32) + 0.5) * (
+        2.0 * np.pi / A
+    )
+    return (np.zeros((R, A), np.float32), np.tile(az_bin_centers, (R, 1)),
+            np.ones((R, A), bool))
+
+
 def build_range_image(
     sweep: LaserSweep,
     sensor: SensorConfig,
@@ -57,25 +76,14 @@ def build_range_image(
     `selected_indices` are indices into the sweep's firing order, the
     equivalent of the reference's hand-labeled select lists (reference:
     src/preprocess.cpp:58-67).  On bin collisions the later firing wins,
-    like the reference's map overwrite on equal keys.
+    like the reference's map overwrite on equal keys.  The engine bins with
+    `io.native_decoder.build_range_image`, the same image from C.
     """
-    R, A = sensor.n_rings, sensor.n_azimuth
-    vert_sorted = np.sort(np.asarray(sensor.vertical_angles_deg))
-    # ring id (firing order) -> sorted row
-    row_of_ring = np.argsort(
-        np.argsort(np.asarray(sensor.vertical_angles_deg), kind="stable"),
-        kind="stable",
-    ).astype(np.int32)
-
-    az_bin_centers = (np.arange(A, dtype=np.float32) + 0.5) * (
-        2.0 * np.pi / A
-    )
-    range_mm = np.zeros((R, A), np.float32)
-    azimuth_rad = np.tile(az_bin_centers, (R, 1))
-    selected = np.ones((R, A), bool)
+    A = sensor.n_azimuth
+    range_mm, azimuth_rad, selected = blank_image(sensor)
 
     if len(sweep):
-        rows = row_of_ring[sweep.ring]
+        rows = row_of_ring(sensor)[sweep.ring]
         cols = np.minimum(
             (sweep.azimuth_deg / 360.0 * A).astype(np.int64), A - 1
         ).astype(np.int32)
@@ -91,7 +99,7 @@ def build_range_image(
     return RangeImage(
         range_mm=range_mm,
         azimuth_rad=azimuth_rad.astype(np.float32),
-        vert_rad=np.deg2rad(vert_sorted).astype(np.float32),
+        vert_rad=sorted_vertical_angles_rad(sensor),
         selected=selected,
         timestamp_us=sweep.timestamp_us,
     )

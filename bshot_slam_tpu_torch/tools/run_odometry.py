@@ -13,12 +13,16 @@ r modulo the cards (or the CPU with `--cpu`); every rank reads the same
 input and rank 0 prints and writes the outputs.  Ranks that share a card
 need `--dist-backend gloo`.  On NCCL the sharded steps and `--ba`'s sharded
 solve replay CUDA graphs; on gloo they run eagerly.  `--sharded` takes
-neither `--udp`, `--live`, `--step` nor `--profile`.
+neither `--udp`, `--live`, `--step` nor `--profile`.  `--sensor hdl64e`
+runs `config.hdl64e_config()` (the KITTI odometry benchmark's HDL-64E S2)
+on `--synthetic` input only: its packets need the unit's calibration file,
+which the decoders do not read, so it refuses a PCAP or `--udp` (exit 2).
 
 Examples:
   python3 bshot_slam_tpu_torch/tools/run_odometry.py capture.pcap --skip 686 --out traj.txt
   python3 bshot_slam_tpu_torch/tools/run_odometry.py --synthetic 20 --out traj.txt --gold gold.txt
   python3 bshot_slam_tpu_torch/tools/run_odometry.py --synthetic 10 --sharded 2 --dist-backend gloo
+  python3 bshot_slam_tpu_torch/tools/run_odometry.py --sensor hdl64e --synthetic 129 --profile prof
   python3 -m bshot_slam_tpu_torch.tools.run_odometry --synthetic 2 --n-azimuth 128 --cpu
 """
 
@@ -63,7 +67,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("pcap", nargs="?", help="Velodyne PCAP capture")
     ap.add_argument("--synthetic", type=int, default=0, metavar="N",
                     help="run on N synthetic frames instead of a PCAP")
-    ap.add_argument("--sensor", choices=["hdl32e", "vlp16"], default="hdl32e")
+    ap.add_argument("--sensor", choices=["hdl32e", "vlp16", "hdl64e"], default="hdl32e",
+                    help="hdl64e: the KITTI odometry benchmark's HDL-64E S2 "
+                         "(`config.hdl64e_config`), synthetic input only")
     ap.add_argument("--skip", type=int, default=0,
                     help="skip initial sweeps (reference Start_Frame)")
     ap.add_argument("--frames", type=int, default=0, help="max frames (0 = all)")
@@ -178,7 +184,7 @@ def _run(args, ap, mesh=None) -> int:
     import numpy as np
     import torch
 
-    from bshot_slam_tpu_torch.config import VLP16_SENSOR, default_config
+    from bshot_slam_tpu_torch.config import VLP16_SENSOR, default_config, hdl64e_config
     from bshot_slam_tpu_torch.io import pcap as pcap_io
     from bshot_slam_tpu_torch.io import synthetic, velodyne
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
@@ -190,6 +196,12 @@ def _run(args, ap, mesh=None) -> int:
     cfg = default_config()
     if args.sensor == "vlp16":
         cfg = dataclasses.replace(cfg, sensor=VLP16_SENSOR)
+    elif args.sensor == "hdl64e":
+        if args.udp or (args.pcap and not args.synthetic):
+            print(f"--sensor hdl64e: {velodyne.HDL64E_REFUSAL}; use --synthetic N",
+                  file=sys.stderr)
+            return 2
+        cfg = hdl64e_config()
     if args.n_azimuth:
         cfg = dataclasses.replace(
             cfg, sensor=dataclasses.replace(cfg.sensor, n_azimuth=args.n_azimuth)
@@ -217,6 +229,7 @@ def _run(args, ap, mesh=None) -> int:
             args.synthetic, cfg.sensor, step_mm=400.0, noise_mm=args.noise,
             seed=0, yaw_rate_rad=args.yaw_rate, n_firings=cfg.sensor.n_azimuth,
             adversarial=args.adversarial,
+            sensor_height_mm=cfg.preprocess.sensor_height_mm,
         )
     else:
         if not args.pcap:
@@ -342,6 +355,9 @@ def _run(args, ap, mesh=None) -> int:
                   f"{ms(st['dispatch_ms'])} ms, syncs {st['syncs_per_frame']:.3f}, step "
                   f"on the device {ms(st['step_device_ms'])} ms, device gaps "
                   f"{ms(st['device_gap_pct'])} %")
+            print(f"clouds: padded {ms(st['padded_pct'])} % of the buckets' rows, "
+                  f"{st['truncated_frames']} frames truncated at max_points; "
+                  + ", ".join(f"{k} {v}" for k, v in sorted(st["cloud_counts"].items())))
     n = len(eng.records)
     print(f"{n} frames in {total:.1f}s ({n / total:.2f} fps incl. first-use builds)")
     if args.eval_corr and n > 1:

@@ -15,7 +15,8 @@ their parent and frame), counts, and device marks on the host's clock.  It
 is off unless a caller enables it, and then costs each call site one
 attribute check.  `frame_stats` reduces its records to per-frame numbers
 (fetch wait, dispatch, syncs, the step's device time and the device's
-gaps); `tools/run_odometry.py --profile` prints them.
+gaps, the clouds' padding and truncation); `tools/run_odometry.py
+--profile` prints them.
 
 Not ported, because the port has nothing for them to do:
 `scalarized` folds a jitted function's outputs into one scalar so that a
@@ -417,9 +418,11 @@ def frame_stats(records: dict, serials=None) -> dict | None:
     which `upload_device_ms` to its `step_start`: uploads and draws), the
     share of each engine's span of marks (its first `frame_start` to its
     last `replay_end`) that lies outside those intervals, %, and the
-    seconds of those gaps by the innermost span open when each began.
-    The device numbers are None without marks (the CPU); the whole is None
-    without frames."""
+    seconds of those gaps by the innermost span open when each began; from
+    the host ingest's `cloud.*` counts, the share of the buckets' rows that
+    is padding, % (None without counts), the frames cut at `max_points`
+    and each counter's sum.  The device numbers are None without marks
+    (the CPU); the whole is None without frames."""
     spans = records["spans"]
 
     def mine(frame) -> bool:
@@ -444,6 +447,13 @@ def frame_stats(records: dict, serials=None) -> dict | None:
             dispatch_ns -= d
     syncs = sum(c["n"] for c in records["counts"]
                 if c["name"].startswith("host_syncs") and mine(c["frame"]))
+    cloud = collections.Counter()
+    truncated = set()
+    for c in records["counts"]:
+        if c["name"].startswith("cloud.") and mine(c["frame"]):
+            cloud[c["name"]] += c["n"]
+            if c["name"] == "cloud.truncated_rows" and c["n"] > 0:
+                truncated.add(c["frame"])
     marks = collections.defaultdict(dict)  # frame -> mark name -> host ns
     for m in records["marks"]:
         if mine(m["frame"]):
@@ -474,6 +484,10 @@ def frame_stats(records: dict, serials=None) -> dict | None:
         "step_device_ms": busy_ns / steps * 1e-6 if steps else None,
         "upload_device_ms": upload_ns / uploads * 1e-6 if uploads else None,
         "device_gap_pct": (1.0 - busy_ns / extent_ns) * 100.0 if extent_ns > 0 else None,
+        "padded_pct": ((1.0 - cloud["cloud.rows"] / cloud["cloud.bucket_rows"]) * 100.0
+                       if cloud["cloud.bucket_rows"] else None),
+        "truncated_frames": len(truncated),
+        "cloud_counts": dict(cloud),
         "gaps": dict(gaps),
         "self_ms": {k: v / n * 1e-6 for k, v in self_ns.items()},
     }

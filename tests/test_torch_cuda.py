@@ -14,7 +14,9 @@ engine with the device preprocess equals the synchronous one through a
 bucket overflow; the evaluation ops (ISS through kernel A, repeatability,
 the voxel grid, `mutual_nn(use_matmul=True)`) agree with the CPU.  A and B
 over a TILE-aligned range of query rows equal the launch over every row,
-bit for bit.  The engine through its CUDA graphs (`odometry.graphs`:
+bit for bit; at `MAX_ROWS` rows (every query block listing all 1024 tiles,
+and a wide cloud) they agree with their plain versions at the start, the
+middle and the end of the cloud.  The engine through its CUDA graphs (`odometry.graphs`:
 synchronous and pipelined, host and device preprocess, through a window
 overflow, with the backend's pair verification) equals `graphs=False` bit
 for bit and counts the same kernel launches; through a window overflow the
@@ -57,7 +59,7 @@ from tests.torch_kernel_cases import (
     A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES,
     EVICT_CASES, F_CASES, G_CASES, accumulate_case, dedup_case, euclid_case,
     evict_case, hamming_case, icp_case, icp_trace, icp_traces_agree, iss_corners,
-    keyframe_pair, overflow_sequence, segratio_case, walk_case,
+    keyframe_pair, moment_features, overflow_sequence, segratio_case, walk_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -243,6 +245,58 @@ def test_neighborhood_query_range_on_card(dev, rows):
         got = K.segratio_accumulate(d[0], d[1], ctvec[q0:q1].contiguous(), 3000.0,
                                     normalized, rows=rows)
         assert torch.equal(got.view(torch.int32), whole[q0:q1].view(torch.int32))
+
+
+def _max_rows_cloud(kind: str):
+    """A cloud of `K.MAX_ROWS` rows: "ball", every point within half the
+    radius of the origin, so each query block lists all 1024 candidate
+    tiles; "spread", a wide cloud whose last rows are masked."""
+    n = K.MAX_ROWS
+    rng = np.random.default_rng(64)
+    if kind == "ball":
+        pts = rng.uniform(-860.0, 860.0, (n, 3)).astype(np.float32)
+        nv = n
+    else:
+        pts = rng.normal(0, 9000, (n, 3)).astype(np.float32)
+        nv = n - 1000
+        pts[nv:] = 0.0
+    return torch.tensor(pts), torch.arange(n) < nv
+
+
+MAX_ROWS_QUERIES = [(0, 1024), (65536, 66560), (130048, 131072)]
+
+
+@pytest.mark.parametrize("kind", ["ball", "spread"])
+def test_neighborhood_kernels_at_max_rows(dev, kind):
+    """A and B over `K.MAX_ROWS` rows (the HDL-64E preset's `max_points`,
+    A/B's limit of 1024 listed tiles), one launch each over every row,
+    against their plain versions on CPU copies over query blocks at the
+    start, the middle and the end: counts exact, sums within the case
+    tolerances above."""
+    pts, mask = _max_rows_cloud(kind)
+    feat = torch.tensor(moment_features(pts.numpy()))
+    d = [t.to(dev) for t in (pts, mask, feat)]
+    got = K.neighborhood_accumulate(d[0], d[1], d[2], 3000.0).cpu()
+    top = feat[mask].abs().max(dim=0).values
+    for rows in MAX_ROWS_QUERIES:
+        want = K.neighborhood_accumulate_plain(pts, mask, feat, 3000.0, rows=rows)
+        part = got[rows[0]:rows[1]]
+        torch.testing.assert_close(part[:, 0], want[:, 0], rtol=0, atol=0)
+        assert ((part - want).abs() <= 1e-5 * want[:, :1] * top[None, :]).all()
+    if kind == "ball":
+        assert (got[:, 0] == K.MAX_ROWS).all()
+    ctvec = (pts - got[:, 1:4] / got[:, :1].clamp(min=1.0)).contiguous()
+    for normalized in (False, True):
+        gb = K.segratio_accumulate(d[0], d[1], ctvec.to(dev), 3000.0, normalized).cpu()
+        for rows in MAX_ROWS_QUERIES:
+            q0, q1 = rows
+            want = K.segratio_accumulate_plain(pts, mask, ctvec[q0:q1].contiguous(),
+                                               3000.0, normalized, rows=rows)
+            torch.testing.assert_close(gb[q0:q1, :2], want[:, :2], rtol=0, atol=0)
+            cnt = got[q0:q1, 0]
+            tol = (1e-5 * cnt + 1e-3 if normalized else
+                   1e-5 * cnt * torch.linalg.norm(ctvec[q0:q1], dim=-1) * 3000.0 + 1e-2)
+            assert ((gb[q0:q1, 2] - want[:, 2]).abs() <= tol).all()
 
 
 @pytest.mark.parametrize("tail", [-1, 1500])

@@ -10,14 +10,18 @@
     the reference's python decoder and numpy preprocess, at the reference's
     tolerances (tests/test_native_decoder.py): decoded range images within
     1e-3 mm, azimuths within 1e-5 rad, classes cell-exact, kept counts
-    equal, points within 0.05 mm; packet pathologies are skipped as the
-    python decoder skips them.
+    equal, points within 0.05 mm, at any gradient threshold; packet
+    pathologies are skipped as the python decoder skips them.  The
+    library's range-image binning is `ops.rangeimage`'s bit for bit (16,
+    32 and 64 rings, select lists, shared bins), and hands what it does not
+    take to it.
 (c) Garbage returns None or raises as the reference's does; a source that
     does not compile raises with the compiler's output.
-(d) The engine's `process_range_image` takes the native path, and its
-    records equal those of the engine fed the native clouds directly.
+(d) The engine's `process_sweep` bins and classifies in the library, and
+    its records equal those of the engine fed the native clouds directly.
 """
 
+import dataclasses
 import pathlib
 import socket
 import struct
@@ -38,6 +42,8 @@ from bshot_slam_tpu.utils import trajectory as jtraj
 from bshot_slam_tpu_torch.io import native_decoder as nd
 from bshot_slam_tpu_torch.io import pcap, synthetic, velodyne
 from bshot_slam_tpu_torch.odometry import engine as tengine
+from bshot_slam_tpu_torch.ops import preprocess_host as ph
+from bshot_slam_tpu_torch.ops import rangeimage
 from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
 from bshot_slam_tpu_torch.utils import trajectory
 
@@ -221,6 +227,116 @@ def test_native_preprocess_matches_reference_numpy(preprocess_cases, case):
     np.testing.assert_allclose(pts_n, pts_h, rtol=0, atol=0.05)
 
 
+def _bin_case(name):
+    """(sweep, sensor, selected indices) of a range-image binning case."""
+    sensor = {"vlp16": tc.VLP16_SENSOR, "hdl64e": tc.HDL64E_SENSOR}.get(
+        name.split("_")[0], tc.SensorConfig())
+    n_firings = {"hdl64e": 2083, "vlp16": 1800}.get(name.split("_")[0], 2176)
+    if name.endswith("collisions"):
+        sensor, n_firings = dataclasses.replace(sensor, n_azimuth=256), 700
+    sw = synthetic.render_sweep(synthetic.default_scene(0), sensor,
+                                synthetic.straight_trajectory(2, 400.0)[1], noise_mm=10.0,
+                                seed=2, n_firings=n_firings)
+    sel = None
+    if name.endswith("selected"):
+        sel = np.random.default_rng(5).choice(len(sw), len(sw) // 3, replace=False)
+    if name.endswith("float32"):
+        sw.azimuth_deg = sw.azimuth_deg.astype(np.float32)
+    if name.endswith("negative"):
+        sw.azimuth_deg = sw.azimuth_deg - 1.0
+    if name.endswith("nan"):
+        sw.azimuth_deg = sw.azimuth_deg.copy()
+        sw.azimuth_deg[len(sw) // 2] = np.nan
+    if name.endswith("empty"):
+        sw = velodyne.LaserSweep(sw.azimuth_deg[:0], sw.ring[:0], sw.distance[:0],
+                                 sw.intensity[:0], timestamp_us=7)
+    return sw, sensor, sel
+
+
+@pytest.mark.parametrize("name", ["hdl32e", "vlp16", "hdl64e", "hdl32e_selected",
+                                  "hdl64e_selected", "hdl32e_collisions", "hdl32e_float32",
+                                  "hdl32e_empty"])
+def test_native_range_image_is_the_numpy_one(name):
+    """The engine's binning in the library gives `ops.rangeimage`'s image
+    bit for bit: 16, 32 and 64 rings, select lists, firings sharing a bin,
+    a sweep with no firing.  Arrays in other dtypes are binned in the
+    decoders' dtypes (float32 azimuths as their float64 values)."""
+    sw, sensor, sel = _bin_case(name)
+    got = nd.build_range_image(sw, sensor, sel)
+    sw.azimuth_deg = sw.azimuth_deg.astype(np.float64)
+    want = build_range_image(sw, sensor, sel)
+    for field in ("range_mm", "azimuth_rad", "vert_rad", "selected"):
+        a, b = getattr(got, field), getattr(want, field)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), field
+    assert got.timestamp_us == want.timestamp_us
+
+
+def test_native_range_image_refuses_a_ring_outside_the_sensor():
+    sw, sensor, _ = _bin_case("hdl32e")
+    sw.ring = sw.ring.copy()
+    sw.ring[5] = sensor.n_rings
+    with pytest.raises(IndexError):
+        build_range_image(sw, sensor)
+    with pytest.raises(IndexError):
+        nd.build_range_image(sw, sensor)
+
+
+@pytest.mark.parametrize("name", ["hdl32e_negative", "hdl32e_nan"])
+def test_native_range_image_refuses_an_azimuth_outside_the_turn(name):
+    """An azimuth below 0 (which numpy's indexing would wrap into the last
+    columns) or not a number is refused, with no image."""
+    sw, sensor, _ = _bin_case(name)
+    with pytest.raises(ValueError, match="azimuth"):
+        nd.build_range_image(sw, sensor)
+
+
+@pytest.mark.parametrize("grad_th", [10.0, 30.0, 45.0, 60.0, 70.0, -30.0, -79.0])
+def test_native_classify_at_any_gradient_threshold(preprocess_cases, grad_th):
+    """The library settles the gradient test from s = sin(gradient) away
+    from the threshold and runs asin only near it: classes cell-exact with
+    the plain version's, which runs asin everywhere.  (From 75 degrees up
+    the two part on 2 cells of the 64-ring sweep whether or not the band is
+    used: asinf times 57.29578f against numpy's degrees(arcsin).)"""
+    sensor = tc.HDL64E_SENSOR
+    sw = synthetic.render_sweep(synthetic.adversarial_scene(2), sensor,
+                                synthetic.straight_trajectory(2, 400.0,
+                                                              sensor_height_mm=1730.0)[1],
+                                noise_mm=20.0, seed=3, n_firings=2083, self_car=True)
+    ri = build_range_image(sw, sensor)
+    cases = [(ri.range_mm, ri.azimuth_rad, ri.vert_rad, None)] + preprocess_cases[3:]
+    pcfg = dataclasses.replace(tc.hdl64e_config().preprocess, grad_th_deg=grad_th)
+    for r_mm, a_rad, v_rad, selected in cases:
+        cls_h, xyz_h, valid_h = ph.preprocess_host(r_mm, a_rad, v_rad, pcfg)
+        pts_h, nv_h = ph.extract_cloud_host(cls_h, xyz_h, valid_h, selected,
+                                            pcfg.max_points)
+        pts_n, nv_n, cls_n = nd.preprocess_extract_native(r_mm, a_rad, v_rad, pcfg,
+                                                          selected, pcfg.max_points)
+        np.testing.assert_array_equal(cls_n, cls_h)
+        assert nv_n == nv_h > 0
+        np.testing.assert_allclose(pts_n, pts_h, rtol=0, atol=0.05)
+
+
+@pytest.mark.parametrize("cap", [1, 1000, 8000])
+def test_native_extract_cut_at_a_cap_is_the_head_of_the_whole(cap):
+    """The library walks the image row by row but emits the kept points
+    azimuth-major: a cloud cut at `cap` is the first `cap` points of the
+    uncut one, bit for bit, and the classes do not depend on the cap."""
+    sensor = tc.HDL64E_SENSOR
+    sw = synthetic.render_sweep(synthetic.default_scene(1), sensor,
+                                synthetic.straight_trajectory(2, 400.0,
+                                                              sensor_height_mm=1730.0)[1],
+                                noise_mm=20.0, seed=5, n_firings=2083)
+    ri = build_range_image(sw, sensor)
+    pcfg = tc.hdl64e_config().preprocess
+    args = (ri.range_mm, ri.azimuth_rad, ri.vert_rad, pcfg, ri.selected)
+    pts, nv, cls = nd.preprocess_extract_native(*args, pcfg.max_points)
+    pts_c, nv_c, cls_c = nd.preprocess_extract_native(*args, cap)
+    assert nv > 8000 and nv_c == cap
+    assert pts_c.tobytes() == pts[:cap].tobytes()
+    np.testing.assert_array_equal(cls_c, cls)
+
+
 def test_packet_pathologies_skipped_as_reference(tmp_path):
     """Wrong sensor type, a corrupt block marker, an impossible azimuth and a
     truncated record: the native decoder keeps what the reference's python
@@ -302,10 +418,9 @@ def test_engine_takes_the_native_path(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("the engine ran the numpy plain version")
 
-    from bshot_slam_tpu_torch.ops import preprocess_host as ph
-
     monkeypatch.setattr(nd, "preprocess_extract_native", counting)
     monkeypatch.setattr(ph, "preprocess_host", refuse)
+    monkeypatch.setattr(rangeimage, "build_range_image", refuse)
     eng = tengine.SlamEngine(cfg, seed=0, device="cpu", tile=cfg.runtime.point_tile)
     for sw in sweeps:
         eng.process_sweep(sw)

@@ -7,8 +7,9 @@ the shared no-op and allocate nothing; on, the records are the same bit
 for bit, every frame has its root, ingest and dispatch spans and is
 finalized once under a drain, children nest in their parents, self time is
 the duration less the children's, one fetch wait is counted per
-`fetch_every` frames, and there are no device marks (`frame_stats` then
-gives no device numbers).  `frame_stats` reads known values from
+`fetch_every` frames, the host ingest counts each frame's cloud once (kept
+points, bucket, none truncated), and there are no device marks
+(`frame_stats` then gives no device numbers).  `frame_stats` reads known values from
 hand-built records.  Under an active `torch.profiler` each span is
 also a `record_function` range.  On the card (marker `cuda`): marks are read
 without a synchronise of their own, from a pool of events sized to the
@@ -25,7 +26,7 @@ import torch
 
 from bshot_slam_tpu_torch import tiny_config
 from bshot_slam_tpu_torch.io import synthetic
-from bshot_slam_tpu_torch.odometry.engine import SlamEngine
+from bshot_slam_tpu_torch.odometry.engine import SlamEngine, pick_bucket
 from bshot_slam_tpu_torch.utils import profiling
 from bshot_slam_tpu_torch.utils.profiling import RECORDER
 
@@ -170,13 +171,41 @@ def test_one_fetch_wait_per_fetch_every_frames(drives):
     (_, _), (eng, rec) = drives
     syncs = collections.Counter()
     for c in rec["counts"]:
-        syncs[c["name"]] += c["n"]
+        if c["name"].startswith("host_syncs."):
+            syncs[c["name"]] += c["n"]
     assert syncs["host_syncs.fetch"] == 3 * LAP // FETCH_EVERY
     # the only other wait: the cursor read of the first frame's map check
     assert set(syncs) == {"host_syncs.fetch", "host_syncs.cursor"}
     assert syncs["host_syncs.cursor"] == 1
     waits = [s for s in rec["spans"] if s["name"] == "slam.fetch_wait"]
     assert len(waits) == syncs["host_syncs.fetch"]
+
+
+def test_host_ingest_counts_each_frames_cloud_once(drives):
+    """`cloud.rows`, `cloud.bucket_rows` and `cloud.truncated_rows` once a
+    frame, under its id: the kept points, the bucket the step runs at (the
+    smallest holding them) and none cut below the cap."""
+    (_, _), (eng, rec) = drives
+    frames = _frames_of(rec)
+    by = collections.defaultdict(dict)
+    for c in rec["counts"]:
+        if c["name"].startswith("cloud."):
+            assert c["name"] not in by[c["frame"]]
+            by[c["frame"]][c["name"]] = c["n"]
+    assert sorted(by) == frames
+    cfg = tiny_config()
+    for f in frames:
+        n = by[f]
+        assert n["cloud.bucket_rows"] == pick_bucket(n["cloud.rows"], cfg)
+        assert 0 < n["cloud.rows"] < cfg.preprocess.max_points
+        assert n["cloud.truncated_rows"] == 0
+    stats = profiling.frame_stats(rec, {eng.serial})
+    rows = sum(by[f]["cloud.rows"] for f in frames)
+    buckets = sum(by[f]["cloud.bucket_rows"] for f in frames)
+    assert stats["padded_pct"] == pytest.approx(100.0 * (1 - rows / buckets))
+    assert stats["truncated_frames"] == 0
+    assert stats["cloud_counts"] == {"cloud.rows": rows, "cloud.bucket_rows": buckets,
+                                     "cloud.truncated_rows": 0}
 
 
 def test_no_device_marks_on_the_cpu_and_device_stats_read_nothing(drives):
