@@ -73,6 +73,35 @@
 //     box along some axis is skipped.  The test keeps a margin of 64 ulps of
 //     the largest |q|^2 + |p|^2, far above the rounding error of the
 //     expanded d2, so a skipped pair could never have passed the radius test.
+//
+// Kernel H, `shot_neighbors`, replaces no TPU kernel: it is the neighbour
+// selection of bshot_slam_tpu/ops/shot.py:gather_neighbors, which the
+// reference leaves to XLA (a (K, N) distance matrix and lax.top_k) and the
+// plain version to a stable sort of that matrix.  Per keypoint it returns
+// the rows the stable descending sort of score = ok ? -d2 : -inf takes
+// first: the ok rows (valid, 0 < d2 <= r2, the keypoint valid) by ascending
+// (d2, row), then the other rows by ascending row, m in all.  The work is
+// one radius test per (keypoint, row) pair the tile skips leave and m rows
+// out: bound by the reads of the packed cloud from L2, since each
+// candidate is tested against one keypoint only and shared memory has
+// nothing to serve twice.
+//   1. shot_pack_kernel: pack_cloud_kernel's packing without features.
+//   2. shot_select_kernel, one block of 256 threads a keypoint.  It lists
+//      the tiles within reach of the keypoint (its box is the point), then
+//      walks them with kSelUnroll 16-byte loads in flight a thread.  Pass 1
+//      counts the ok rows (c), histograms their d2 in 4096 bins linear in d2
+//      (monotone, so the bins order the keys as the keys do) and appends
+//      their keys (d2 bits, row) to shared memory while they fit (2048).
+//      If c <= 2048 every key is there.  Otherwise the bin of the m-th key
+//      is found; a second walk collects the keys up to that bin, and where
+//      they would still overflow (over 1,000 rows at one distance: repeated
+//      points), walks refine the cut by 12-bit digits of the key first.
+//      The collected keys are sorted in shared memory (bitonic, padded to a
+//      power of two) and the first min(c, m) rows written.  The rest of the
+//      row comes from an ordered count of the rows that are not ok, from
+//      row 0, in chunks of 256, until m are written.  Integer atomics only
+//      (shared-memory counts and appends, whose order the sort removes), so
+//      the output is the same bits on every run.
 #include "common.cuh"
 
 namespace {
@@ -160,14 +189,17 @@ __device__ __forceinline__ void load_box(const float* boxes, int tile, float* bo
 // The tiles within reach of the block's query box, in ascending order (one
 // tile per thread, a ballot compacts the kept ones).  Split blockIdx.y of
 // gridDim.y takes every gridDim.y-th of them: they go to `list`, their number
-// is returned.  Every thread of the block must call it.
+// is returned.  Every thread of the block (THREADS of them) must call it;
+// `wcount` holds THREADS / 32 ints.
+template <int THREADS = kThreads>
 __device__ __forceinline__ int list_kept_tiles(const float* boxes, const float* qbox,
                                                int ntiles, float r2, uint16_t* list,
                                                int* wcount) {
+  constexpr int kW = THREADS / 32;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int split = blockIdx.y, nsplit = gridDim.y;
   int total = 0;
-  for (int g0 = 0; g0 < ntiles; g0 += kThreads) {
+  for (int g0 = 0; g0 < ntiles; g0 += THREADS) {
     const int tile = g0 + tid;
     bool keep = false;
     if (tile < ntiles) {
@@ -179,7 +211,7 @@ __device__ __forceinline__ int list_kept_tiles(const float* boxes, const float* 
     if (lane == 0) wcount[warp] = __popc(b);
     __syncthreads();
     int pos = total + __popc(b & ((1u << lane) - 1u));
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < kW; ++w) {
       if (w < warp) pos += wcount[w];
       total += wcount[w];
     }
@@ -189,15 +221,18 @@ __device__ __forceinline__ int list_kept_tiles(const float* boxes, const float* 
   return total > split ? (total - split + nsplit - 1) / nsplit : 0;
 }
 
-// Pre-pass of A and B: pack tile blockIdx.x (see the header note).  `cand`
-// holds gridDim.x * kTile rows, `featp` as many rows of nfp floats (B has no
-// features: nfp = 0 and the pointers are null), `boxes` 8 floats per tile:
-// lo[3], hi[3], max |p|^2, 0.
-__global__ void __launch_bounds__(kThreads)
-pack_cloud_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
-                  const float* __restrict__ feat, float4* __restrict__ cand,
-                  float* __restrict__ featp, float* __restrict__ boxes, int n,
-                  int nf, int nfp) {
+// Pre-pass of A, B and H: pack tile blockIdx.x (see the header note).
+// `cand` holds gridDim.x * kTile rows, `featp` as many rows of nfp floats (B
+// and H have no features: nfp = 0 and the pointers are null), `boxes` 8
+// floats per tile: lo[3], hi[3], max |p|^2, 0.  Every thread of the block
+// (kThreads of them) must call it.
+__device__ __forceinline__ void pack_tile(const float* __restrict__ pts,
+                                          const uint8_t* __restrict__ mask,
+                                          const float* __restrict__ feat,
+                                          float4* __restrict__ cand,
+                                          float* __restrict__ featp,
+                                          float* __restrict__ boxes, int n, int nf,
+                                          int nfp) {
   __shared__ float red[7 * kWarps], box[7];
   const int t0 = blockIdx.x * kTile;
   const int j = t0 + threadIdx.x;
@@ -215,6 +250,21 @@ pack_cloud_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mas
   block_box(ok, x, y, z, pp, red, box);
   if (threadIdx.x < 8)
     boxes[blockIdx.x * 8 + threadIdx.x] = threadIdx.x < 7 ? box[threadIdx.x] : 0.0f;
+}
+
+__global__ void __launch_bounds__(kThreads)
+pack_cloud_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
+                  const float* __restrict__ feat, float4* __restrict__ cand,
+                  float* __restrict__ featp, float* __restrict__ boxes, int n,
+                  int nf, int nfp) {
+  pack_tile(pts, mask, feat, cand, featp, boxes, n, nf, nfp);
+}
+
+// H's pre-pass: the same packing without features, under a name of its own.
+__global__ void __launch_bounds__(kThreads)
+shot_pack_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
+                 float4* __restrict__ cand, float* __restrict__ boxes, int n) {
+  pack_tile(pts, mask, nullptr, cand, nullptr, boxes, n, 0, 0);
 }
 
 // ---- Kernel A -------------------------------------------------------------
@@ -420,6 +470,225 @@ segratio_kernel(const float4* __restrict__ cand, const float* __restrict__ boxes
   if (tid == 0) counters[qb] = 0;  // ready for the next call on this stream
 }
 
+// ---- Kernel H --------------------------------------------------------------
+
+constexpr int kSelThreads = 256;  // H's block: one keypoint
+constexpr int kSelWarps = kSelThreads / 32;
+constexpr int kSelBins = 4096;    // the histogram's bins (12-bit digits)
+constexpr int kSelCap = 2048;     // keys a block collects and sorts
+constexpr int kIdxBits = 17;      // a row index: n <= 131072
+constexpr int kSelUnroll = 4;     // candidate loads a thread keeps in flight
+
+// pack_key with the row in kIdxBits bits: the same order, 48 bits in all
+// (d2 > 0 has a clear sign bit), so the refinement below takes 4 digits.
+__device__ __forceinline__ unsigned long long select_key(float d2, int j) {
+  return (static_cast<unsigned long long>(__float_as_uint(d2)) << kIdxBits) |
+         static_cast<unsigned int>(j);
+}
+
+// (exclusive prefix of v over the block's threads in thread order, total).
+// Every thread must call it; `wsum` holds kSelWarps ints.
+__device__ __forceinline__ int2 block_scan(int v, int* wsum) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int incl = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += u;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kSelWarps; ++w) {
+    if (w < warp) before += wsum[w];
+    total += wsum[w];
+  }
+  __syncthreads();  // wsum is free again
+  return make_int2(before + incl - v, total);
+}
+
+// The bin b of `hist` that holds the need-th key (need >= 1, at most the
+// histogram's total) and the keys in the bins below it: (b, below).
+__device__ __forceinline__ int2 find_bin(const unsigned* hist, int need, int* wsum,
+                                         int2* found) {
+  constexpr int kPer = kSelBins / kSelThreads;
+  const int b0 = threadIdx.x * kPer;
+  int mine = 0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) mine += hist[b0 + i];
+  const int2 sc = block_scan(mine, wsum);
+  if (sc.x < need && need <= sc.x + mine) {  // exactly one thread
+    int below = sc.x, b = b0;
+    while (below + (int)hist[b] < need) below += hist[b++];
+    *found = make_int2(b, below);
+  }
+  __syncthreads();
+  const int2 r = *found;
+  __syncthreads();
+  return r;
+}
+
+// H: keypoint blockIdx.x's neighbour rows, out[k][0..m) (m <= n).  First its
+// in-radius rows ("ok": valid, 0 < d2 <= r2, the keypoint valid) by
+// ascending (d2, row), at most m of them; then the rows that are not ok by
+// ascending row until m are written.  What torch.sort(score, descending,
+// stable)[:, :m] of the plain version gives (see the header note).
+__global__ void __launch_bounds__(kSelThreads)
+shot_select_kernel(const float* __restrict__ kps, const uint8_t* __restrict__ kmask,
+                   const float4* __restrict__ cand, const float* __restrict__ boxes,
+                   long long* __restrict__ out, int n, int ntiles, int m, float r2,
+                   float scale) {
+  __shared__ unsigned hist[kSelBins];
+  __shared__ unsigned long long keys[kSelCap];
+  __shared__ uint16_t list[kMaxTiles];
+  __shared__ int wsum[kSelWarps];
+  __shared__ int nkeys;
+  __shared__ int2 found;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int k = blockIdx.x;
+  long long* row = out + (size_t)k * m;
+  const bool live = kmask[k] != 0;
+  const float qx = kps[3 * k], qy = kps[3 * k + 1], qz = kps[3 * k + 2];
+  const float qq = norm2(qx, qy, qz);
+  // d2 of candidate row j, as the plain version rounds it; +inf for a
+  // masked (inert) row, so the test below fails for it.
+  auto d2_of = [&](const float4 p) {
+    return pair_d2(qq, p.w, dot3(qx, qy, qz, p.x, p.y, p.z));
+  };
+  auto is_ok = [&](float d2) { return d2 > 0.0f && d2 <= r2; };
+  // The histogram's bin of an ok d2: monotone in d2 (a product rounded to
+  // nearest by a positive scale, truncated, clamped), so the bins order the
+  // keys as the keys order themselves.
+  auto lin_bin = [&](float d2) {
+    const float f = __fmul_rn(d2, scale);
+    return f >= (float)(kSelBins - 1) ? kSelBins - 1 : __float2int_rz(f);
+  };
+
+  int c = 0, nsel = 0;  // block-uniform: ok rows, rows written in sorted order
+  if (live) {
+    const float qbox[8] = {qx, qy, qz, qx, qy, qz, qq, 0.0f};
+    const int mine = list_kept_tiles<kSelThreads>(boxes, qbox, ntiles, r2, list, wsum);
+    // Every ok row of the kept tiles passes `visit` (row, d2, key) once, in
+    // no set order: a thread takes row tid % 128 of every second tile and
+    // keeps kSelUnroll loads in flight.
+    auto scan = [&](auto visit) {
+      const int half = tid / kTile, r = tid % kTile;
+      for (int t0 = half; t0 < mine; t0 += 2 * kSelUnroll) {
+        float4 p[kSelUnroll];
+        int j[kSelUnroll];
+#pragma unroll
+        for (int u = 0; u < kSelUnroll; ++u) {
+          const int t = t0 + 2 * u;
+          j[u] = t < mine ? (int)list[t] * kTile + r : -1;
+          p[u] = j[u] >= 0 ? __ldg(cand + j[u]) : make_float4(0.0f, 0.0f, 0.0f, INFINITY);
+        }
+#pragma unroll
+        for (int u = 0; u < kSelUnroll; ++u) {
+          const float d2 = d2_of(p[u]);
+          visit(is_ok(d2), j[u], d2);
+        }
+      }
+    };
+    // Append `key` where `take`: one shared atomic a warp.  The slots past
+    // kSelCap are counted and not stored.
+    auto append = [&](bool take, unsigned long long key) {
+      const unsigned b = __ballot_sync(0xffffffffu, take);
+      int base = 0;
+      if (lane == 0 && b) base = atomicAdd(&nkeys, __popc(b));
+      base = __shfl_sync(0xffffffffu, base, 0);
+      const int slot = base + __popc(b & ((1u << lane) - 1u));
+      if (take && slot < kSelCap) keys[slot] = key;
+    };
+
+    // Pass 1: collect the ok keys while they fit, count them all, and
+    // histogram their d2.
+    for (int i = tid; i < kSelBins; i += kSelThreads) hist[i] = 0;
+    if (tid == 0) nkeys = 0;
+    __syncthreads();
+    scan([&](bool ok, int j, float d2) {
+      if (ok) atomicAdd(&hist[lin_bin(d2)], 1u);
+      append(ok, ok ? select_key(d2, j) : 0ull);
+    });
+    __syncthreads();
+    c = nkeys;
+    int nkept = c;  // keys to sort
+    if (c > kSelCap) {
+      // Select: the bin b of the m-th key; while the keys up to it overflow
+      // the buffer, refine within b by 12-bit digits of the key (d2 bits,
+      // then the row) from the top: the keys below the cut are `less`, the
+      // cut's digit prefix is `prefix` above bit `shift`.
+      const int2 bb = find_bin(hist, m, wsum, &found);
+      const int b = bb.x;
+      int less = bb.y, cnt = hist[b], shift = 12 * 4;
+      unsigned long long prefix = 0;
+      while (less + cnt > kSelCap && shift > 0) {
+        __syncthreads();  // everyone has read hist
+        for (int i = tid; i < kSelBins; i += kSelThreads) hist[i] = 0;
+        __syncthreads();
+        shift -= 12;
+        scan([&](bool ok, int j, float d2) {
+          if (!ok || lin_bin(d2) != b) return;
+          const unsigned long long key = select_key(d2, j);
+          if ((key >> (shift + 12)) == prefix)
+            atomicAdd(&hist[(unsigned)(key >> shift) & (kSelBins - 1)], 1u);
+        });
+        __syncthreads();
+        const int2 vv = find_bin(hist, m - less, wsum, &found);
+        less += vv.y;
+        cnt = hist[vv.x];
+        prefix = (prefix << 12) | (unsigned long long)vv.x;
+      }
+      // Collect every key up to the cut: less + cnt <= kSelCap of them.
+      if (tid == 0) nkeys = 0;
+      __syncthreads();
+      scan([&](bool ok, int j, float d2) {
+        const unsigned long long key = select_key(d2, j);
+        int lb = ok ? lin_bin(d2) : kSelBins;
+        append(ok && (lb < b || (lb == b && (key >> shift) <= prefix)), key);
+      });
+      __syncthreads();
+      nkept = nkeys;
+    }
+    // Bitonic sort of the nkept keys, padded to a power of two.
+    int np = 1;
+    while (np < nkept) np <<= 1;
+    for (int i = nkept + tid; i < np; i += kSelThreads) keys[i] = ~0ull;
+    __syncthreads();
+    for (int size = 2; size <= np; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int i = tid; i < np; i += kSelThreads) {
+          const int o = i ^ stride;
+          if (o > i) {
+            const unsigned long long a = keys[i], e = keys[o];
+            if ((a > e) == ((i & size) == 0)) {
+              keys[i] = e;
+              keys[o] = a;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    nsel = min(c, m);
+    for (int i = tid; i < nsel; i += kSelThreads)
+      row[i] = (long long)(keys[i] & ((1ull << kIdxBits) - 1ull));
+  }
+
+  // The rest: rows that are not ok, by ascending row, from row 0 until m
+  // rows are written (an ordered count over chunks of kSelThreads rows).
+  const int need = m - nsel;
+  for (int j0 = 0, got = 0; got < need && j0 < n; j0 += kSelThreads) {
+    const int j = j0 + tid;
+    bool take = false;
+    if (j < n) take = !live || !is_ok(d2_of(__ldg(cand + j)));
+    const int2 sc = block_scan(take ? 1 : 0, wsum);
+    if (take && got + sc.x < need) row[nsel + got + sc.x] = j;
+    got += sc.y;
+  }
+}
+
 // The query rows [q0, q1) of A and B: q0 a multiple of 128, q1 one or n, so
 // each query block is the block of the launch over every row and its sums
 // come out bit for bit the same; every row stays a candidate.  out holds
@@ -492,6 +761,27 @@ int bshot_segratio_accumulate(const float* pts, const uint8_t* mask,
   else
     segratio_kernel<false><<<grid, kThreads, 0, st>>>(
         cand4, boxes, ctvec, r2row, part4, counters, out, q0, q1, ntiles, r2);
+  return (int)cudaGetLastError();
+}
+
+// H: the wrapper allocates out (k rows of m int64, m <= n) and the scratch
+// for ntiles = ceil(n / 128) tiles: cand ntiles * 128 float4, boxes ntiles *
+// 8 floats.  Two launches: the pre-pass packs the cloud, then one block a
+// keypoint.
+int bshot_shot_neighbors(const float* kps, const uint8_t* kmask, const float* pts,
+                         const uint8_t* mask, long long* out, float* cand,
+                         float* boxes, int k, int n, int m, float r2, void* stream) {
+  if (k <= 0 || m <= 0) return 0;
+  const int ntiles = (n + kTile - 1) / kTile;
+  if (n <= 0 || m > n || m > kSelCap / 2 || ntiles > kMaxTiles || !(r2 >= 0.0f))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  float4* cand4 = reinterpret_cast<float4*>(cand);
+  shot_pack_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, cand4, boxes, n);
+  // r2 > 0: the bins span (0, r2]; r2 = 0: no row is ok and no bin is used.
+  const float scale = r2 > 0.0f ? (float)kSelBins / r2 : 0.0f;
+  shot_select_kernel<<<k, kSelThreads, 0, st>>>(kps, kmask, cand4, boxes, out, n,
+                                                 ntiles, m, r2, scale);
   return (int)cudaGetLastError();
 }
 

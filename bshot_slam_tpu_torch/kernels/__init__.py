@@ -36,6 +36,13 @@ def pair_d2(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
                        - 2.0 * cross, min=0.0)
 
 
+def top_k(score: torch.Tensor, k: int):
+    """Exact top-k over the last axis, ties to the lowest index (as
+    `lax.top_k`; `torch.topk` breaks ties otherwise)."""
+    vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (plain path); raises on a
     mix of devices or on a device that is neither CPU nor CUDA."""

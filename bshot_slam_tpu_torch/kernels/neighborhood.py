@@ -1,4 +1,4 @@
-"""Radius-neighbourhood accumulation: CUDA kernels A and B, plain versions.
+"""Radius neighbourhoods: CUDA kernels A, B and H, plain versions.
 
 A, `neighborhood_accumulate`, replaces the Pallas kernel
 bshot_slam_tpu/kernels/neighborhood.py:neighborhood_accumulate:
@@ -43,6 +43,15 @@ rows bit for bit.
 Counts are exact between the two: the kernel reproduces the rounding of
 `kernels.pair_d2` step for step (see csrc/common.cuh).  Float sums differ
 by summation order only.
+
+H, `shot_neighbors`, is SHOT's neighbour selection
+(bshot_slam_tpu/ops/shot.py:gather_neighbors; no Pallas kernel): per
+keypoint the `max_neighbors` nearest rows within the radius, as the stable
+sort of the plain version orders them.  Its rows are the plain version's
+bit for bit (the same d2 rounding; integers out).  Two launches, the
+cloud's packing and one block a keypoint (csrc/neighborhood.cu says how a
+block selects); the scratch (`_select_scratch`: ~2.1 MB at 131072 rows)
+is kept per device, stream and shape.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ import math
 import torch
 
 from bshot_slam_tpu_torch.kernels import (
-    _build, fma_dot3, on_cpu, ptr, require, scratch, stream_arg,
+    _build, fma_dot3, on_cpu, pair_d2, ptr, require, scratch, stream_arg, top_k,
 )
 
 MAX_FEAT = 16  # feature columns the CUDA kernel accumulates in registers
@@ -72,6 +81,8 @@ PLAIN_ROWS = 1024
 # f32 instructions per pair (csrc/neighborhood.cu says how they are counted)
 RADIUS_TEST_F32 = 8
 SEGRATIO_IN_RADIUS_F32 = 10
+# Most neighbours kernel H returns a keypoint (half the keys a block sorts).
+SHOT_MAX_NEIGHBORS = 1024
 
 
 def query_rows(n: int, rows) -> tuple[int, int]:
@@ -306,3 +317,68 @@ def _segratio_scratch(dev, stream: int, n: int):
         return bufs, tuple(ptr(b) for b in bufs)
 
     return nsplit, scratch(dev, stream, ("segratio", n), make)[1]
+
+
+def shot_neighbors_plain(keypoints, kp_mask, points, mask, radius: float,
+                         max_neighbors: int):
+    """Plain PyTorch version of kernel H: a stable sort of every keypoint's
+    scores over the cloud."""
+    d2 = pair_d2(keypoints, points)  # (K, N)
+    r2 = radius * radius
+    ok = mask[None, :] & (d2 <= r2) & (d2 > 0) & kp_mask[:, None]
+    score = torch.where(ok, -d2, float("-inf"))
+    _, idx = top_k(score, max_neighbors)
+    return idx
+
+
+def shot_neighbors(keypoints: torch.Tensor, kp_mask: torch.Tensor,
+                   points: torch.Tensor, mask: torch.Tensor, radius: float,
+                   max_neighbors: int) -> torch.Tensor:
+    """(K, min(max_neighbors, N)) int64 rows of the cloud per keypoint: its
+    rows within the radius (valid, 0 < d2 <= radius^2, the keypoint valid)
+    by ascending (d2, row), then the others by ascending row.  A keypoint
+    whose `kp_mask` is False gets rows 0, 1, 2, ..."""
+    if on_cpu(keypoints, kp_mask, points, mask):
+        return shot_neighbors_plain(keypoints, kp_mask, points, mask, radius,
+                                    max_neighbors)
+    k, n = keypoints.shape[0], points.shape[0]
+    if n > MAX_ROWS:
+        raise ValueError(f"kernel H takes at most {MAX_ROWS} rows")
+    if not 0 <= max_neighbors <= SHOT_MAX_NEIGHBORS:
+        raise ValueError(f"kernel H takes 0 to {SHOT_MAX_NEIGHBORS} neighbours")
+    if not math.isfinite(radius):
+        raise ValueError("kernel H needs a finite radius")
+    require(keypoints, "keypoints", torch.float32, (k, 3))
+    require(kp_mask, "kp_mask", torch.bool, (k,))
+    require(points, "points", torch.float32, (n, 3))
+    require(mask, "mask", torch.bool, (n,))
+    dev = points.device
+    m = min(max_neighbors, n)
+    out = torch.empty((k, m), dtype=torch.int64, device=dev)
+    if k == 0 or m == 0:  # nothing to select: nothing to launch
+        return out
+    stream = stream_arg(dev)
+    bufs = _select_scratch(dev, stream, n)
+    P, I = _build.P, _build.I
+    fn = _build.bind("neighborhood", "bshot_shot_neighbors",
+                     [P] * 7 + [I, I, I, _build.F, P])
+    _build.check(fn(ptr(keypoints), ptr(kp_mask), ptr(points), ptr(mask), ptr(out),
+                    *bufs, k, n, m, radius * radius, stream),
+                 "shot_neighbors")
+    shot_neighbors.launches += 1
+    return out
+
+
+shot_neighbors.launches = 0
+
+
+def _select_scratch(dev, stream: int, n: int):
+    """Pointers of kernel H's scratch: the packed candidates and tile boxes."""
+    ntiles, _ = _tiles_and_splits(n)
+
+    def make():
+        f32 = dict(dtype=torch.float32, device=dev)
+        bufs = (torch.empty((ntiles * TILE, 4), **f32), torch.empty((ntiles, 8), **f32))
+        return bufs, tuple(ptr(b) for b in bufs)
+
+    return scratch(dev, stream, ("select", n), make)[1]

@@ -98,9 +98,9 @@ _REC = profiling.RECORDER
 
 # The kernel wrappers whose `launches` a replay advances.
 WRAPPERS = (neighborhood.neighborhood_accumulate, neighborhood.segratio_accumulate,
-            mapops.hamming_nn_bounded, mapops.euclid_nn_bounded,
-            mapops.dedup_blocked_bounded, preprocess.ground_walk,
-            mapops.icp_update)
+            neighborhood.shot_neighbors, mapops.hamming_nn_bounded,
+            mapops.euclid_nn_bounded, mapops.dedup_blocked_bounded,
+            preprocess.ground_walk, mapops.icp_update)
 
 _STREAMS: dict = {}
 

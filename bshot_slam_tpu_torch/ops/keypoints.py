@@ -22,18 +22,12 @@ from bshot_slam_tpu_torch.config import KeypointConfig
 from bshot_slam_tpu_torch.geometry.eig3 import eigvalsh3
 from bshot_slam_tpu_torch.kernels import fma_dot3  # noqa: F401  (re-export)
 from bshot_slam_tpu_torch.kernels import pair_d2 as _pair_d2  # noqa: F401
+from bshot_slam_tpu_torch.kernels import top_k  # noqa: F401  (re-export)
 from bshot_slam_tpu_torch.kernels.neighborhood import (
     neighborhood_accumulate, segratio_accumulate,
 )
 
 _NEG_INF = float("-inf")
-
-
-def top_k(score: torch.Tensor, k: int):
-    """Exact top-k over the last axis, ties to the lowest index (as
-    `lax.top_k`; `torch.topk` breaks ties otherwise)."""
-    vals, idx = torch.sort(score, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def capped_r2_rows(points, mask, radius: float, cap: int, tile: int = 4096,

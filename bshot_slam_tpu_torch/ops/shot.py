@@ -17,7 +17,8 @@ import torch
 
 from bshot_slam_tpu_torch.config import DescriptorConfig
 from bshot_slam_tpu_torch.geometry.eig3 import eigh3
-from bshot_slam_tpu_torch.ops.keypoints import _pair_d2, fma_dot3, top_k
+from bshot_slam_tpu_torch.kernels.neighborhood import shot_neighbors
+from bshot_slam_tpu_torch.ops.keypoints import fma_dot3, top_k
 
 _EPS = 1e-12
 
@@ -49,12 +50,11 @@ def gather_neighbors(
     topk_chunks: int = 1,
 ) -> NeighborGather:
     """Nearest `max_neighbors` in-radius surface points per keypoint;
-    zero-distance duplicates of the keypoint are excluded."""
-    d2 = _pair_d2(keypoints, points)  # (K, N)
+    zero-distance duplicates of the keypoint are excluded.  The selection
+    is kernel H (`kernels.neighborhood.shot_neighbors`); `topk_chunks` has
+    no effect (see `chunked_top_k`)."""
+    idx = shot_neighbors(keypoints, kp_mask, points, mask, radius, max_neighbors)
     r2 = radius * radius
-    ok = mask[None, :] & (d2 <= r2) & (d2 > 0) & kp_mask[:, None]
-    score = torch.where(ok, -d2, float("-inf"))
-    _, idx = chunked_top_k(score, max_neighbors, topk_chunks)
     pnv = torch.cat([points, normals, mask.to(torch.float32)[:, None]], dim=1)
     g = pnv[idx]  # (K, M, 7)
     nb, nn, vbit = g[..., :3], g[..., 3:6], g[..., 6]

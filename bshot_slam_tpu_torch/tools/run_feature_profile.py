@@ -24,7 +24,10 @@ ms are given.
 
 Prints a line per sub-stage, then one JSON line with the reference tool's
 keys (`stages_ms`: wall ms per call) plus every column by sub-stage and
-the card's name and power limit; `--out` also writes it to a file.
+the card's name and power limit; `--out` also writes it to a file.  It
+also says how often kernel H (SHOT's neighbour selection) has to select:
+the share of valid keypoints with more rows in radius than SHOT takes, and
+their mean (`selection`).
 """
 
 from __future__ import annotations
@@ -39,6 +42,24 @@ PARTS = ("moments(kernel A sweep)", "segratio(kernel B sweep)", "keypoint top-k"
          "normals(from moments)", "shot: full (gather+LRF+hist)", "bshot binarize+pack")
 WHOLE = "features fused (whole stage)"
 COLUMNS = ("wall_ms", "event_ms", "device_ms", "launches", "host_ms")
+
+
+def selection(kps, kmask, points, mask, radius: float, max_neighbors: int) -> dict:
+    """Rows in radius of each valid keypoint (`gather_neighbors`' test):
+    how many keypoints, the share (%) with more than `max_neighbors` (kernel
+    H selects) and the mean and largest count."""
+    import torch
+
+    from bshot_slam_tpu_torch.kernels import pair_d2
+
+    d2 = pair_d2(kps, points)
+    c = ((d2 <= radius * radius) & (d2 > 0) & mask[None, :])[kmask].sum(1)
+    c = c.to(torch.float64).cpu()
+    n = len(c)
+    return {"keypoints": n,
+            "saturated_pct": 100.0 * float((c > max_neighbors).sum()) / max(n, 1),
+            "mean_in_radius": float(c.mean()) if n else 0.0,
+            "max_in_radius": float(c.max()) if n else 0.0}
 
 
 def main(argv=None) -> int:
@@ -98,6 +119,7 @@ def main(argv=None) -> int:
                                          dc.max_neighbors, topk_chunks=chunks)
 
     g = gather()
+    sel = selection(kps, kmask, p, m, dc.shot_radius_mm, dc.max_neighbors)
 
     def lrf():
         return shot_mod.local_reference_frames(g, dc.shot_radius_mm)
@@ -126,12 +148,16 @@ def main(argv=None) -> int:
             for k, v in rows.items()}
     for name, row in rows.items():
         print(columns(name, row), flush=True)
+    print(f"shot selection at bucket {args.bucket}: {sel['keypoints']} keypoints, "
+          f"{sel['saturated_pct']:.2f}% with over {dc.max_neighbors} rows in radius, "
+          f"mean {sel['mean_in_radius']:.1f}, max {sel['max_in_radius']:.0f}", flush=True)
     out = {
         **card(device),
         "platform": device.type,
         "bucket": args.bucket, "n_valid": n_valid, "iters": args.iters,
         "stages_ms": {k: v["wall_ms"] for k, v in rows.items()},
         "stages": rows,
+        "selection": sel,
     }
     js = json.dumps(out)
     print(js, flush=True)

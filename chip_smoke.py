@@ -5,8 +5,10 @@
 
 Phases, one line each:
   1. the card (nvidia-smi name and power limit) and the kernel build;
-  2. the first 24 frames of the benchmark drive (synthetic HDL-32E);
-  3. each CUDA kernel A-E and G at the main path's shapes against its plain
+  2. the first 24 frames of the benchmark drive (synthetic HDL-32E), and
+     four frames of the same drive through the HDL-64E preset, whose
+     largest kept cloud [3] gives kernel H;
+  3. each CUDA kernel A-E, G and H at the main path's shapes against its plain
      PyTorch version (G, the ICP update: one update after D at [3]'s D
      inputs, pair count exact, transform and rmse within the stated
      tolerance): integer outputs exactly equal to the plain version
@@ -15,7 +17,11 @@ Phases, one line each:
      every kernel bit-identical over two runs on the same inputs; kernel and
      plain times on the card (CUDA events, median of 25), the kernel's
      device-only time and device launches per call (`torch.profiler`) and
-     the host's time per wrapper call;
+     the host's time per wrapper call; H (SHOT's neighbour selection: rows
+     exactly the plain version's) at 600 keypoints (the card's saliency
+     top-k) and 384 neighbours on the HDL-64E cloud cut to 16,384, 49,152
+     and 131,072 rows, each with its keypoints' share over 384 rows in
+     radius;
   4. `SlamEngine.process_sweep` end to end over the 24 frames, with the
      map prefilled to 65,536 far-away landmarks: frames/s (also over the
      frames that captured no CUDA graph), ATE against
@@ -238,6 +244,10 @@ REL_MM, REL_DEG = 20.0, 0.2
 # Phase [10]'s golden replay: tests/test_golden_trajectory.py's limits (mm
 # from the CPU gold; ATE against ground truth as a share of the path).
 GOLDEN_MM, GOLDEN_PATH_SHARE = 60.0, 0.08
+# Kernel H is checked and timed at these cloud rows ([3]), on the largest
+# of these frames of the drive through the HDL-64E preset.
+SELECT_ROWS = (16384, 49152, 131072)
+SELECT_FRAMES = (44, 50, 56, 62)
 # The bound of A and B counts the radius tests that a box prune at this
 # grain (query rows x candidate rows) leaves: a property of the cloud, fixed
 # here so that a kernel's own tiling cannot move its own bound.
@@ -349,6 +359,27 @@ def render_drive(cfg, n: int | None = None):
     with concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx) as pool:
         sweeps = list(pool.map(render, poses, [None] * n, [20.0] * n, range(n)))
     return sweeps, poses
+
+
+def hdl64e_cloud(frames=SELECT_FRAMES):
+    """(the HDL-64E preset, points (bucket, 3), n_valid) of the largest
+    kept cloud among `frames` of bench.py's drive with that sensor 1.73 m
+    above the road."""
+    from bshot_slam_tpu_torch.config import hdl64e_config
+    from bshot_slam_tpu_torch.io import synthetic
+
+    cfg = hdl64e_config()
+    poses = synthetic.straight_trajectory(
+        N_DRIVE, step_mm=400.0, sensor_height_mm=cfg.preprocess.sensor_height_mm,
+        yaw_rate_rad=2 * math.pi / N_DRIVE)[list(frames)]
+    render = functools.partial(synthetic.render_sweep, synthetic.default_scene(0),
+                               cfg.sensor, n_firings=cfg.sensor.n_azimuth)
+    n = len(frames)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(n, mp_context=ctx) as pool:
+        sweeps = list(pool.map(render, poses, [None] * n, [20.0] * n, frames))
+    points, nv = max((frame_cloud(cfg, sw) for sw in sweeps), key=lambda c: c[1])
+    return cfg, points, nv
 
 
 def frame_cloud(cfg, sweep):
@@ -475,6 +506,61 @@ def check_neighborhood(cfg, points_np, nv, dev):
                   "+ 1e-2: summation order only",
     ))
     return rows
+
+
+def check_shot_select(cfg, points_np, nv, dev):
+    """Kernel H on `points_np` cut to each of SELECT_ROWS rows, with the
+    configuration's keypoints (saliency top-k on the card) and neighbours."""
+    import torch
+
+    from bshot_slam_tpu_torch.kernels import neighborhood as K
+    from bshot_slam_tpu_torch.ops.keypoints import extract_keypoints
+    from bshot_slam_tpu_torch.tools.run_feature_profile import selection
+
+    radius, M = cfg.descriptor.shot_radius_mm, cfg.descriptor.max_neighbors
+    by_rows = {}
+    for n in SELECT_ROWS:
+        k = min(nv, n)
+        pts = np.zeros((n, 3), np.float32)
+        pts[:k] = points_np[:k]
+        p = torch.as_tensor(pts, device=dev)
+        m = torch.arange(n, device=dev) < k
+        kps = extract_keypoints(p, m, cfg.keypoints)
+        args = (kps.positions, kps.mask, p, m, radius, M)
+        got, again = K.shot_neighbors(*args), K.shot_neighbors(*args)
+        c = cpu(*args[:4])
+        want = K.shot_neighbors_plain(*c, radius, M)
+        on_card = K.shot_neighbors_plain(*args)
+        sel = selection(*c, radius, M)
+        nk = sel["keypoints"]
+        b_ms, b_by = bound(nk * 13 + k * 13 + nk * min(M, n) * 8,
+                           {"f32": nk * k * K.RADIUS_TEST_F32})
+        by_rows[n] = dict(
+            n_valid=k, int_mismatch=int_mismatch(got, want),
+            card_plain_rows_differ=int((got != on_card).any(dim=1).sum()),
+            deterministic=torch.equal(got, again), **sel,
+            **measure(lambda: K.shot_neighbors(*args),
+                      lambda: K.shot_neighbors_plain(*args)),
+            bound_ms=b_ms, bound_by=b_by)
+    first = by_rows[SELECT_ROWS[0]]
+    cols = ("ms", "plain_ms", "device_ms", "device_launches_per_call",
+            "host_us_per_call", "bound_ms", "bound_by")
+    return dict(
+        name="shot_neighbors",
+        shapes=f"keypoints ({first['keypoints']} valid of {cfg.keypoints.top_k}), "
+               f"{M} neighbours, radius {radius:.0f} mm, HDL-64E cloud of {nv} kept "
+               f"points cut to {SELECT_ROWS[0]} rows (times at this size)",
+        source="bshot_slam_tpu_torch/csrc/neighborhood.cu",
+        replaces="none: bshot_slam_tpu/ops/shot.py:102-111 (the (K, N) scores and "
+                 "lax.top_k)",
+        int_mismatch=sum(r["int_mismatch"] for r in by_rows.values()),
+        float_out_of_tol=0, max_abs_err=0.0,
+        card_plain_rows_differ=sum(r["card_plain_rows_differ"] for r in by_rows.values()),
+        deterministic=all(r["deterministic"] for r in by_rows.values()),
+        **{c: first[c] for c in cols}, library_ms=None,
+        tolerance="rows exact (the plain version's stable sort) at every size",
+        by_rows=by_rows,
+    )
 
 
 def map_inputs(cfg, dev, seed: int = 3):
@@ -678,6 +764,7 @@ def run_engine(cfg, sweeps, gt, dev):
     wrappers = {
         "neighborhood_accumulate": neighborhood.neighborhood_accumulate,
         "segratio_accumulate": neighborhood.segratio_accumulate,
+        "shot_neighbors": neighborhood.shot_neighbors,
         "hamming_nn_bounded": mapops.hamming_nn_bounded,
         "euclid_nn_bounded": mapops.euclid_nn_bounded,
         "dedup_blocked_bounded": mapops.dedup_blocked_bounded,
@@ -724,10 +811,12 @@ def host_preprocess_ms(cfg, sweeps) -> float:
 
 # The __global__ functions of csrc/*.cu, as the profiler names them.
 PORT_KERNELS = ("pack_cloud_kernel", "accumulate_kernel", "segratio_kernel",
-                "hamming_kernel", "euclid_kernel", "dedup_kernel", "icp_update_kernel")
+                "hamming_kernel", "euclid_kernel", "dedup_kernel", "icp_update_kernel",
+                "shot_pack_kernel", "shot_select_kernel")
 # Most device launches a call of a wrapper may make.
 MAX_DEVICE_LAUNCHES = {"segratio_accumulate": 2, "hamming_nn_bounded": 2,
-                       "dedup_blocked_bounded": 1, "ground_walk": 1, "icp_update": 1}
+                       "dedup_blocked_bounded": 1, "ground_walk": 1, "icp_update": 1,
+                       "shot_neighbors": 2}
 
 
 def profile_engine(cfg, sweeps, dev, graphs=None, n: int = 6):
@@ -769,6 +858,7 @@ def kernel_wrappers():
     return {
         "neighborhood_accumulate": neighborhood.neighborhood_accumulate,
         "segratio_accumulate": neighborhood.segratio_accumulate,
+        "shot_neighbors": neighborhood.shot_neighbors,
         "hamming_nn_bounded": mapops.hamming_nn_bounded,
         "euclid_nn_bounded": mapops.euclid_nn_bounded,
         "dedup_blocked_bounded": mapops.dedup_blocked_bounded,
@@ -2293,7 +2383,7 @@ def tool_runs(work: pathlib.Path):
     return (
         ("run_golden", ["--out", str(work / "golden_torch.json")], A_TO_E),
         ("run_stage_bench", ["--iters", "5"], A_TO_E),
-        ("run_feature_profile", ["--iters", "5"], A_TO_E[:2]),
+        ("run_feature_profile", ["--iters", "5"], A_TO_E[:2] + ("shot_neighbors",)),
         ("run_ba_bench", [], ()),
         ("run_reference_stats", ["--out", str(work / "refstats_torch.json"),
                                  "--workdir", str(work / "refstats")],
@@ -2361,10 +2451,15 @@ def main() -> int:
     sweeps, gt = drive_sweeps[:N_FRAMES], drive_gt[:N_FRAMES]
     print(f"[2] rendered {len(drive_sweeps)} frames in {time.perf_counter() - t0:.1f} s; "
           f"host preprocess {host_preprocess_ms(cfg, sweeps):.2f} ms/frame", flush=True)
+    t0 = time.perf_counter()
+    cfg64, points64, nv64 = hdl64e_cloud()
+    print(f"[2] HDL-64E frames {SELECT_FRAMES} rendered in {time.perf_counter() - t0:.1f} "
+          f"s; the largest keeps {nv64} points", flush=True)
 
     points, nv = frame_cloud(cfg, sweeps[3])
     assert points.shape[0] == pick_bucket(nv, cfg)
-    rows = check_neighborhood(cfg, points, nv, dev) + check_mapops(cfg, dev)
+    rows = (check_neighborhood(cfg, points, nv, dev) + check_mapops(cfg, dev)
+            + [check_shot_select(cfg64, points64, nv64, dev)])
     torch.cuda.synchronize()
     failed = []
     for r in rows:
@@ -2379,6 +2474,17 @@ def main() -> int:
               f"{r['host_us_per_call']:.1f} us per call), plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}); {r['tolerance']}", flush=True)
+        for n, b in r.get("by_rows", {}).items():
+            print(f"[3] {r['name']} at {n} rows ({b['n_valid']} valid, {b['keypoints']} "
+                  f"keypoints; over {cfg.descriptor.max_neighbors} in radius: "
+                  f"{b['saturated_pct']:.2f}%, mean {b['mean_in_radius']:.1f}, max "
+                  f"{b['max_in_radius']:.0f}): mismatches {b['int_mismatch']}, rows "
+                  f"differing on the card {b['card_plain_rows_differ']}, two runs "
+                  f"bit-identical {b['deterministic']}; kernel {b['ms']:.4f} ms (device "
+                  f"{b['device_ms']:.4f} ms in {b['device_launches_per_call']:.0f} "
+                  f"launches, host {b['host_us_per_call']:.1f} us), plain "
+                  f"{b['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
+                  flush=True)
         if (r["int_mismatch"] or r["float_out_of_tol"]
                 or r["card_plain_rows_differ"] or not r.get("deterministic", True)):
             failed.append(r["name"])
@@ -2418,6 +2524,9 @@ def main() -> int:
     if icp > cfg.match.icp_iterations:  # a trace can lose records, not add them
         raise SmokeError(f"kernel D made {icp} device launches per frame, more than "
                          f"one per ICP iteration ({cfg.match.icp_iterations})")
+    sel = sum(c for k, _, c in own if k == "shot_select_kernel")
+    if sel > 1:
+        raise SmokeError(f"kernel H made {sel} selection launches per frame, not one")
     icp = sum(c for k, _, c in own if k == "icp_update_kernel")
     if icp > cfg.match.icp_iterations + 1:
         raise SmokeError(f"kernel G made {icp} device launches per frame, more than "

@@ -41,7 +41,16 @@ card, in step at every iteration within those limits, and free-running
 within 1e-5 and 0.01 mm until a correspondence flips, a flip only at a
 tie of the expanded d2, the final poses then within a stated gap
 (`icp_traces_agree`), 21 launches an ICP of 10 iterations; a graphed frame advances `icp_update.launches` by the
-iterations + 1.
+iterations + 1.  Kernel H (SHOT's neighbour selection) on each case of
+`H_CASES` (2048 to 131072 rows, 64 and 600 keypoints, 64 and 384
+neighbours, and fewer rows than neighbours; keypoints with 0, m // 2, m,
+m + 1 and over 10 m rows in radius, ties at the cut and over a whole
+histogram bin, rows at d2 = r2 and d2 = 0, masked rows and keypoints)
+equals its plain version on CPU copies bit for bit, and itself over two
+runs; `gather_neighbors`' fields equal the CPU's bit for bit (its `dist`
+within an ulp: the card's sqrt); H is two
+device launches a call and replays from a CUDA graph; it refuses what it
+does not take; a graphed frame advances `shot_neighbors.launches` by one.
 """
 
 import numpy as np
@@ -57,9 +66,10 @@ from bshot_slam_tpu_torch.odometry import mapstore as tmap
 from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 from tests.torch_kernel_cases import (
     A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES,
-    EVICT_CASES, F_CASES, G_CASES, accumulate_case, dedup_case, euclid_case,
-    evict_case, hamming_case, icp_case, icp_trace, icp_traces_agree, iss_corners,
-    keyframe_pair, moment_features, overflow_sequence, segratio_case, walk_case,
+    EVICT_CASES, F_CASES, G_CASES, H_CASES, accumulate_case, dedup_case,
+    euclid_case, evict_case, hamming_case, icp_case, icp_trace, icp_traces_agree,
+    iss_corners, keyframe_pair, moment_features, overflow_sequence, segratio_case,
+    select_case, walk_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -543,6 +553,7 @@ def test_graphed_engine_matches_eager_on_card(dev, mode):
     icp = g_launch[-1]  # kernel G, the last of graphs.WRAPPERS
     per_frame = g.cfg.match.icp_iterations + 1
     assert icp == 6 * per_frame if not mode.get("enable_backend") else icp > 6 * per_frame
+    assert g_launch[2] == 6  # kernel H, once a step
     if mode.get("enable_backend"):
         assert [(x.kf_i, x.kf_j, x.n_inliers, x.z.tobytes()) for x in g.loop_edges] == \
             [(x.kf_i, x.kf_j, x.n_inliers, x.z.tobytes()) for x in e.loop_edges]
@@ -921,3 +932,90 @@ def test_icp_launches_on_card(dev):
     args = _icp_on(c, dev)
     kw = (10, c["max_corr_dist"], c["n_valid"], c["tail_start"])
     assert device_profile(lambda: icp.icp_point_to_point(*args, *kw))[1] == 21
+
+
+def _select_args(c, dev=None):
+    args = [torch.tensor(c[x]) for x in ("keypoints", "kp_mask", "points", "mask")]
+    if dev is not None:
+        args = [a.to(dev) for a in args]
+    return (*args, c["radius"], c["max_neighbors"])
+
+
+@pytest.mark.parametrize("n,k,m", H_CASES)
+def test_shot_neighbors_case_on_card(dev, n, k, m):
+    c = select_case(n, k, m)
+    want = K.shot_neighbors_plain(*_select_args(c))
+    before = K.shot_neighbors.launches
+    got = K.shot_neighbors(*_select_args(c, dev))
+    again = K.shot_neighbors(*_select_args(c, dev))
+    assert K.shot_neighbors.launches == before + 2
+    assert got.dtype == torch.int64 and got.shape == want.shape == (k, min(m, n))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(again, got)
+
+
+def test_gather_neighbors_on_card(dev):
+    """`gather_neighbors` on the card (kernel H, then the gather) against
+    the CPU's (the plain selection): `rel`, `normals` and `nmask` bit for
+    bit; `dist` is the card's square root of the same squared distances,
+    within an ulp of the CPU's (the two sqrt kernels round apart on some
+    inputs)."""
+    from bshot_slam_tpu_torch.kernels import fma_dot3
+    from bshot_slam_tpu_torch.ops import shot
+
+    c = select_case(16384, 600, 384)
+    normals = torch.tensor(np.random.default_rng(5).normal(
+        size=(16384, 3)).astype(np.float32))
+    args = _select_args(c)
+    want = shot.gather_neighbors(*args[:4], normals, args[4], args[5])
+    got = shot.gather_neighbors(*_select_args(c, dev)[:4], normals.to(dev), args[4],
+                                args[5])
+    for name in ("rel", "normals", "nmask"):
+        a, b = getattr(want, name), getattr(got, name).cpu()
+        assert a.dtype == b.dtype and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    sq = torch.where(want.nmask, fma_dot3(want.rel, want.rel), 0.0).to(dev)
+    assert torch.equal(got.dist, torch.sqrt(sq))
+    ulps = (got.dist.cpu().view(torch.int32) - want.dist.view(torch.int32)).abs()
+    assert int(ulps.max()) <= 1
+
+
+def test_shot_neighbors_graph_and_launches_on_card(dev):
+    """Two device launches a call; captured in a CUDA graph and replayed on
+    new keypoints, the same rows as an eager call."""
+    from bshot_slam_tpu_torch.utils.profiling import device_profile
+
+    c = select_case(16384, 600, 384)
+    args = _select_args(c, dev)
+    assert device_profile(lambda: K.shot_neighbors(*args))[1] == 2
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm up: the scratch on this stream
+        K.shot_neighbors(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = K.shot_neighbors(*args)
+    moved = args[0] + torch.tensor([300.0, -200.0, 100.0], device=dev)
+    args[0].copy_(moved)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, K.shot_neighbors(moved, *args[1:]))
+    assert torch.equal(out.cpu(), K.shot_neighbors_plain(moved.cpu(), *[
+        a.cpu() for a in args[1:4]], *args[4:]))
+
+
+def test_shot_neighbors_refusals_on_card(dev):
+    kps = torch.zeros((4, 3), device=dev)
+    km = torch.ones(4, dtype=torch.bool, device=dev)
+    big = torch.zeros((K.MAX_ROWS + 1, 3), device=dev)
+    pts, mask = big[:100], torch.ones(100, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        K.shot_neighbors(kps, km, big, torch.ones(len(big), dtype=torch.bool,
+                                                   device=dev), 1000.0, 64)
+    with pytest.raises(ValueError):
+        K.shot_neighbors(kps, km, pts, mask, 1000.0, K.SHOT_MAX_NEIGHBORS + 1)
+    with pytest.raises(ValueError):
+        K.shot_neighbors(kps, km, pts, mask, float("inf"), 64)
+    with pytest.raises(ValueError):
+        K.shot_neighbors(kps, km.cpu(), pts, mask, 1000.0, 64)
+    assert K.shot_neighbors(kps, km, pts, mask, 1000.0, K.SHOT_MAX_NEIGHBORS).shape \
+        == (4, 100)

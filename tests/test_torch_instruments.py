@@ -183,7 +183,11 @@ def test_feature_profile_cpu_prints_the_reference_substages(tiny):
     parts = sum(res["stages_ms"][k] for k in run_feature_profile.PARTS)
     assert res["stages_ms"]["sum of parts - whole"] == pytest.approx(
         parts - res["stages_ms"]["features fused (whole stage)"], abs=1e-3)
-    assert len(lines) == len(names) + 1
+    # a line per sub-stage, the selection's line, the JSON line
+    assert len(lines) == len(names) + 2
+    sel = res["selection"]
+    assert sel["keypoints"] > 0 and 0 <= sel["saturated_pct"] <= 100
+    assert 0 <= sel["mean_in_radius"] <= sel["max_in_radius"]
 
 
 # -- (c) the BA bench ----------------------------------------------------------

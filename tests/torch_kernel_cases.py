@@ -1,4 +1,4 @@
-"""Seeded edge cases for the port's kernels A to G, map eviction and loop
+"""Seeded edge cases for the port's kernels A to H, map eviction and loop
 verification (numpy only; `icp_trace` imports torch when it is called).
 
 `tests/test_torch_kernel_cases.py`, `tests/test_torch_backend.py` and (for
@@ -6,8 +6,10 @@ F, the ground walk) `tests/test_torch_preprocess.py` run them through the
 port's plain versions against the reference on the CPU (G, the ICP update,
 through the port's ICP loop with G's plain version, `icp_trace`);
 `tests/test_torch_cuda.py` runs the CUDA kernels (and eviction on the card)
-against the plain versions.  A case is a dict of numpy arrays and scalars,
-made from a fixed seed by name.
+against the plain versions (H, SHOT's neighbour selection: `select_case` on
+the card, `select_int_case` against the reference in
+`tests/test_torch_shot_select.py`).  A case is a dict of numpy arrays and
+scalars, made from a fixed seed by name.
 """
 
 import numpy as np
@@ -45,6 +47,17 @@ E_CASES = (
 # finite correspondence distance that cuts pairs.
 G_CASES = ("k600", "k600_tail", "k1100", "k37", "masked", "few_pairs",
            "no_pairs", "max_corr")
+# Kernel H, SHOT's neighbour selection: (rows, keypoints, neighbours) of
+# each case on the card; the last has fewer rows than neighbours.
+H_CASES = ((2048, 64, 64), (2048, 64, 384), (2048, 600, 64), (2048, 600, 384),
+           (16384, 64, 64), (16384, 64, 384), (16384, 600, 64), (16384, 600, 384),
+           (131072, 64, 64), (131072, 64, 384), (131072, 600, 64),
+           (131072, 600, 384), (300, 64, 384))
+H_RADIUS = 1000.0
+# Integer clouds whose every d2 is exact in float32 (the selection against
+# the reference on the CPU): (rows, keypoints, neighbours, seed).
+H_INT_CASES = ((700, 48, 40, 1), (700, 48, 16, 2), (1500, 96, 64, 3),
+               (30, 12, 40, 4), (400, 32, 1, 5))
 # Kernel E's tensor arguments, in order (n_valid follows them).
 E_ARGS = ("pos", "blk", "seg", "map_pos", "map_blk", "map_seg", "map_valid")
 DEDUP_RADIUS = 800.0
@@ -771,3 +784,130 @@ def ba_within(result: tuple, eager: list) -> tuple[list, bool]:
     whether every one is within BA_LIMITS)."""
     near = [min(d) for d in zip(*[ba_distance(result, e) for e in eager])]
     return near, all(d <= lim for d, lim in zip(near, BA_LIMITS))
+
+
+def _ball(rng, centre, t, radius):
+    """t points uniform in the ball of `radius` around centre (float64)."""
+    d = rng.normal(size=(t, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return centre + d * (radius * rng.uniform(0.05, 1.0, (t, 1)) ** (1 / 3))
+
+
+def select_case(n: int, k: int, m: int) -> dict:
+    """Inputs of `shot_neighbors` (keypoints, kp_mask, points, mask, radius,
+    max_neighbors) and `counts`, each keypoint's in-radius rows by design
+    (-1 where the rounding decides them).  Keypoints lie 2.5 radii apart;
+    each has a ball of its own, drawn until the rows run out (every row
+    past the balls is far below every keypoint), in this order:
+      0: small integer coordinates: m // 2 rows, three at exactly d2 = r2
+         (in), one at r2 + 1 (out), two copies of the keypoint (d2 = 0) and
+         a masked row;
+      1: kp_mask False over m + 1 rows; 2: none in radius (a masked row and
+         a copy of the keypoint only); 3, 4, 5: m // 2, m, m + 1 rows;
+      6: over 10 m and over 4096 distinct rows (the kernel's selection),
+         or 10 m + 7 where they do not fit;
+      7: as many at three places, 60% at the nearest (ties over a whole
+         histogram bin past the kernel's 2048 keys: its refinement);
+      8: m + 9 rows at five places (ties at the cut);
+      9: near 1e5 mm, rows one float32 step inside, on and outside the
+         radius (the expanded d2's rounding decides);
+    then 0 to m // 3 rows each; every 17th keypoint after 9 is masked.
+    Masked rows keep their coordinates.  The balls' rows come first,
+    shuffled, then the far rows sorted along x (whole tiles out of reach)."""
+    rng = np.random.default_rng(n + 7 * k + 13 * m)
+    mm = min(m, n)
+    R = H_RADIUS
+    grid = np.stack(np.meshgrid(np.arange(10), np.arange(10), np.arange(6),
+                                indexing="ij"), -1).reshape(-1, 3)[:k]
+    kps = 4000.0 + 2500.0 * grid + rng.uniform(-200, 200, (k, 3))
+    kps[0] = (16.0, 32.0, 8.0)
+    if k > 9:
+        kps[9] = (1.0e5, 1.0e5, 1.0e5)
+    kmask = np.ones(k, bool)
+    kmask[10::17] = False
+    if k > 1:
+        kmask[1] = False
+    counts = np.zeros(k, np.int64)
+    rows, masked = [], []
+    budget = n
+
+    def put(pts, live=True):
+        nonlocal budget
+        rows.append(np.asarray(pts, np.float64).reshape(-1, 3))
+        masked.append(np.full(len(rows[-1]), not live))
+        budget -= len(rows[-1])
+
+    many = max(10 * mm + 7, 4100)
+    plan = {1: mm + 1, 3: mm // 2, 4: mm, 5: mm + 1, 6: many, 7: many, 8: mm + 9}
+    for i in range(k):
+        c = kps[i]
+        if i == 0:
+            exact = c + np.array([[600, 800, 0], [0, 0, 1000], [-1000, 0, 0]], float)
+            extra = 9
+            if budget < mm // 2 + extra:
+                continue
+            t = max(0, mm // 2 - 3)
+            inner = np.round(_ball(rng, c, t, 0.9 * R))
+            put(np.concatenate([inner, exact]))
+            put(c + np.array([600.0, 800.0, 1.0]))  # d2 = r2 + 1
+            put(np.stack([c, c]))  # d2 = 0
+            put(c + 100.0, live=False)
+            counts[0] = t + 3
+        elif i == 2:
+            if budget >= 2:
+                put(c)
+                put(c + 50.0, live=False)
+        elif i == 9:
+            dirs = np.array([[1, 0, 0], [0, 1, 0], [0.6, 0.8, 0], [0, 0.6, 0.8],
+                             [2 / 3, 2 / 3, 1 / 3], [2 / 3, 1 / 3, 2 / 3]])
+            shell = [c + dirs * (R + s * 2.0 ** -7) for s in (-1, 0, 1)]
+            if budget >= 18:
+                put(np.concatenate(shell))
+                counts[9] = -1
+        else:
+            t = plan.get(i, int(rng.integers(0, mm // 3 + 1)))
+            if t == many and t > budget:
+                t = 10 * mm + 7
+            if t > budget or (i > 9 and budget - t < n // 8):
+                continue
+            if i in (7, 8):  # a few places, repeated
+                places = _ball(rng, c, 3 if i == 7 else 5, 0.9 * R)
+                places = places[np.argsort(np.linalg.norm(places - c, axis=1))]
+                w = [0.6, 0.2, 0.2] if i == 7 else [0.2] * 5
+                put(places[rng.choice(len(places), t, p=w)])
+            else:
+                put(_ball(rng, c, t, 0.9 * R))
+            if budget >= 1:
+                put(c + rng.uniform(-300, 300, 3), live=False)
+            counts[i] = t
+    counts[~kmask] = 0
+    far = np.column_stack([rng.uniform(-9e4, 9e4, (budget, 2)),
+                           rng.uniform(-9e4, -6e4, budget)])
+    put(far)
+    pts = np.concatenate(rows).astype(np.float32)
+    mask = ~np.concatenate(masked)
+    mask[len(pts) - len(far):] = rng.random(len(far)) > 0.05
+    nb = n - len(far)
+    order = np.concatenate([rng.permutation(nb), nb + np.argsort(far[:, 0])])
+    return dict(keypoints=kps.astype(np.float32), kp_mask=kmask,
+                points=pts[order], mask=mask[order], radius=R, max_neighbors=m,
+                counts=counts)
+
+
+def select_int_case(n: int, k: int, m: int, seed: int) -> dict:
+    """An integer cloud for SHOT's neighbour selection whose every d2 is an
+    exact float32 (coordinates within 40 of the origin, radius 25): many
+    rows at one distance, repeated rows, keypoints on cloud rows (d2 = 0),
+    three keypoints far from every row (none in radius: the rows that are
+    not in radius fill theirs by index), masked rows and masked keypoints;
+    `normals` random."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(-30, 31, (n, 3)).astype(np.float32)
+    pts[rng.integers(0, n, n // 5)] = pts[rng.integers(0, n, n // 5)]
+    kps = pts[rng.integers(0, n, k)].copy()
+    kps[: min(3, k)] = 400.0
+    kmask = rng.random(k) > 0.15
+    mask = rng.random(n) > 0.1
+    normals = rng.normal(size=(n, 3)).astype(np.float32)
+    return dict(keypoints=kps, kp_mask=kmask, points=pts, mask=mask,
+                normals=normals, radius=25.0, max_neighbors=m)
