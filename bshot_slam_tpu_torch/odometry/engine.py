@@ -13,42 +13,42 @@ and then predicts each frame's bucket from the counts in the fetched rows
 (`runtime.bucket_headroom`, a floor decaying by `bucket_floor_decay`); a
 frame whose kept points overflow the predicted bucket aborts on the device
 and is re-run at its exact bucket.
-The synchronous engine fetches each frame's packed diagnostics at once.
-The pipelined engine (`pipelined=True`) dispatches each frame
-without a host sync (`pipeline.odometry_step_deferred`) and fetches the
-rows of `fetch_every` frames in one device-to-host copy; a frame whose
-match or dedup window overflowed aborts on the device, and at the drain it
-and every later in-flight frame are re-run in order without window
-compaction (lossless, as the synchronous step's fallback) with the clouds
-and RANSAC draws they were dispatched with, so the records are the
-synchronous engine's.  At the map's hard
-capacity the weakest keypoints of the densest blocks are evicted.  The
-optional backend (`enable_backend`) collects keyframes, and
-`optimize_backend` / `apply_backend_corrections` run loop closure, the
-pose graph and map re-anchoring (every `backend_every` frames, or when
-asked); `build_ba_problem` assembles a bundle adjustment.
+
+Every frame runs the one commit-or-abort step
+(`pipeline.odometry_step_deferred`, or `odometry_step_fused` for a range
+image on the device): it never syncs with the host, and when its match or
+dedup window overflowed it passes the state through and reports the frame
+uncommitted in its packed row.  The synchronous engine reads each frame's
+row at once; the pipelined engine (`pipelined=True`) dispatches each frame
+without a host sync and fetches the rows of `fetch_every` frames in one
+device-to-host copy.  An uncommitted frame, and in the pipelined engine
+every later in-flight frame, is re-run in order through the step without
+windows (`Graphs.step(dense=True)`, `_run_dense`: lossless, it cannot
+abort) with the cloud and RANSAC draws it was dispatched with, as the
+reference's program falls back to the dense scan inside itself; so both
+engines give the same records.  At the map's hard capacity the weakest
+keypoints of the densest blocks are evicted.  The optional backend
+(`enable_backend`) collects keyframes, and `optimize_backend` /
+`apply_backend_corrections` run loop closure, the pose graph and map
+re-anchoring (every `backend_every` frames, or when asked);
+`build_ba_problem` assembles a bundle adjustment.
 
 Runs on the card unless the caller asks for the CPU: `device=None` means
 "cuda", and raises when no card is visible.
 
-Every frame's step runs through `odometry.graphs` (`graphs=True`, the
-default): on the card it is replayed from a CUDA graph captured once per
-static shape (the cloud bucket, or the predicted bucket of the fused step,
-and the map capacity), as the reference dispatches one `jax.jit` program
-per frame, with the state updated in place as the reference donates it;
-on the CPU the same body runs eagerly on the same buffers.  Both modes
-replay the deferred step; the synchronous engine reads its packed row at
-once and, when a window overflowed (the state passed through), replays the
-step without window compaction (its own graph) with the same draws, as the
-reference's program falls back to the dense scan inside itself; the
-pipelined engine re-runs its stalled frames through that graph.  A map
-eviction replays its graph on the state buffers.  The backend's pair
-verification, keyframe histograms, pose-graph solve, corrections and
-keyframe adds replay their graphs likewise (a keyframe eviction, rare and
-no faster replayed, stays eager).  A graphed engine never runs the eager
-step.  `graphs=False` runs every step and backend program eagerly (the
-counterpart of `jax.disable_jit`: a comparison), through an eager
-`Graphs` that calls each body directly.
+The steps, the map eviction and the backend's pair verification, keyframe
+histograms, pose-graph solve, corrections and keyframe adds all run
+through the engine's `odometry.graphs.Graphs`, and the engine calls the
+same methods whatever the mode.  With `graphs=True` (the default) each is
+replayed on the card from a CUDA graph captured once per static shape (the
+cloud bucket, or the predicted bucket of the fused step, and the map
+capacity), as the reference dispatches one `jax.jit` program per frame,
+with the state updated in place as the reference donates it; on the CPU
+the same body runs eagerly on the same buffers.  A keyframe eviction, rare
+and no faster replayed, stays eager.  `graphs=False` gives an eager
+`Graphs`, which calls each body directly: the counterpart of
+`jax.disable_jit`, a comparison that runs exactly the bodies a graphed
+engine replays.
 
 With `mesh` (a `DeviceMesh` from `parallel.sharded.make_mesh` or
 `parallel.multihost.host_mesh`) the engine runs SPMD: every rank of the
@@ -64,8 +64,8 @@ pipelined=True`) stays single-device.  A mesh engine is graphed like one
 device's (each key adds the axes) where its collectives can be captured:
 every axis NCCL on the card, or the CPU (`comm.capturable`).  Gloo on
 the card stages each collective through the host with a sync, which a
-capture refuses, so there the engine's `Graphs` is eager.  Window
-compaction is off on a mesh, so its steps never abort.
+capture refuses, so there the engine's `Graphs` is eager.  A mesh runs
+without windows, so its steps never abort.
 """
 
 from __future__ import annotations
@@ -180,8 +180,8 @@ class SlamEngine:
     pass drains everything first, so corrections land at the same frame as
     in the synchronous engine.
 
-    `graphs=False` runs the steps and the backend's programs eagerly instead
-    of through `odometry.graphs` (see the module docstring); records are the
+    `graphs=False` runs the steps and the backend's programs eagerly,
+    through an eager `Graphs` (see the module docstring); records are the
     same bit for bit.  `graphs` may also be the `Graphs` of an earlier
     engine on the same device, which this engine then takes over (its
     captures are reused where the configuration and shapes are the same, as
@@ -445,15 +445,9 @@ class SlamEngine:
             draws = self._next_draws()
             _REC.device_mark("step_start", fid)
             self._frames_in += 1
-            if not self.graphs.eager:
-                self.state, self._ok, diag = self.graphs.fused(
-                    self.cfg, self.tile, self.state, self._ok, image,
-                    self._next_bucket, draws, self._keep)
-            else:
-                range_az, vert, sel = image
-                self.state, self._ok, diag = pipeline.odometry_step_fused(
-                    self.state, self._ok, range_az, vert, sel, self.cfg.preprocess,
-                    self.cfg, self._next_bucket, draws, self.tile)
+            self.state, self._ok, diag = self.graphs.fused(
+                self.cfg, self.tile, self.state, self._ok, image, self._next_bucket,
+                draws, self._keep)
             _REC.device_mark("replay_end", fid)
         return self._enqueue(_Pending(diag, None, None, None, draws, cap, image, fid))
 
@@ -503,7 +497,7 @@ class SlamEngine:
 
     def _next_draws(self) -> torch.Tensor:
         """This frame's (H, 3) RANSAC draws: injected, or from the engine's
-        generator (the same numbers the synchronous step draws)."""
+        generator (the same numbers `pipeline.odometry_step` draws)."""
         H = self.cfg.match.ransac_iterations
         if self._draws is not None:
             return upload(np.asarray(next(self._draws), np.float32), self.device)
@@ -523,8 +517,8 @@ class SlamEngine:
         """One frame's step from its cloud (see `_on_device`): the dispatch
         (the map check, the uploads, the draws and the step), then,
         pipelined, its place in the queue; synchronous, its packed row and
-        record.  The eager synchronous step (`graphs=False`) reads and
-        records within its dispatch."""
+        record, or, when a window overflowed (the state passed through),
+        the dense re-run with the same draws."""
         fid = self._fid
         with _REC.span("slam.dispatch"):
             self._maybe_grow_map()
@@ -533,27 +527,17 @@ class SlamEngine:
             with _REC.span("slam.upload"):
                 points, pmask, n_valid = self._on_device(points, pmask, n_valid)
             self._frames_in += 1
-            if self.graphs.eager and not self.pipelined:
-                rng = self.generator if self._draws is None else self._next_draws()
-                return self._run_sync(points, pmask, n_valid, rng, cap, fid)
             draws = self._next_draws()
             _REC.device_mark("step_start", fid)
-            if self.graphs.eager:
-                self.state, self._ok, diag = pipeline.odometry_step_deferred(
-                    self.state, self._ok, points, pmask, n_valid, draws, self.cfg,
-                    self.tile, axes=self.axes)
-            else:
-                self.state, self._ok, diag = self.graphs.step(
-                    self.cfg, self.tile, self.state, self._ok, points, pmask, n_valid,
-                    draws, self._keep, axes=self.axes)
+            self.state, self._ok, diag = self.graphs.step(
+                self.cfg, self.tile, self.state, self._ok, points, pmask, n_valid,
+                draws, self._keep, axes=self.axes)
             _REC.device_mark("replay_end", fid)
         if self.pipelined:
             return self._enqueue(_Pending(diag, points, pmask, n_valid, draws, cap,
                                           frame=fid))
         pk = self._read_packed(diag)
         if pk[pipeline.IDX_COMMITTED] == 0.0:
-            # The graphed synchronous step: a window overflowed and the state
-            # passed through; the dense step's graph, same draws.
             return self._run_dense(points, pmask, n_valid, draws, cap, fid)
         return self._finalize(diag, pk, cap, frame=fid)
 
@@ -568,26 +552,13 @@ class SlamEngine:
 
     def _run_dense(self, points, pmask, n_valid, draws, cap: int,
                    frame=None) -> FrameRecord:
-        """The graphed re-run of a frame that aborted: the step without
-        window compaction (which cannot abort) replayed with the frame's
+        """The re-run of a frame that aborted: the step without windows
+        (`Graphs.step(dense=True)`, which cannot abort) with the frame's
         draws, and its record."""
         self.state, self._ok, diag = self.graphs.step(
             self.cfg, self.tile, self.state,
             torch.ones((), dtype=torch.bool, device=self.device), points, pmask,
             n_valid, draws, self._keep, axes=self.axes, dense=True)
-        return self._finalize(diag, self._read_packed(diag), cap, frame=frame)
-
-    def _run_sync(self, points, pmask, n_valid, rng, cap: int,
-                  frame=None) -> FrameRecord:
-        """The synchronous step (host-side window decisions) and its record."""
-        if pmask is None:
-            self.state, diag = pipeline.odometry_step_compact(
-                self.state, points, n_valid, rng, self.cfg, self.tile,
-                axes=self.axes)
-        else:
-            self.state, diag = pipeline.odometry_step(
-                self.state, points, pmask, rng, self.cfg, self.tile,
-                n_valid=n_valid, axes=self.axes)
         return self._finalize(diag, self._read_packed(diag), cap, frame=frame)
 
     # -- pipelined mode -----------------------------------------------------
@@ -675,13 +646,12 @@ class SlamEngine:
 
     def _redispatch(self, stalled: List[_Pending]) -> Optional[FrameRecord]:
         """Re-run the stalled frames in order with the clouds and draws they
-        were dispatched with: graphed, each through the dense step's graph
-        (`_run_dense`: the first overflowed, and a later one may); eager,
-        through the synchronous step.  A frame preprocessed on the device is
-        re-ingested at its exact bucket, as the synchronous engine ingests
-        it.  The aborted steps left the state untouched and drew nothing
-        more, and the dense scan gives the compact window's results, so this
-        is the run the synchronous engine makes."""
+        were dispatched with, each through the dense step (`_run_dense`: the
+        first overflowed, and a later one may).  A frame preprocessed on the
+        device is re-ingested at its exact bucket, as the synchronous engine
+        ingests it.  The aborted steps left the state untouched and drew
+        nothing more, and the dense scan gives the compact window's results,
+        so these are the synchronous engine's records."""
         self._ok = torch.ones((), dtype=torch.bool, device=self.device)
         self._cursor_ub = None
         self.n_redispatched += len(stalled)
@@ -693,8 +663,8 @@ class SlamEngine:
                     points, pmask, n_valid = e.points, e.pmask, e.n_valid
                 else:
                     points, pmask, n_valid = self._exact_cloud(e.image)
-                rerun = self._run_sync if self.graphs.eager else self._run_dense
-                rec = rerun(points, pmask, n_valid, e.draws, self._capacity(), e.frame)
+                rec = self._run_dense(points, pmask, n_valid, e.draws, self._capacity(),
+                                      e.frame)
         return rec
 
     # -- records ------------------------------------------------------------

@@ -14,7 +14,7 @@ on the same buffers, so every result is bit for bit the eager run's.
 |---|---|---|
 | `pipeline.odometry_step_deferred`, pmask None | ("compact", bucket, capacity, tile, [axes], cfg) | points, n_valid (0-d int32), draws |
 | the same with a pmask | ("masked", bucket, capacity, tile, [axes], cfg) | points, pmask, n_valid, draws |
-| the same without window compaction (an aborted frame's re-run) | ("dense" or "dense_masked", bucket, capacity, tile, [axes], cfg') | as "compact" / "masked" |
+| the same with `pipeline.without_windows(cfg)` (an aborted frame's re-run) | ("dense" or "dense_masked", bucket, capacity, tile, [axes], cfg') | as "compact" / "masked" |
 | `pipeline.odometry_step_fused` | ("fused", bucket, capacity, selected is None, tile, cfg) | range_az, vert, selected, draws |
 | `mapstore.evict_keypoints` | ("evict", capacity, n_evict, [axis]) | none: the state buffers' map |
 | `loop_closure._verify_pair` | ("pair", K, inlier_th, iterations, icp_iterations) | both keyframes' kp, words, masks; draws |
@@ -26,16 +26,17 @@ on the same buffers, so every result is bit for bit the eager run's.
 
 [axes] and [axis] are there only on a mesh: each axis's `comm.Axis.key`
 (name, size, this rank, backend, process group), so two meshes never share
-a capture.  cfg' is cfg with `window_compact` off: the dense scans, which
-cannot overflow, and which give the compact windows' results (both are
-exact), so an aborted frame's re-run records what the synchronous eager
-step's fallback records.
+a capture.  cfg' is `pipeline.without_windows(cfg)`: the dense scans,
+which cannot overflow and give the compact windows' results (both are
+exact).
 
 The reference also compiles its sharded step and sharded BA
 (`parallel/sharded.py`, one program each with shardings) and keeps the
 window fallback and the map eviction inside its programs; here the mesh
 steps, the sharded BA, the dense re-run and the eviction are keys of the
-same set.
+same set.  Every step is the one commit-or-abort body
+(`pipeline._odometry_step_impl`): the engine reads the commit flag from the
+packed row and re-runs an aborted frame through the dense key.
 
 A key names every Python value its body closes over: a value outside the
 key would be frozen at capture, so a `Graphs` shared by engines of two
@@ -73,14 +74,14 @@ every collective through the host with a sync, which a capture refuses, so
 a mesh of such axes gets an eager set (`comm.capturable`).
 
 `Graphs(device, eager=True)` runs every body directly on the caller's
-tensors, with no buffers and no capture: the `graphs=False` engine and
-`find_loop_closures` call the same methods, so a caller never chooses
-between a program and its graph.
+tensors, with no buffers and no capture, and returns the body's own
+outputs: the engine (`graphs=False`, or a mesh whose collectives cannot be
+captured), the sharded step and `find_loop_closures` call the same methods
+either way, so no caller chooses between a program and its graph.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import gc
 import time
 from typing import Callable, NamedTuple, Optional
@@ -265,53 +266,63 @@ class Graphs:
 
     # -- the engine's steps -----------------------------------------------------
 
+    def _step(self, key: tuple, state, ok, body: Callable, args: tuple, keep):
+        """`body(state, ok, *args)` -> (state', committed, diag) through the
+        graph of `key`, the state and the commit flag written into their
+        buffers; returns (the state buffers, the ok buffer, the diagnostics
+        copied out as `_copied(diag, keep)`).  Eager: the body's own
+        (state', committed, diag)."""
+        if self.eager:
+            with _REC.span("slam.replay"):
+                return body(state, ok, *args)
+        bufs, okb = self.state_buffers(state), self._ok_buffer(ok)
+
+        def on_buffers(*static):
+            new, committed, diag = body(bufs, okb, *static)
+            return diag, list(zip(leaves(bufs), leaves(new))) + [(okb, committed)]
+
+        diag = self.run(key, on_buffers, args)
+        return bufs, okb, _copied(diag, keep)
+
     def step(self, cfg, tile: int, state, ok, points, pmask, n_valid, draws,
              keep, axes=None, dense: bool = False):
         """`pipeline.odometry_step_deferred(state, ok, points, pmask,
         n_valid, draws, cfg, tile, axes)` through its graph; n_valid is a
         0-d tensor, `axes` a mesh's `MeshAxes` (the state then holds a
-        `MapShard`).  With `dense` the step runs without window compaction:
-        it cannot abort, and it is the re-run of a frame that did.  Returns
-        (the state buffers, the ok buffer, diagnostics copied out: `packed`;
-        with `keep` also `features`, `corr_index` and `corr_inlier`, the
-        other fields None; with keep "all" every field)."""
-        bufs, okb = self.state_buffers(state), self._ok_buffer(ok)
+        `MapShard`).  With `dense` the step runs with
+        `pipeline.without_windows(cfg)`: it cannot abort on a window, and it
+        is the re-run of a frame that did.  Returns (the state buffers, the
+        ok buffer, diagnostics copied out: `packed`; with `keep` also
+        `features`, `corr_index` and `corr_inlier`, the other fields None;
+        with keep "all" every field).  Eager: the step's own outputs."""
         if dense:
-            cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
-                cfg.runtime, window_compact=False))
-
-        def body(points, pmask, n_valid, draws):
-            new, committed, diag = pipeline.odometry_step_deferred(
-                bufs, okb, points, pmask, n_valid, draws, cfg, tile, axes=axes)
-            return diag, list(zip(leaves(bufs), leaves(new))) + [(okb, committed)]
-
-        if dense:
+            cfg = pipeline.without_windows(cfg)
             kind = "dense" if pmask is None else "dense_masked"
         else:
             kind = "compact" if pmask is None else "masked"
-        key = (kind, points.shape[0], bufs.map.positions.shape[0], tile) + _axes_key(
+
+        def body(state, ok, points, pmask, n_valid, draws):
+            return pipeline.odometry_step_deferred(state, ok, points, pmask, n_valid,
+                                                   draws, cfg, tile, axes=axes)
+
+        key = (kind, points.shape[0], state.map.positions.shape[0], tile) + _axes_key(
             axes) + (cfg,)
-        diag = self.run(key, body, (points, pmask, n_valid.to(torch.int32).reshape(()),
-                                     draws))
-        return bufs, okb, _copied(diag, keep)
+        return self._step(key, state, ok, body, (
+            points, pmask, n_valid.to(torch.int32).reshape(()), draws), keep)
 
     def fused(self, cfg, tile: int, state, ok, image: tuple, bucket: int, draws,
               keep: bool):
         """`pipeline.odometry_step_fused` of `image` (range_az, vert,
         selected or None) at `bucket` through its graph; returns as
         `step`."""
-        bufs, okb = self.state_buffers(state), self._ok_buffer(ok)
 
-        def body(range_az, vert, sel, draws):
-            new, committed, diag = pipeline.odometry_step_fused(
-                bufs, okb, range_az, vert, sel, cfg.preprocess, cfg, bucket, draws,
-                tile)
-            return diag, list(zip(leaves(bufs), leaves(new))) + [(okb, committed)]
+        def body(state, ok, range_az, vert, sel, draws):
+            return pipeline.odometry_step_fused(state, ok, range_az, vert, sel,
+                                                cfg.preprocess, cfg, bucket, draws, tile)
 
         range_az, vert, sel = image
-        key = ("fused", bucket, bufs.map.positions.shape[0], sel is None, tile, cfg)
-        diag = self.run(key, body, (range_az, vert, sel, draws))
-        return bufs, okb, _copied(diag, keep)
+        key = ("fused", bucket, state.map.positions.shape[0], sel is None, tile, cfg)
+        return self._step(key, state, ok, body, (range_az, vert, sel, draws), keep)
 
     def evict(self, state, n_evict: int, axis=None):
         """`mapstore.evict_keypoints(state.map, n_evict, axis)` through its

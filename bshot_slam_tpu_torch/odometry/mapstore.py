@@ -153,16 +153,14 @@ def insert_keypoints(
     cfg: MapConfig,
     frame_idx=-1,  # () int32 provenance for frame_born
     window_cap: int | None = None,
-    deferred: bool = False,
     axis: comm.Axis | None = None,
 ):
     """Batched equivalent of K sequential `Map::addKeypoint` calls.
 
-    With `deferred`, the dedup window is never checked on the host: the
-    compact window always runs and the call returns (state, fits), `fits`
-    a device bool that is False when the window overflowed `window_cap`
-    (the state is then wrong and the caller must discard it).  With `axis`
-    the state is a `MapShard` along it (no window)."""
+    Returns (state, fits), `fits` a device bool that is False when the
+    dedup window overflowed `window_cap` (the compact window ran anyway: the
+    state is then wrong and the caller must discard it).  With `axis` the
+    state is a `MapShard` along it (no window)."""
     dev = pos.device
     pos = snap_positions(pos, cfg.snap_mm)
     blk = block_coords(pos, cfg.block_size_mm)
@@ -170,7 +168,7 @@ def insert_keypoints(
 
     # Dedup against the map: either every row up to the cursor, or (with
     # `window_cap`) the rows whose block lies in the batch's block box —
-    # an exact superset of the possible blockers — unless they overflow it.
+    # an exact superset of the possible blockers — compacted to the window.
     C = state.positions.shape[0]
     fits = torch.ones((), dtype=torch.bool, device=dev)
     if axis is not None:
@@ -191,18 +189,12 @@ def insert_keypoints(
         )
         n_win = torch.sum(inwin.to(torch.int32))
         fits = n_win <= W
-        if not deferred and not fits:  # host sync: the dense scan
-            rejected_by_map = _dedup_against(
-                pos, blk, seg, state.positions, state.blocks, state.seg_ratios,
-                state.valid, state.cursor, cfg,
-            )
-        else:
-            widx = compact_indices(inwin, W)
-            wmask = torch.arange(W, dtype=torch.int32, device=dev) < n_win
-            rejected_by_map = _dedup_against(
-                pos, blk, seg, state.positions[widx], state.blocks[widx],
-                state.seg_ratios[widx], wmask, n_win, cfg,
-            )
+        widx = compact_indices(inwin, W)
+        wmask = torch.arange(W, dtype=torch.int32, device=dev) < n_win
+        rejected_by_map = _dedup_against(
+            pos, blk, seg, state.positions[widx], state.blocks[widx],
+            state.seg_ratios[widx], wmask, n_win, cfg,
+        )
     else:
         rejected_by_map = _dedup_against(
             pos, blk, seg, state.positions, state.blocks, state.seg_ratios,
@@ -249,7 +241,7 @@ def insert_keypoints(
         n_dropped=(state.n_dropped + torch.sum(accept.to(torch.int32))
                    - n_ok).to(torch.int32),
     )
-    return (new_state, fits) if deferred else new_state
+    return new_state, fits
 
 
 def evict_keypoints(state: MapState, n_evict: int,

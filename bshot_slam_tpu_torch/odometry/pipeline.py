@@ -9,33 +9,38 @@ Stage order: keypoints + descriptors (one shared-moments sweep, kernels A
 and B), map-window matching (kernel C), RANSAC, pose gate, ICP (kernel D,
 10 launches), map insert (kernel E), and the packed diagnostics row.
 
-Where the reference branches on device values with `lax.cond` (window
-overflow), the synchronous step fetches the scalar and branches in Python:
-one host sync per branch.  The deferred step (`odometry_step_deferred`,
-the pipelined engine's) never syncs: it always runs the compact windows,
-computes on the device whether both fit, and commits its state only then
-(commit-or-abort, as the reference's fused step does for its cloud
-bucket); the engine re-runs an aborted frame through the synchronous step.
-The fused step (`odometry_step_fused`) puts the device preprocess of a
-range image in front of the deferred step, and aborts as well when the kept
-points overflow the cloud bucket the engine predicted.
+There is one step body, `_odometry_step_impl`, and it never syncs with the
+host: it commits or aborts on the device.  Where the reference branches
+with `lax.cond` on a window overflow, the body always runs the compact
+match and dedup windows, computes on the device whether both fit, and
+commits its state only then and only when the caller's `ok` holds;
+otherwise `state` passes through unchanged and `committed` is False.  An
+aborted frame is re-run with `without_windows(cfg)`, whose dense scans
+cannot overflow and give the compact windows' results (both are exact),
+with the same RANSAC draws.  `odometry_step_deferred` is that body as the
+engine's graphs run it; the fused step (`odometry_step_fused`) puts the
+device preprocess of a range image in front of it, and aborts as well when
+the kept points overflow the cloud bucket the engine predicted.
+`odometry_step` and `odometry_step_compact` keep the reference's names and
+outputs: they take the frame's draws once, run the body, and where a
+window can overflow read `committed` once and re-run without windows.
 `rng` takes the place of the reference's PRNG key: a `torch.Generator`, or
 the (H, 3) RANSAC draws.
 
-The synchronous, compact and deferred steps also run sharded
-(`axes`, a `parallel.sharded.MeshAxes`): every rank runs the step on the
-same inputs, with the map state a `mapstore.MapShard` along the map axis.
-Kernels A and B take the rank's query rows of the data axis and one
-all-gather assembles the per-row sums; C, D and E run on the rank's map
-rows and their results combine exactly (`parallel.layout`); everything else
-runs alike on every rank, so the records are the single-device step's bit
-for bit.  Mesh mode runs without window compaction
-(`parallel.sharded.mesh_runtime_overrides`); the fused step stays
-single-device.
+The steps also run sharded (`axes`, a `parallel.sharded.MeshAxes`): every
+rank runs the step on the same inputs, with the map state a
+`mapstore.MapShard` along the map axis.  Kernels A and B take the rank's
+query rows of the data axis and one all-gather assembles the per-row sums;
+C, D and E run on the rank's map rows and their results combine exactly
+(`parallel.layout`); everything else runs alike on every rank, so the
+records are the single-device step's bit for bit.  A sharded map is
+scanned without windows (`parallel.sharded.mesh_runtime_overrides`), so a
+mesh step never aborts; the fused step stays single-device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
@@ -53,11 +58,11 @@ from bshot_slam_tpu_torch.kernels.neighborhood import (
 )
 from bshot_slam_tpu_torch.ops.keypoints import (
     _finalize_scores, extract_keypoints, keypoints_from_scores, moment_features,
-    moments_from_sums,
+    moments_from_sums, top_k,
 )
 from bshot_slam_tpu_torch.ops.normals import normals_from_moments, surface_normals
-from bshot_slam_tpu_torch.ops.ransac import ransac_rigid
-from bshot_slam_tpu_torch.ops.shot import chunked_top_k, shot_descriptors
+from bshot_slam_tpu_torch.ops.ransac import ransac_rigid, uniform_draws
+from bshot_slam_tpu_torch.ops.shot import shot_descriptors
 from bshot_slam_tpu_torch.parallel import layout
 
 # Packed-diagnostics layout (StepDiagnostics.packed), identical to the
@@ -165,8 +170,7 @@ def compute_features(points: torch.Tensor, pmask: torch.Tensor,
     if share:
         cnt, psum, outer, scores = _shared_sweep(points, pmask, cfg.keypoints,
                                                  tile, data_axis)
-        top_scores, top_idx = chunked_top_k(scores, cfg.keypoints.top_k,
-                                            cfg.runtime.topk_chunks)
+        top_scores, top_idx = top_k(scores, cfg.keypoints.top_k)
         kps = keypoints_from_scores(points, top_scores, top_idx)
         normals, _, _ = normals_from_moments(points, pmask, cnt, psum, outer)
     else:
@@ -179,20 +183,18 @@ def compute_features(points: torch.Tensor, pmask: torch.Tensor,
         else:  # reference-mimic mode: zero surface normals
             normals = torch.zeros_like(points)
     desc_f, desc_valid = shot_descriptors(
-        kps.positions, kps.mask, points, pmask, normals, cfg.descriptor,
-        topk_chunks=cfg.runtime.topk_chunks,
-    )
+        kps.positions, kps.mask, points, pmask, normals, cfg.descriptor)
     words = bshot.bshot_from_shot(desc_f, cfg.descriptor)
     return FrameFeatures(keypoints=kps.positions, scores=kps.scores,
                          descriptors=words, mask=kps.mask & desc_valid)
 
 
 def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
-                        cfg: SlamConfig, deferred: bool = False, map_axis=None):
-    """featureMatching + evaluateEstimation.  Also returns `fits`: with
-    `deferred`, a device bool that is False when the match window overflowed
-    (the compact window ran anyway and the results are to be discarded);
-    otherwise True.  With `map_axis` the map is a shard along it."""
+                        cfg: SlamConfig, map_axis=None):
+    """featureMatching + evaluateEstimation.  Also returns `fits`, a device
+    bool that is False when the match window overflowed (the compact window
+    ran anyway and the results are to be discarded).  With `map_axis` the
+    map is a shard along it."""
     mcfg = cfg.match
     ref_pose = state.ref_pose
     center = se3.translation(ref_pose)
@@ -207,7 +209,7 @@ def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
 
     # Window compaction: gather the in-window rows (ascending) into a
     # (window_cap, ...) buffer so matching and ICP scale with the local map;
-    # on overflow the dense full-capacity scan runs instead (lossless).
+    # `fits` says whether they all fitted.
     W = cfg.runtime.window_cap
     use_compact = cfg.runtime.window_compact and capacity > W
     if map_axis is not None and cfg.runtime.window_compact:
@@ -217,9 +219,6 @@ def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
     if use_compact:
         n_win = torch.sum(win.to(torch.int32))
         fits = n_win <= W
-        if not deferred:
-            use_compact = bool(fits)  # host sync: the dense fallback
-    if use_compact:
         widx = mapstore.compact_indices(win, W)
         wmask = torch.arange(W, dtype=torch.int32, device=dev) < n_win
         cand_pos = torch.cat(
@@ -301,20 +300,20 @@ def _match_and_estimate(rng, src: FrameFeatures, state: OdometryState,
 def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
                         pmask: torch.Tensor, rng, cfg: SlamConfig,
                         tile: int = 2048, n_valid=None, ok=None, axes=None):
-    """One full SLAM frame; `n_valid` (the cloud count) optionally rides in
-    `packed` with the [n_valid, bucket, committed] tail.  With `ok` (a
-    device bool: no earlier in-flight frame aborted) the step is deferred:
-    it commits only when `ok` holds and both windows fit, passes `state`
-    through otherwise, and returns (state', committed, diag).  `axes` (a
-    `parallel.sharded.MeshAxes`) runs it sharded."""
+    """One full SLAM frame, commit-or-abort on the device: it commits only
+    when `ok` (a device bool: no earlier in-flight frame aborted; True when
+    None) holds and both windows fit, and passes `state` through otherwise.
+    Returns (state', committed, diag).  `n_valid` (the cloud count)
+    optionally rides in `packed` with the [n_valid, bucket, committed]
+    tail.  `axes` (a `parallel.sharded.MeshAxes`) runs it sharded."""
     dev = points.device
-    deferred = ok is not None
+    if ok is None:
+        ok = torch.ones((), dtype=torch.bool, device=dev)
     data_axis = None if axes is None else axes.data
     map_axis = None if axes is None else axes.map
     src = compute_features(points, pmask, cfg, tile, data_axis)
     (T_best, rr, corr_index, n_mutual, gate, h_diff, t_diff, icp_rmse,
-     corr_stats, match_fits) = _match_and_estimate(rng, src, state, cfg,
-                                                   deferred, map_axis)
+     corr_stats, match_fits) = _match_and_estimate(rng, src, state, cfg, map_axis)
 
     # INITIAL frame: identity pose, no gating.
     is_initial = state.frame_idx == 0
@@ -324,21 +323,17 @@ def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
 
     # updateMap: insert the keypoints transformed by the accepted pose.
     world_kp = se3.apply(T_best, src.keypoints)
-    new_map = mapstore.insert_keypoints(
+    new_map, dedup_fits = mapstore.insert_keypoints(
         state.map, world_kp, src.descriptors, src.scores, src.mask, cfg.map,
         frame_idx=state.frame_idx,
         window_cap=(cfg.runtime.window_cap if cfg.runtime.window_compact
                     else None),
-        deferred=deferred, axis=map_axis,
+        axis=map_axis,
     )
-    committed = torch.ones((), dtype=torch.bool, device=dev)
-    if deferred:
-        new_map, dedup_fits = new_map
-        committed = ok & match_fits & dedup_fits
+    committed = ok & match_fits & dedup_fits
     new_state = OdometryState(map=new_map, ref=src, ref_pose=T_best,
                               frame_idx=state.frame_idx + 1)
-    if deferred:  # abort: every field passes through unchanged
-        new_state = _select(committed, new_state, state)
+    new_state = _select(committed, new_state, state)  # abort: all passes through
     msize = mapstore.map_size(new_map, map_axis)
     f32 = torch.float32
     parts = [
@@ -362,9 +357,7 @@ def _odometry_step_impl(state: OdometryState, points: torch.Tensor,
         corr_inlier=rr.inliers & ~is_initial, features=src,
         n_dropped=new_map.n_dropped, packed=torch.cat(parts),
     )
-    if deferred:
-        return new_state, committed, diag
-    return new_state, diag
+    return new_state, committed, diag
 
 
 def _select(cond: torch.Tensor, a, b):
@@ -374,37 +367,63 @@ def _select(cond: torch.Tensor, a, b):
     return torch.where(cond, a, b)
 
 
+def without_windows(cfg: SlamConfig) -> SlamConfig:
+    """The configuration of the step that re-runs an aborted frame: window
+    compaction off, so matching, ICP and the dedup scan the whole map.  That
+    step cannot abort on a window, and it gives the compact windows'
+    results (both are exact).  A sharded map always runs with it."""
+    return dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, window_compact=False))
+
+
+def _step_or_rerun(state, points, pmask, rng, cfg, tile, n_valid, axes):
+    """The step body with the frame's draws taken from `rng` once; where a
+    window can overflow, `committed` is read on the host (one sync) and an
+    aborted frame runs again without windows, with the same draws.
+    Returns (state', diag)."""
+    draws = uniform_draws(rng, cfg.match.ransac_iterations, points.device)
+    new, committed, diag = _odometry_step_impl(state, points, pmask, draws, cfg,
+                                               tile, n_valid, axes=axes)
+    if (cfg.runtime.window_compact
+            and state.map.positions.shape[0] > cfg.runtime.window_cap
+            and not bool(committed)):
+        new, _, diag = _odometry_step_impl(state, points, pmask, draws,
+                                           without_windows(cfg), tile, n_valid,
+                                           axes=axes)
+    return new, diag
+
+
 def odometry_step(state: OdometryState, points: torch.Tensor,
                   pmask: torch.Tensor, rng, cfg: SlamConfig, tile: int = 2048,
                   n_valid=None, axes=None):
-    return _odometry_step_impl(state, points, pmask, rng, cfg, tile, n_valid,
-                               axes=axes)
-
-
-odometry_step.__doc__ = _odometry_step_impl.__doc__
+    """One full SLAM frame: (state', diag).  `n_valid` (the cloud count)
+    optionally rides in `packed` with the [n_valid, bucket, committed]
+    tail; `axes` (a `parallel.sharded.MeshAxes`) runs it sharded.  A frame
+    whose window overflows is run again without windows (see the module
+    docstring)."""
+    return _step_or_rerun(state, points, pmask, rng, cfg, tile, n_valid, axes)
 
 
 def odometry_step_compact(state: OdometryState, points: torch.Tensor,
                           n_valid: int, rng, cfg: SlamConfig, tile: int = 2048,
                           axes=None):
-    """Odometry step over a host-preprocessed compact cloud: points
+    """`odometry_step` over a host-preprocessed compact cloud: points
     (bucket, 3) front-compacted, `n_valid` exact; the validity mask is
     `iota < n_valid`."""
     pmask = torch.arange(points.shape[0], device=points.device) < n_valid
-    return _odometry_step_impl(state, points, pmask, rng, cfg, tile,
-                               n_valid=n_valid, axes=axes)
+    return _step_or_rerun(state, points, pmask, rng, cfg, tile, n_valid, axes)
 
 
 def odometry_step_deferred(state: OdometryState, ok: torch.Tensor,
                            points: torch.Tensor, pmask: torch.Tensor | None,
                            n_valid, rng, cfg: SlamConfig, tile: int = 2048,
                            axes=None):
-    """The pipelined engine's step: no host sync.  `pmask=None` means a
-    front-compacted cloud (`iota < n_valid`).  Commits only when `ok` holds
-    and the match and dedup windows fit `window_cap`; otherwise `state`
-    passes through unchanged and the packed row's committed flag is 0, so
-    the engine re-runs the frame (and every later in-flight frame) through
-    the synchronous step.  Returns (state', committed, diag)."""
+    """The step body as the engine's graphs run it: no host sync.
+    `pmask=None` means a front-compacted cloud (`iota < n_valid`).  Commits
+    only when `ok` holds and the match and dedup windows fit `window_cap`;
+    otherwise `state` passes through unchanged and the packed row's
+    committed flag is 0, and the engine re-runs the frame (and every later
+    in-flight frame) without windows.  Returns (state', committed, diag)."""
     if pmask is None:
         pmask = torch.arange(points.shape[0], device=points.device) < n_valid
     return _odometry_step_impl(state, points, pmask, rng, cfg, tile,

@@ -18,7 +18,7 @@ import torch
 from bshot_slam_tpu_torch.config import DescriptorConfig
 from bshot_slam_tpu_torch.geometry.eig3 import eigh3
 from bshot_slam_tpu_torch.kernels.neighborhood import shot_neighbors
-from bshot_slam_tpu_torch.ops.keypoints import fma_dot3, top_k
+from bshot_slam_tpu_torch.ops.keypoints import fma_dot3
 
 _EPS = 1e-12
 
@@ -30,15 +30,6 @@ class NeighborGather(NamedTuple):
     nmask: torch.Tensor  # (K, M) within-radius validity
 
 
-def chunked_top_k(score: torch.Tensor, k: int, chunks: int):
-    """Exact top-k over the last axis, ties to the lowest index.
-
-    The reference splits the selection in `chunks` stages for its sharded
-    and approximate paths; an exact two-stage selection returns the same
-    result as one stage, so `chunks` has no effect here."""
-    return top_k(score, k)
-
-
 def gather_neighbors(
     keypoints: torch.Tensor,
     kp_mask: torch.Tensor,
@@ -47,12 +38,10 @@ def gather_neighbors(
     normals: torch.Tensor,
     radius: float,
     max_neighbors: int,
-    topk_chunks: int = 1,
 ) -> NeighborGather:
     """Nearest `max_neighbors` in-radius surface points per keypoint;
     zero-distance duplicates of the keypoint are excluded.  The selection
-    is kernel H (`kernels.neighborhood.shot_neighbors`); `topk_chunks` has
-    no effect (see `chunked_top_k`)."""
+    is kernel H (`kernels.neighborhood.shot_neighbors`)."""
     idx = shot_neighbors(keypoints, kp_mask, points, mask, radius, max_neighbors)
     r2 = radius * radius
     pnv = torch.cat([points, normals, mask.to(torch.float32)[:, None]], dim=1)
@@ -117,12 +106,11 @@ def shot_descriptors(
     mask: torch.Tensor,
     normals: torch.Tensor,
     cfg: DescriptorConfig,
-    topk_chunks: int = 1,
 ):
     """SHOT descriptors: (desc (K, 352) f32 L2-normalised, valid (K,))."""
     radius = cfg.shot_radius_mm
     g = gather_neighbors(keypoints, kp_mask, points, mask, normals, radius,
-                         cfg.max_neighbors, topk_chunks=topk_chunks)
+                         cfg.max_neighbors)
     frames, lrf_valid = local_reference_frames(g, radius)
 
     local = torch.einsum("kai,kmi->kma", frames, g.rel)  # (K, M, 3)

@@ -20,17 +20,17 @@ sharded step gives the single-device step's results bit for bit
 Every rank runs the same host program on the same inputs (SPMD), including
 its RANSAC draws from identically seeded generators.
 
-The sharded step and the sharded bundle adjustment replay CUDA graphs
-(`odometry.graphs`), as the reference compiles each into one program, when
-their collectives can be captured: every axis NCCL on the card
-(`comm.capturable`).  On gloo with CUDA tensors each collective stages
-through the host with a sync, which a capture refuses: there they run
-eagerly.  On the CPU the graphs' bodies run on their static buffers.
+The sharded step and the sharded bundle adjustment run through
+`odometry.graphs`, as the reference compiles each into one program: they
+replay CUDA graphs when their collectives can be captured, every axis NCCL
+on the card (`comm.capturable`).  On gloo with CUDA tensors each collective
+stages through the host with a sync, which a capture refuses: there their
+`Graphs` is eager and runs the same bodies directly.  On the CPU the
+graphs' bodies run on their static buffers.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 import math
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -131,12 +131,11 @@ def gather_state(state: OdometryState, mesh, map_axis: str = "map") -> OdometryS
 
 def mesh_runtime_overrides(cfg: SlamConfig, n_data: int) -> SlamConfig:
     """The reference's config overrides for mesh execution: window
-    compaction off (a sharded map is scanned densely, each rank its own
-    rows) and `topk_chunks` a multiple of the data ranks (the port's top-k
-    is one exact stage, on which it has no effect)."""
-    chunks = n_data * max(1, 8 // n_data)
-    return dataclasses.replace(cfg, runtime=dataclasses.replace(
-        cfg.runtime, window_compact=False, topk_chunks=chunks))
+    compaction off (`pipeline.without_windows`: a sharded map is scanned
+    densely, each rank its own rows).  `n_data`, the data ranks, sets the
+    reference's top-k chunks, which the port's one exact top-k does not
+    read."""
+    return pipeline.without_windows(cfg)
 
 
 def sharded_odometry_step(mesh, cfg: SlamConfig, tile: int = 2048,
@@ -147,28 +146,25 @@ def sharded_odometry_step(mesh, cfg: SlamConfig, tile: int = 2048,
     step(state, points, pmask, rng) is `pipeline.odometry_step` over the
     mesh, with `mesh_runtime_overrides`; every rank calls it with the same
     whole cloud and rng (a `torch.Generator` or the (H, 3) draws).  It
-    replays through `step.graphs`, a `Graphs` of its own (eager where the
+    runs through `step.graphs`, a `Graphs` of its own (eager where the
     collectives cannot be captured): the draws are taken from the
-    generator before the replay (the numbers the eager step draws), and
-    the state it returns is copied out of the graphs' buffers, so the
-    caller's states stay as they were (the reference donates nothing
-    here).  shard_state places a whole OdometryState on this rank.  On a
-    multi-host mesh pass data_axis="devices", map_axis="hosts"."""
+    generator before the step (the numbers `odometry_step` draws), and the
+    state it returns is a copy, so the caller's states stay as they were
+    (the reference donates nothing here).  shard_state places a whole
+    OdometryState on this rank.  On a multi-host mesh pass
+    data_axis="devices", map_axis="hosts"."""
     axes = mesh_axes(mesh, data_axis, map_axis)
     cfg = mesh_runtime_overrides(cfg, axes.data.size)
     dev = mesh_device(mesh)
     graphs = graphs_mod.Graphs(dev, eager=not comm.capturable(dev, axes))
 
     def step(state, points, pmask, rng):
-        if graphs.eager:
-            return pipeline.odometry_step(state, points, pmask, rng, cfg, tile,
-                                          axes=axes)
         draws = uniform_draws(rng, cfg.match.ransac_iterations, points.device)
         ok = torch.ones((), dtype=torch.bool, device=points.device)
-        bufs, _, diag = graphs.step(cfg, tile, state, ok, points, pmask,
-                                    torch.sum(pmask, dtype=torch.int32), draws,
-                                    keep="all", axes=axes)
-        return (graphs_mod.clone_tree(bufs),
+        new, _, diag = graphs.step(cfg, tile, state, ok, points, pmask,
+                                   torch.sum(pmask, dtype=torch.int32), draws,
+                                   keep="all", axes=axes)
+        return (graphs_mod.clone_tree(new),
                 diag._replace(packed=diag.packed[:pipeline.PACKED_LEN]))
 
     def place(state):

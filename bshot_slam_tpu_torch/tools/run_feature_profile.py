@@ -79,7 +79,9 @@ def main(argv=None) -> int:
     from bshot_slam_tpu_torch.odometry import pipeline
     from bshot_slam_tpu_torch.ops import bshot as bshot_mod
     from bshot_slam_tpu_torch.ops import shot as shot_mod
-    from bshot_slam_tpu_torch.ops.keypoints import neighborhood_moments, seg_ratio_scores
+    from bshot_slam_tpu_torch.ops.keypoints import (
+        neighborhood_moments, seg_ratio_scores, top_k,
+    )
     from bshot_slam_tpu_torch.ops.normals import normals_from_moments
     from bshot_slam_tpu_torch.tools.run_stage_bench import bench_frame, columns
     from bshot_slam_tpu_torch.utils.profiling import stage_times
@@ -90,7 +92,7 @@ def main(argv=None) -> int:
     p = torch.as_tensor(pts, device=device)
     m = torch.as_tensor(pmask, device=device)
     kc, dc = cfg.keypoints, cfg.descriptor
-    K, chunks, tile = kc.top_k, cfg.runtime.topk_chunks, args.tile
+    K, tile = kc.top_k, args.tile
 
     def moments():
         return neighborhood_moments(p, m, kc.radius_mm, tile)
@@ -103,7 +105,7 @@ def main(argv=None) -> int:
     sc = scores()
 
     def topk():
-        return shot_mod.chunked_top_k(sc, K, chunks)
+        return top_k(sc, K)
 
     top_scores, top_idx = topk()
 
@@ -116,7 +118,7 @@ def main(argv=None) -> int:
 
     def gather():
         return shot_mod.gather_neighbors(kps, kmask, p, m, nrm, dc.shot_radius_mm,
-                                         dc.max_neighbors, topk_chunks=chunks)
+                                         dc.max_neighbors)
 
     g = gather()
     sel = selection(kps, kmask, p, m, dc.shot_radius_mm, dc.max_neighbors)
@@ -125,7 +127,7 @@ def main(argv=None) -> int:
         return shot_mod.local_reference_frames(g, dc.shot_radius_mm)
 
     def shot():
-        return shot_mod.shot_descriptors(kps, kmask, p, m, nrm, dc, topk_chunks=chunks)
+        return shot_mod.shot_descriptors(kps, kmask, p, m, nrm, dc)
 
     desc, _ = shot()
 

@@ -7,8 +7,8 @@
 Times each stage of a frame as the engine runs it, each on its own:
 the host preprocess (the native classify + extract of `io.native_decoder`,
 which the engine runs), `pipeline.compute_features`,
-`pipeline._match_and_estimate` (deferred, as the pipelined engine calls it:
-no host sync) and the map insert (`mapstore.insert_keypoints`, deferred).
+`pipeline._match_and_estimate` and the map insert
+(`mapstore.insert_keypoints`), as the step body calls them: no host sync.
 The inputs are the second frame of the bench drive's first two frames
 (`render_sequence(seed=0)`, 400 mm steps, 20 mm noise), padded to
 `--bucket` rows, against the state after the first frame, whose map was
@@ -169,7 +169,7 @@ def main(argv=None) -> int:
     feats = features()
 
     def match():
-        return pipeline._match_and_estimate(gen, feats, state, cfg, deferred=True)
+        return pipeline._match_and_estimate(gen, feats, state, cfg)
 
     T0 = match()[0]
 
@@ -177,7 +177,7 @@ def main(argv=None) -> int:
         return mapstore.insert_keypoints(
             state.map, se3.apply(T0, feats.keypoints), feats.descriptors,
             feats.scores, feats.mask, cfg.map, frame_idx=state.frame_idx,
-            window_cap=window, deferred=True)
+            window_cap=window)
 
     stages = {
         "preprocess(host native)": host,

@@ -133,11 +133,10 @@ Phases, one line each:
      this call (eager, graphed, graphed, eager; the graphed runs replay the
      captures of the earlier phase's engine): [4]'s synchronous and [4b]'s
      pipelined drives, [4b]'s forced window overflow both ways (each
-     aborted frame re-run from the dense step's graph, no eager step),
-     [7]'s fused engines and spike, and [4d]'s backend drive; records
-     (loop edges included) bit-identical, kernel launches equal (the
-     synchronous overflow run: more, each abort replaying two steps,
-     graphed); frames/s and launches
+     aborted frame re-run through the dense step, replayed from its graph
+     or eager, the same frames in both modes), [7]'s fused engines and
+     spike, and [4d]'s backend drive; records (loop edges included)
+     bit-identical, kernel launches equal; frames/s and launches
      a frame of each, the captures, their seconds and the bytes of the
      graphs' memory pool of the earlier run, the backend passes' ms whole
      and by part (the drive's pair verification, keyframe histograms and
@@ -1538,7 +1537,6 @@ def spike_phase(cfg, dev, graphs=True) -> dict:
     synchronous and the pipelined (`fetch_every=4`) fused engines; the spike
     overflows its predicted bucket, and the frames after it run at a
     predicted bucket above their exact one."""
-    from bshot_slam_tpu_torch.odometry import pipeline
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
     from tests.torch_kernel_cases import overflow_sequence
 
@@ -1553,20 +1551,13 @@ def spike_phase(cfg, dev, graphs=True) -> dict:
         return call
 
     runs, launches = [], {}
-    fused = pipeline.odometry_step_fused
     for pipelined in (False, True):
         eng = SlamEngine(cfg, seed=0, device=dev, host_preprocess=False,
                          pipelined=pipelined, fetch_every=4, graphs=graphs)
-        if eng.graphs.eager:
-            pipeline.odometry_step_fused = recording(fused, 7)
-        else:
-            eng.graphs.fused = recording(eng.graphs.fused, 5)
-        try:
-            _, launches[pipelined] = counted(
-                lambda: [eng.process_range_image(r, az, vert) for r, az in frames]
-                + [eng.flush()])
-        finally:
-            pipeline.odometry_step_fused = fused
+        eng.graphs.fused = recording(eng.graphs.fused, 5)
+        _, launches[pipelined] = counted(
+            lambda: [eng.process_range_image(r, az, vert) for r, az in frames]
+            + [eng.flush()])
         runs.append(eng)
     return dict(frames=len(frames), equal=records_equal(runs[1].records, runs[0].records),
                 redispatched=runs[1].n_redispatched, buckets=buckets,
@@ -1934,21 +1925,20 @@ def in_turns(make, frames, warm) -> dict:
     (`graphs=False`, or `warm`, an earlier graphed engine's `Graphs`, whose
     captures the graphed runs replay), `frames(eng)` drives it (flush
     included).  Frames/s and launches a frame of each run, and each side's
-    last engine, which counts its eager steps (`run_sync_calls`) and its
-    re-runs through the dense step's graph (`run_dense_calls`)."""
+    last engine, which counts its re-runs through the dense step
+    (`run_dense_calls`)."""
     import torch
 
     out = {"eager": [], "graphed": []}
     for side in ("eager", "graphed", "graphed", "eager"):
         eng = make(False if side == "eager" else warm)
-        for name in ("_run_sync", "_run_dense"):
-            setattr(eng, name[1:] + "_calls", 0)
+        eng.run_dense_calls = 0
 
-            def counting(*a, eng=eng, name=name, method=getattr(eng, name)):
-                setattr(eng, name[1:] + "_calls", getattr(eng, name[1:] + "_calls") + 1)
-                return method(*a)
+        def counting(*a, eng=eng, method=eng._run_dense):
+            eng.run_dense_calls += 1
+            return method(*a)
 
-            setattr(eng, name, counting)
+        eng._run_dense = counting
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         n, launches = counted(lambda: frames(eng))
@@ -2015,7 +2005,7 @@ def graphs_phase(cfg, sweeps, drive_sweeps, dev, earlier: dict) -> dict:
                  pool_bytes=pool_bytes(first.graphs),
                  redispatched=(r["graphed_eng"].n_redispatched,
                                r["eager_eng"].n_redispatched),
-                 eager_steps=r["graphed_eng"].run_sync_calls,
+                 eager_dense=r["eager_eng"].run_dense_calls,
                  dense_replays=r["graphed_eng"].run_dense_calls,
                  dense_keys=sorted(k[:2] for k in first.graphs._graphs
                                    if k[0].startswith("dense")))
@@ -2871,26 +2861,22 @@ def main() -> int:
               f"{r['eager'][0]['per_frame']:.2f} (equal per kernel: {r['launches_equal']}); "
               f"records bit-identical graphed vs eager {r['records_equal']}, vs the earlier "
               f"phase's {r['earlier_equal']}; pipelined frames re-run (graphed, eager) "
-              f"{r['redispatched']}; in the last graphed run eager steps "
-              f"{r['eager_steps']}, re-runs replayed from the dense step's graph "
-              f"{r['dense_replays']}; the earlier run's captures {r['captures']} "
+              f"{r['redispatched']}; re-runs through the dense step in the last "
+              f"graphed run {r['dense_replays']}, eager {r['eager_dense']}; the "
+              f"earlier run's captures {r['captures']} "
               f"(dense keys {r['dense_keys']}) in {r['capture_s']:.3f} s, pool "
               f"{r['pool_bytes']} bytes", flush=True)
-        # A synchronous graphed frame that aborts replays its step and then
-        # the dense one: more launches than the eager engine's, there.
-        launches_ok = r["launches_equal"] if name != "overflow_sync_12" else (
-            r["dense_replays"] > 0 and all(
-                g["per_frame"] > e["per_frame"] for g, e in zip(r["graphed"], r["eager"])))
-        dense_ok = True
+        # Both modes re-run the same frames through the same dense body.
+        dense_ok = r["dense_replays"] == r["eager_dense"]
         if name.startswith("overflow"):  # every re-run through the dense graph
-            dense_ok = bool(r["dense_keys"]) and r["dense_replays"] > 0 and (
+            dense_ok = dense_ok and bool(r["dense_keys"]) and r["dense_replays"] > 0 and (
                 "pipelined" not in name or r["dense_replays"] == r["redispatched"][0])
-        if not (r["records_equal"] and r["earlier_equal"] and launches_ok and dense_ok
-                and r["eager_steps"] == 0):
+        if not (r["records_equal"] and r["earlier_equal"] and r["launches_equal"]
+                and dense_ok):
             bad.append(name)
     o_s, o_p = gp["overflow_sync_12"], gp["overflow_pipelined_12"]
     print(f"[11] {card}: the window overflow's re-runs replayed from the dense step's "
-          f"graph, no eager step: launches a frame synchronous "
+          f"graph: launches a frame synchronous "
           f"{o_s['graphed'][0]['per_frame']:.2f}, pipelined "
           f"{o_p['graphed'][0]['per_frame']:.2f}; frames/s synchronous "
           f"{[round(x['fps'], 3) for x in o_s['graphed']]}, pipelined "

@@ -513,14 +513,14 @@ def _graph_drive(dev, graphs: bool, frames=None, **kw):
             full[f][:n] = torch.tensor(v, device=dev)
         full["cursor"] = torch.tensor(n, dtype=torch.int32, device=dev)
         eng.state = eng.state._replace(map=tmap.MapState(**full))
-    eng.sync_reruns = 0
-    run_sync = eng._run_sync
+    eng.dense_reruns = 0
+    run_dense = eng._run_dense
 
     def counting(*a):
-        eng.sync_reruns += 1
-        return run_sync(*a)
+        eng.dense_reruns += 1
+        return run_dense(*a)
 
-    eng._run_sync = counting
+    eng._run_dense = counting
     for w in WRAPPERS:
         w.launches = 0
     for sw in sweeps:
@@ -566,12 +566,14 @@ def test_graphed_window_overflow_on_card(dev, pipelined):
     """A 256-row window over the growing map: the graphed step aborts on the
     device; the synchronous engine replays the dense step's graph for the
     frame, the pipelined one drains and re-runs the stalled frames through
-    it; the graphed engine never runs the eager step; records as eager."""
+    it; the eager engine re-runs the same frames through the same dense
+    body; records as eager."""
     (g, _), (e, _) = (_graph_drive(dev, flag, windowed=True, pipelined=pipelined,
                                    fetch_every=3, frames=6) for flag in (True, False))
     assert _record_bits(g) == _record_bits(e)
-    assert g.sync_reruns == 0 and "dense" in {k[0] for k in g.graphs._graphs}
-    assert (g.n_redispatched if pipelined else e.sync_reruns) > 0
+    assert g.dense_reruns == e.dense_reruns > 0
+    assert "dense" in {k[0] for k in g.graphs._graphs}
+    assert not pipelined or g.dense_reruns == g.n_redispatched
 
 
 @pytest.mark.parametrize("case", sorted(EVICT_CASES))

@@ -11,7 +11,7 @@
 (c) A forced window overflow (a 256-row window over a prefilled map): the
     pipelined step aborts on the device, the drain re-runs the frame and the
     frames after it, and the records equal the synchronous engine's (which
-    takes the dense fallback there).
+    re-runs the aborted frame alone through the dense step).
 (d) The port against the reference engine with the backend, per step:
     before each sweep the port's engine takes the reference engine's state,
     keyframe store, host mirrors and records (`convert`), and that frame's

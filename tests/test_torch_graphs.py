@@ -25,10 +25,8 @@ in one buffer set per map capacity, outputs copied out.
 (c) A window overflow through the graphs: the synchronous engine's
     replayed step aborts and the frame re-runs through the dense step's
     graph, the pipelined engine drains and re-runs every stalled frame
-    through it; the graphed engine never runs the eager step; records bit
-    for bit as with `graphs=False` (whose re-runs take the synchronous
-    step's compact window where it fits, so this also holds the dense
-    scan to the compact window's results).  A map eviction through its
+    through it; `graphs=False` re-runs the same frames through the same
+    dense body, eagerly; records bit for bit as with `graphs=False`.  A map eviction through its
     graph (the state buffers' map evicted in place) gives the eager
     engine's records, and the eager `evict_keypoints`' map, bit for bit.
 (d) `_verify_pair` through one graph for two keyframe pairs against the
@@ -235,19 +233,19 @@ def test_graphed_window_overflow(pipelined):
         d = convert.state_to_numpy(eng.state)
         eng.state = convert.state_from_numpy(
             _prefilled(d, np.random.default_rng(3), 200, 300, cfg), device="cpu")
-        counts = _counting(eng, "_run_sync"), _counting(eng, "_run_dense")
+        dense = _counting(eng, "_run_dense")
         for s in sw:
             eng.process_sweep(s)
         eng.flush()
-        runs.append((eng,) + tuple(len(c) for c in counts))
-    (graphed, g_sync, g_dense), (eager, e_sync, e_dense) = runs
+        runs.append((eng, len(dense)))
+    (graphed, g_dense), (eager, e_dense) = runs
     _same_records(graphed.records, eager.records)
-    assert g_sync == 0 and e_dense == 0  # a graphed engine never runs the eager step
+    assert g_dense == e_dense  # both modes re-run the same frames, dense
     assert "dense" in {k[0] for k in graphed.graphs._graphs}
-    if pipelined:  # every stalled frame re-ran through the dense step's graph
-        assert g_dense == graphed.n_redispatched == eager.n_redispatched == e_sync > 0
+    if pipelined:  # every stalled frame re-ran through the dense step
+        assert g_dense == graphed.n_redispatched == eager.n_redispatched > 0
     else:  # the aborted frames only: the others fit their windows
-        assert 0 < g_dense < len(sw) == e_sync
+        assert 0 < g_dense < len(sw)
 
 
 def test_graphed_eviction_matches_eager():

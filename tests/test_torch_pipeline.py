@@ -21,7 +21,13 @@ Held: counts within 2, poses within 2 mm and 1e-4 rad.
 
 Cases: a small config where matching engages (RANSAC inliers well above
 the gate), and a tiny config with a 256-row window over a prefilled map,
-which takes the compact path and then its dense overflow fallback.
+which takes the compact path and then its dense overflow fallback.  A
+third case of `test_step_exact` holds the port against itself: with 300
+landmarks in every frame's window each frame's compact step aborts and
+re-runs without windows, and `odometry_step_compact` given a seeded
+`torch.Generator` gives, bit for bit, what it gives given that
+generator's (H, 3) draws, and advances the generator by exactly that one
+draw.
 """
 
 import dataclasses
@@ -108,11 +114,31 @@ def clouds(cfg, n_frames, seed):
     return out
 
 
+def generator_step(before, P, nv, tcfg, tile, seed):
+    """The port's step from `before` given a `torch.Generator` seeded with
+    `seed` and given that generator's (H, 3) draws: both (packed, state),
+    the step bodies the generator call ran, and whether it left the
+    generator exactly one draw on."""
+    gen, drawn = (torch.Generator().manual_seed(seed) for _ in range(2))
+    u = torch.rand((tcfg.match.ransac_iterations, 3), generator=drawn)
+    body, bodies = tpipe._odometry_step_impl, []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tpipe, "_odometry_step_impl",
+                   lambda *a, **k: (bodies.append(1), body(*a, **k))[1])
+        got = tpipe.odometry_step_compact(state_from_numpy(before, device="cpu"),
+                                          torch.tensor(P), nv, gen, tcfg, tile)
+    want = tpipe.odometry_step_compact(state_from_numpy(before, device="cpu"),
+                                       torch.tensor(P), nv, u, tcfg, tile)
+    return ([(d.packed.numpy(), state_to_numpy(st)) for st, d in (want, got)],
+            len(bodies), torch.equal(gen.get_state(), drawn.get_state()))
+
+
 def run_both(case, monkeypatch_features):
     if case == "small":
         jcfg, tcfg, seed, n_near = small_cfg(jc), small_cfg(tc), 11, 0
-    else:
-        jcfg, tcfg, seed, n_near = windowed_tiny(jc), windowed_tiny(tc), 0, 200
+    else:  # a 256-row window; "generator" puts 300 rows in every frame's
+        jcfg, tcfg, seed = windowed_tiny(jc), windowed_tiny(tc), 0
+        n_near = 200 if case == "windowed" else 300
     tile = 1024 if case == "small" else tcfg.runtime.point_tile
     d0 = jax_state_dict(jpipe.init_state(jcfg))
     if n_near:
@@ -140,6 +166,12 @@ def run_both(case, monkeypatch_features):
             descriptors=torch.tensor(np.asarray(f.descriptors).view(np.int32)),
             mask=torch.tensor(np.asarray(f.mask)),
         ))
+        if case == "generator":
+            ((want, wmap), (got, gmap)), bodies, one_draw = generator_step(
+                before, P, nv, tcfg, tile, len(steps))
+            steps.append((want, got, wmap, gmap))
+            chain.append((bodies, one_draw))
+            continue
         want = np.asarray(jdiag.packed)
         stepped, diag = tpipe.odometry_step_compact(
             state_from_numpy(before, device="cpu"), torch.tensor(P), nv,
@@ -152,7 +184,7 @@ def run_both(case, monkeypatch_features):
     return steps, chain
 
 
-@pytest.fixture(scope="module", params=["small", "windowed"])
+@pytest.fixture(scope="module")
 def stepped(request):
     feats = {}
     mp = pytest.MonkeyPatch()
@@ -170,8 +202,9 @@ def _pose_close(want, got, mm):
     assert np.abs(Tg[:3, :3] - Tw[:3, :3]).max() <= 1e-4
 
 
+@pytest.mark.parametrize("stepped", ["small", "windowed", "generator"], indirect=True)
 def test_step_exact(stepped):
-    case, steps, _ = stepped
+    case, steps, chain = stepped
     for i, (want, got, wmap, gmap) in enumerate(steps):
         assert got.shape == want.shape == (31,)
         np.testing.assert_array_equal(got[INT_FIELDS], want[INT_FIELDS],
@@ -189,8 +222,15 @@ def test_step_exact(stepped):
     if case == "small":  # matching engages: the gate passes on real inliers
         assert min(s[0][tpipe.IDX_N_INLIERS] for s in steps[1:]) >= 15
         assert not any(s[0][tpipe.IDX_GATED] for s in steps)
+    if case == "generator":  # bit for bit; an abort and a re-run; one draw
+        for i, (want, got, wmap, gmap) in enumerate(steps):
+            np.testing.assert_array_equal(got, want, err_msg=f"frame {i}")
+            for f in wmap:
+                np.testing.assert_array_equal(gmap[f], wmap[f], err_msg=f"frame {i} {f}")
+        assert chain == [(2, True)] * len(steps)
 
 
+@pytest.mark.parametrize("stepped", ["small", "windowed"], indirect=True)
 def test_chained_close(stepped):
     _, _, chain = stepped
     for want, got in chain:
