@@ -90,7 +90,7 @@ import torch
 
 from bshot_slam_tpu_torch.backend import ba, corrections, keyframes, posegraph
 from bshot_slam_tpu_torch.backend.loop_closure import _verify_pair, bow_rows
-from bshot_slam_tpu_torch.kernels import mapops, neighborhood, preprocess
+from bshot_slam_tpu_torch.kernels import eig3, mapops, neighborhood, preprocess
 from bshot_slam_tpu_torch.odometry import mapstore, pipeline
 from bshot_slam_tpu_torch.parallel import comm
 from bshot_slam_tpu_torch.utils import profiling
@@ -101,7 +101,7 @@ _REC = profiling.RECORDER
 WRAPPERS = (neighborhood.neighborhood_accumulate, neighborhood.segratio_accumulate,
             neighborhood.shot_neighbors, mapops.hamming_nn_bounded,
             mapops.euclid_nn_bounded, mapops.dedup_blocked_bounded,
-            preprocess.ground_walk, mapops.icp_update)
+            preprocess.ground_walk, mapops.icp_update, eig3.eigh3)
 
 _STREAMS: dict = {}
 

@@ -1,8 +1,9 @@
 """Surface normals by masked neighbourhood PCA.
 
 Port of `bshot_slam_tpu.ops.normals`: neighbourhood moments from kernel A,
-then the closed-form 3x3 eigendecomposition; the smallest-eigenvalue
-direction, flipped toward the sensor at the origin, is the normal.
+then the closed-form 3x3 eigendecomposition (kernel I on the card); the
+smallest-eigenvalue direction, flipped toward the sensor at the origin, is
+the normal.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from bshot_slam_tpu_torch.geometry.eig3 import eigh3
+from bshot_slam_tpu_torch.kernels.eig3 import eigh3
 from bshot_slam_tpu_torch.ops.keypoints import capped_r2_rows, neighborhood_moments
 
 
@@ -32,6 +33,15 @@ def surface_normals(
     return normals_from_moments(points, mask, cnt, psum, outer, min_neighbors)
 
 
+def moment_covariances(cnt: torch.Tensor, psum: torch.Tensor,
+                       outer: torch.Tensor) -> torch.Tensor:
+    """(N, 3, 3) neighbourhood covariances from the moments (count, sum,
+    sum of outer products)."""
+    safe = torch.clamp(cnt, min=1.0)
+    mean = psum / safe[:, None]
+    return outer / safe[:, None, None] - mean[:, :, None] * mean[:, None, :]
+
+
 def normals_from_moments(
     points: torch.Tensor,
     mask: torch.Tensor,
@@ -41,10 +51,7 @@ def normals_from_moments(
     min_neighbors: int = 3,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Normals from precomputed neighbourhood moments (shared-sweep path)."""
-    safe = torch.clamp(cnt, min=1.0)
-    mean = psum / safe[:, None]
-    cov = outer / safe[:, None, None] - mean[:, :, None] * mean[:, None, :]
-    evals, evecs = eigh3(cov)  # ascending eigenvalues
+    evals, evecs = eigh3(moment_covariances(cnt, psum, outer))  # ascending
     n = evecs[..., 0]  # smallest-eigenvalue direction
     # Flip toward the viewpoint at the origin: need n . (0 - p) > 0.
     flip = torch.sum(n * points, dim=-1) > 0

@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from bshot_slam_tpu_torch.config import DescriptorConfig
-from bshot_slam_tpu_torch.geometry.eig3 import eigh3
+from bshot_slam_tpu_torch.kernels.eig3 import eigh3
 from bshot_slam_tpu_torch.kernels.neighborhood import shot_neighbors
 from bshot_slam_tpu_torch.ops.keypoints import fma_dot3
 
@@ -57,14 +57,19 @@ def gather_neighbors(
                           dist=torch.where(nmask, dist, 0.0), nmask=nmask)
 
 
-def local_reference_frames(g: NeighborGather, radius: float):
-    """Disambiguated LRF per keypoint: (frames (K, 3, 3) rows [x, y, z],
-    valid (K,))."""
+def lrf_covariances(g: NeighborGather, radius: float):
+    """(distance-weighted neighbour covariances (K, 3, 3), valid (K,)): the
+    weights fall linearly to 0 at `radius`."""
     w = torch.where(g.nmask, radius - g.dist, 0.0)
     wsum = torch.sum(w, dim=1)
-    valid = wsum > _EPS
     wn = w / torch.clamp(wsum, min=_EPS)[:, None]
-    cov = torch.einsum("km,kmi,kmj->kij", wn, g.rel, g.rel)
+    return torch.einsum("km,kmi,kmj->kij", wn, g.rel, g.rel), wsum > _EPS
+
+
+def local_reference_frames(g: NeighborGather, radius: float):
+    """Disambiguated LRF per keypoint: (frames (K, 3, 3) rows [x, y, z],
+    valid (K,)).  The eigen-solve is kernel I on the card."""
+    cov, valid = lrf_covariances(g, radius)
     _, evecs = eigh3(cov)  # ascending
     x_axis = evecs[..., 2]
     z_axis = evecs[..., 0]

@@ -9,7 +9,10 @@ to its parts, each called on its own over the inputs the whole stage sees:
 the moments (kernel A), the seg-ratio scores (kernel B), the keypoint
 top-k, the normals from the moments (eig3), SHOT's neighbour gather and
 top-k, the local reference frames alone, SHOT whole (gather, frames,
-histogram), B-SHOT (binarise and pack), and the whole stage.  The cloud is
+histogram), B-SHOT (binarise and pack), and the whole stage; and the two
+eigen-solves alone, each through kernel I and through its plain version
+on the same tensors: on the normals' covariances of every row of the
+bucket and on the keypoints' LRF covariances.  The cloud is
 the stage bench's (`run_stage_bench.bench_frame`: the bench drive's second
 frame after the native host ingest, padded to `--bucket` rows).
 
@@ -41,6 +44,9 @@ import sys
 PARTS = ("moments(kernel A sweep)", "segratio(kernel B sweep)", "keypoint top-k",
          "normals(from moments)", "shot: full (gather+LRF+hist)", "bshot binarize+pack")
 WHOLE = "features fused (whole stage)"
+# The eigen-solves alone: kernel I, then its plain version, on each input.
+EIG3_STAGES = ("eig3 alone (normals' covariances)", "eig3 plain (normals' covariances)",
+               "eig3 alone (LRF covariances)", "eig3 plain (LRF covariances)")
 COLUMNS = ("wall_ms", "event_ms", "device_ms", "launches", "host_ms")
 
 
@@ -76,13 +82,14 @@ def main(argv=None) -> int:
 
     from bshot_slam_tpu_torch.config import default_config
     from bshot_slam_tpu_torch.device import card, resolve_device
+    from bshot_slam_tpu_torch.kernels.eig3 import eigh3, eigh3_plain
     from bshot_slam_tpu_torch.odometry import pipeline
     from bshot_slam_tpu_torch.ops import bshot as bshot_mod
     from bshot_slam_tpu_torch.ops import shot as shot_mod
     from bshot_slam_tpu_torch.ops.keypoints import (
         neighborhood_moments, seg_ratio_scores, top_k,
     )
-    from bshot_slam_tpu_torch.ops.normals import normals_from_moments
+    from bshot_slam_tpu_torch.ops.normals import moment_covariances, normals_from_moments
     from bshot_slam_tpu_torch.tools.run_stage_bench import bench_frame, columns
     from bshot_slam_tpu_torch.utils.profiling import stage_times
 
@@ -134,6 +141,9 @@ def main(argv=None) -> int:
     def bshot():
         return bshot_mod.bshot_from_shot(desc, dc)
 
+    cov_n = moment_covariances(cnt, psum, outer)
+    cov_lrf, _ = shot_mod.lrf_covariances(g, dc.shot_radius_mm)
+
     def whole():
         return pipeline.compute_features(p, m, cfg, tile)
 
@@ -141,6 +151,8 @@ def main(argv=None) -> int:
         PARTS[0]: moments, PARTS[1]: scores, PARTS[2]: topk, PARTS[3]: normals,
         "shot: neighbor gather+topk": gather, "shot: LRF only": lrf,
         PARTS[4]: shot, PARTS[5]: bshot, WHOLE: whole,
+        **dict(zip(EIG3_STAGES, (lambda: eigh3(cov_n), lambda: eigh3_plain(cov_n),
+                                 lambda: eigh3(cov_lrf), lambda: eigh3_plain(cov_lrf)))),
     }
     rows = stage_times(stages, args.iters, device)
     rows["sum of parts - whole"] = {

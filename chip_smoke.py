@@ -8,7 +8,7 @@ Phases, one line each:
   2. the first 24 frames of the benchmark drive (synthetic HDL-32E), and
      four frames of the same drive through the HDL-64E preset, whose
      largest kept cloud [3] gives kernel H;
-  3. each CUDA kernel A-E, G and H at the main path's shapes against its plain
+  3. each CUDA kernel A-E and G-I at the main path's shapes against its plain
      PyTorch version (G, the ICP update: one update after D at [3]'s D
      inputs, pair count exact, transform and rmse within the stated
      tolerance): integer outputs exactly equal to the plain version
@@ -21,7 +21,11 @@ Phases, one line each:
      exactly the plain version's) at 600 keypoints (the card's saliency
      top-k) and 384 neighbours on the HDL-64E cloud cut to 16,384, 49,152
      and 131,072 rows, each with its keypoints' share over 384 rows in
-     radius;
+     radius; I (the 3x3 eigen-solves: bit for bit the plain version on the
+     same card tensors, where the CPU's libm may round otherwise) on the
+     bench frame's normals' and LRF covariances and on the HDL-64E cloud's
+     normals' covariances at those three sizes, with the plain version's
+     device time and launches;
   4. `SlamEngine.process_sweep` end to end over the 24 frames, with the
      map prefilled to 65,536 far-away landmarks: frames/s (also over the
      frames that captured no CUDA graph), ATE against
@@ -33,7 +37,7 @@ Phases, one line each:
      take the most of it);
      the port's own kernels per frame (kernel D: one device launch per
      ICP iteration, G one more; B and C: at most two device launches per
-     call, E and G one);
+     call, E, G and I one; I two a frame);
   4b. the pipelined engine (`pipelined=True, fetch_every=8`) over the same
      24 frames and prefilled map: records bit-identical to phase [4]'s
      synchronous run, frames/s of both, and the synchronising calls per
@@ -243,7 +247,7 @@ REL_MM, REL_DEG = 20.0, 0.2
 # Phase [10]'s golden replay: tests/test_golden_trajectory.py's limits (mm
 # from the CPU gold; ATE against ground truth as a share of the path).
 GOLDEN_MM, GOLDEN_PATH_SHARE = 60.0, 0.08
-# Kernel H is checked and timed at these cloud rows ([3]), on the largest
+# Kernels H and I are checked and timed at these cloud rows ([3]), on the largest
 # of these frames of the drive through the HDL-64E preset.
 SELECT_ROWS = (16384, 49152, 131072)
 SELECT_FRAMES = (44, 50, 56, 62)
@@ -562,6 +566,87 @@ def check_shot_select(cfg, points_np, nv, dev):
     )
 
 
+def eig3_inputs(cfg, cloud, points_np, nv, n, dev, lrf=False):
+    """The step's eigen-solve inputs on `points_np` (the `cloud`) cut or
+    padded to n rows:
+    the normals' covariances of every row (`moment_covariances`) and, with
+    `lrf`, the keypoints' LRF covariances (`lrf_covariances`)."""
+    import torch
+
+    from bshot_slam_tpu_torch.ops import keypoints as kp
+    from bshot_slam_tpu_torch.ops import shot
+    from bshot_slam_tpu_torch.ops.normals import moment_covariances, normals_from_moments
+
+    kc, dc = cfg.keypoints, cfg.descriptor
+    k = min(nv, n)
+    pts = np.zeros((n, 3), np.float32)
+    pts[:k] = points_np[:k]
+    p = torch.as_tensor(pts, device=dev)
+    m = torch.arange(n, device=dev) < k
+    cnt, psum, outer = kp.neighborhood_moments(p, m, kc.radius_mm, 2048)
+    out = {f"{cloud}'s normals' covariances, {k} valid of {n} rows":
+           moment_covariances(cnt, psum, outer)}
+    if lrf:
+        scores = kp.seg_ratio_scores(p, m, kc, 2048, moments=(cnt, psum))
+        kps = kp.keypoints_from_scores(p, *kp.top_k(scores, kc.top_k))
+        nrm = normals_from_moments(p, m, cnt, psum, outer)[0]
+        g = shot.gather_neighbors(kps.positions, kps.mask, p, m, nrm,
+                                  dc.shot_radius_mm, dc.max_neighbors)
+        out[f"{cloud}'s LRF covariances of {kc.top_k} keypoints"] = \
+            shot.lrf_covariances(g, dc.shot_radius_mm)[0]
+    return out
+
+
+def check_eig3(cfg, points_np, nv, cfg64, points64, nv64, dev):
+    """Kernel I on the step's own inputs: the bench frame's normals' and LRF
+    covariances, and the HDL-64E cloud's normals' covariances cut to each of
+    SELECT_ROWS rows.  Its contract is the plain version on the same card
+    tensors, bit for bit (the CPU's libm may round acos and cos otherwise)."""
+    import torch
+
+    from bshot_slam_tpu_torch.kernels import eig3 as E
+    from bshot_slam_tpu_torch.utils.profiling import device_profile
+
+    inputs = eig3_inputs(cfg, "bench frame", points_np, nv, points_np.shape[0], dev,
+                         lrf=True)
+    for n in SELECT_ROWS:
+        inputs.update(eig3_inputs(cfg64, "HDL-64E cloud", points64, nv64, n, dev))
+    by_input = {}
+    for what, A in inputs.items():
+        got, again, want = E.eigh3(A), E.eigh3(A), E.eigh3_plain(A)
+        bits = [(x.view(torch.int32) != y.view(torch.int32)).flatten(1).any(dim=1)
+                for x, y in zip(got, want)]
+        plain_device_ms, plain_launches = device_profile(lambda: E.eigh3_plain(A))
+        b_ms, b_by = bound(A.shape[0] * E.EIG3_BYTES, {})
+        by_input[what] = dict(
+            matrices=A.shape[0], card_plain_rows_differ=int((bits[0] | bits[1]).sum()),
+            max_abs_err=max(float((x - y).abs().nan_to_num(0.0).max())
+                            for x, y in zip(got, want)),
+            deterministic=same_bits(got, again),
+            **measure(lambda: E.eigh3(A), lambda: E.eigh3_plain(A)),
+            plain_device_ms=plain_device_ms, plain_launches=plain_launches,
+            bound_ms=b_ms, bound_by=b_by)
+    what, first = next(iter(by_input.items()))
+    cols = ("ms", "plain_ms", "device_ms", "device_launches_per_call",
+            "host_us_per_call", "bound_ms", "bound_by")
+    return dict(
+        name="eigh3",
+        shapes=f"the {what}, ({first['matrices']},3,3) (times at this "
+               f"size), its LRF covariances, and an HDL-64E cloud of {nv64} kept points "
+               f"cut to {', '.join(map(str, SELECT_ROWS))} rows",
+        source="bshot_slam_tpu_torch/csrc/eig3.cu",
+        replaces="none: bshot_slam_tpu/geometry/eig3.py:eigh3 (fused by XLA)",
+        int_mismatch=0, float_out_of_tol=0,
+        max_abs_err=max(r["max_abs_err"] for r in by_input.values()),
+        card_plain_rows_differ=sum(r["card_plain_rows_differ"] for r in by_input.values()),
+        deterministic=all(r["deterministic"] for r in by_input.values()),
+        **{c: first[c] for c in cols}, library_ms=None,
+        tolerance="bit for bit (int32 views) the plain version on the same card "
+                  "tensors, on every input",
+        by_input=by_input,
+    )
+
+
 def map_inputs(cfg, dev, seed: int = 3):
     """A 600-keypoint frame against a prefilled 32768-row window whose
     cursor is not tile-aligned, plus the 600-row previous-frame tail."""
@@ -756,7 +841,7 @@ def check_mapops(cfg, dev):
 def run_engine(cfg, sweeps, gt, dev):
     import torch
 
-    from bshot_slam_tpu_torch.kernels import mapops, neighborhood
+    from bshot_slam_tpu_torch.kernels import eig3, mapops, neighborhood
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
     from bshot_slam_tpu_torch.utils.metrics import ate_rmse
 
@@ -768,6 +853,7 @@ def run_engine(cfg, sweeps, gt, dev):
         "euclid_nn_bounded": mapops.euclid_nn_bounded,
         "dedup_blocked_bounded": mapops.dedup_blocked_bounded,
         "icp_update": mapops.icp_update,
+        "eigh3": eig3.eigh3,
     }
     eng = SlamEngine(cfg, seed=0, device=dev)
     eng.state = eng.state._replace(map=prefilled_map(cfg, dev))
@@ -811,11 +897,11 @@ def host_preprocess_ms(cfg, sweeps) -> float:
 # The __global__ functions of csrc/*.cu, as the profiler names them.
 PORT_KERNELS = ("pack_cloud_kernel", "accumulate_kernel", "segratio_kernel",
                 "hamming_kernel", "euclid_kernel", "dedup_kernel", "icp_update_kernel",
-                "shot_pack_kernel", "shot_select_kernel")
+                "shot_pack_kernel", "shot_select_kernel", "eig3_kernel")
 # Most device launches a call of a wrapper may make.
 MAX_DEVICE_LAUNCHES = {"segratio_accumulate": 2, "hamming_nn_bounded": 2,
                        "dedup_blocked_bounded": 1, "ground_walk": 1, "icp_update": 1,
-                       "shot_neighbors": 2}
+                       "shot_neighbors": 2, "eigh3": 1}
 
 
 def profile_engine(cfg, sweeps, dev, graphs=None, n: int = 6):
@@ -852,7 +938,7 @@ def profile_engine(cfg, sweeps, dev, graphs=None, n: int = 6):
 
 
 def kernel_wrappers():
-    from bshot_slam_tpu_torch.kernels import mapops, neighborhood, preprocess
+    from bshot_slam_tpu_torch.kernels import eig3, mapops, neighborhood, preprocess
 
     return {
         "neighborhood_accumulate": neighborhood.neighborhood_accumulate,
@@ -863,6 +949,7 @@ def kernel_wrappers():
         "dedup_blocked_bounded": mapops.dedup_blocked_bounded,
         "ground_walk": preprocess.ground_walk,
         "icp_update": mapops.icp_update,
+        "eigh3": eig3.eigh3,
     }
 
 
@@ -2449,7 +2536,8 @@ def main() -> int:
     points, nv = frame_cloud(cfg, sweeps[3])
     assert points.shape[0] == pick_bucket(nv, cfg)
     rows = (check_neighborhood(cfg, points, nv, dev) + check_mapops(cfg, dev)
-            + [check_shot_select(cfg64, points64, nv64, dev)])
+            + [check_shot_select(cfg64, points64, nv64, dev),
+               check_eig3(cfg, points, nv, cfg64, points64, nv64, dev)])
     torch.cuda.synchronize()
     failed = []
     for r in rows:
@@ -2475,6 +2563,15 @@ def main() -> int:
                   f"launches, host {b['host_us_per_call']:.1f} us), plain "
                   f"{b['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
                   flush=True)
+        for what, b in r.get("by_input", {}).items():
+            print(f"[3] {r['name']} on the {what}: matrices differing from the plain "
+                  f"version on the card {b['card_plain_rows_differ']}, two runs "
+                  f"bit-identical {b['deterministic']}; kernel {b['ms']:.4f} ms (device "
+                  f"{b['device_ms']:.4f} ms in {b['device_launches_per_call']:.0f} "
+                  f"launches, host {b['host_us_per_call']:.1f} us), plain "
+                  f"{b['plain_ms']:.4f} ms (device {b['plain_device_ms']:.4f} ms in "
+                  f"{b['plain_launches']:.0f} launches), bound {b['bound_ms']:.6f} ms "
+                  f"({b['bound_by']})", flush=True)
         if (r["int_mismatch"] or r["float_out_of_tol"]
                 or r["card_plain_rows_differ"] or not r.get("deterministic", True)):
             failed.append(r["name"])
@@ -2526,6 +2623,11 @@ def main() -> int:
     if g != d // it * (it + 1) or g < N_FRAMES * (it + 1):
         raise SmokeError(f"kernel G's wrapper counted {g} launches over {N_FRAMES} "
                          f"frames (D {d}), not the iterations + 1 an ICP")
+    eig = sum(c for k, _, c in own if k == "eig3_kernel")
+    if eig > 2 or res["launches"]["eigh3"] < 2 * N_FRAMES:
+        raise SmokeError(f"kernel I made {eig} device launches per frame (at most 2: "
+                         f"normals and LRFs), its wrapper {res['launches']['eigh3']} "
+                         f"over {N_FRAMES} frames")
 
     pipe = pipelined_phase(cfg, sweeps, sync_eng, dev)
     print(f"[4b] pipelined (fetch_every {FETCH_EVERY}): {N_FRAMES} frames, "

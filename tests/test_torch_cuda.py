@@ -51,6 +51,16 @@ runs; `gather_neighbors`' fields equal the CPU's bit for bit (its `dist`
 within an ulp: the card's sqrt); H is two
 device launches a call and replays from a CUDA graph; it refuses what it
 does not take; a graphed frame advances `shot_neighbors.launches` by one.
+Kernel I (the 3x3 symmetric eigen-solve) on each case of `I_CASES`
+(random, isotropic and around the isotropic guard, two equal eigenvalues
+rotated and on the axes, rank 1, zeros of both signs), on mixed batches of
+`I_BATCHES` (1 to 131,072 matrices, a ragged grid among them) and on real
+covariances (a frame's moments through the normals' formula and its
+keypoints' LRF covariances) equals its plain version on the same CUDA
+tensors bit for bit (int32 views, so -0.0 and NaN count), and itself over
+two runs; it is one device launch a call, replays from a CUDA graph and
+refuses what it does not take; a graphed frame advances `eigh3.launches`
+by two.
 """
 
 import numpy as np
@@ -60,16 +70,17 @@ import torch
 from bshot_slam_tpu_torch import tiny_config
 from bshot_slam_tpu_torch.geometry import se3
 from bshot_slam_tpu_torch.io import synthetic
+from bshot_slam_tpu_torch.kernels import eig3 as E
 from bshot_slam_tpu_torch.kernels import mapops as M
 from bshot_slam_tpu_torch.kernels import neighborhood as K
 from bshot_slam_tpu_torch.odometry import mapstore as tmap
 from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 from tests.torch_kernel_cases import (
     A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES,
-    EVICT_CASES, F_CASES, G_CASES, H_CASES, accumulate_case, dedup_case,
-    euclid_case, evict_case, hamming_case, icp_case, icp_trace, icp_traces_agree,
-    iss_corners, keyframe_pair, moment_features, overflow_sequence, segratio_case,
-    select_case, walk_case,
+    EVICT_CASES, F_CASES, G_CASES, H_CASES, I_BATCHES, I_CASES, accumulate_case,
+    dedup_case, eig3_case, euclid_case, evict_case, hamming_case, icp_case, icp_trace,
+    icp_traces_agree, iss_corners, keyframe_pair, moment_features, overflow_sequence,
+    segratio_case, select_case, walk_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -549,11 +560,14 @@ def test_graphed_engine_matches_eager_on_card(dev, mode):
                                     for flag in (True, False))
     assert e.graphs.eager and g.graphs.captures == len(g.graphs._graphs) >= 1
     assert _record_bits(g) == _record_bits(e) and len(g.records) == 6
+    from bshot_slam_tpu_torch.odometry.graphs import WRAPPERS
+
     assert g_launch == e_launch and g_launch[0] > 0
-    icp = g_launch[-1]  # kernel G, the last of graphs.WRAPPERS
+    icp = g_launch[WRAPPERS.index(M.icp_update)]  # kernel G
     per_frame = g.cfg.match.icp_iterations + 1
     assert icp == 6 * per_frame if not mode.get("enable_backend") else icp > 6 * per_frame
-    assert g_launch[2] == 6  # kernel H, once a step
+    assert g_launch[WRAPPERS.index(K.shot_neighbors)] == 6  # kernel H, once a step
+    assert g_launch[WRAPPERS.index(E.eigh3)] == 12  # kernel I, twice a step
     if mode.get("enable_backend"):
         assert [(x.kf_i, x.kf_j, x.n_inliers, x.z.tobytes()) for x in g.loop_edges] == \
             [(x.kf_i, x.kf_j, x.n_inliers, x.z.tobytes()) for x in e.loop_edges]
@@ -1021,3 +1035,87 @@ def test_shot_neighbors_refusals_on_card(dev):
         K.shot_neighbors(kps, km.cpu(), pts, mask, 1000.0, 64)
     assert K.shot_neighbors(kps, km, pts, mask, 1000.0, K.SHOT_MAX_NEIGHBORS).shape \
         == (4, 100)
+
+
+def _eig3_equal(A, what=""):
+    """Kernel I on `A` (on the card) twice against its plain version on the
+    same tensor: bit for bit, two launches counted."""
+    before = E.eigh3.launches
+    got, again = E.eigh3(A), E.eigh3(A)
+    want = E.eigh3_plain(A)
+    assert E.eigh3.launches == before + 2
+    n = A.numel() // 9
+    for g, a, w, name in zip(got, again, want, ("evals", "evecs")):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        gb, ab, wb = (x.reshape(n, -1).view(torch.int32) for x in (g, a, w))
+        assert torch.equal(ab, gb), f"{what} {name}: two runs differ"
+        bad = (gb != wb).any(1).nonzero().flatten()
+        assert len(bad) == 0, (
+            f"{what} {name}: {len(bad)} of {n} matrices differ from the plain "
+            f"version; first {int(bad[0])}: A {A.reshape(n, 9)[bad[0]].tolist()} "
+            f"kernel {g.reshape(n, -1)[bad[0]].tolist()} plain "
+            f"{w.reshape(n, -1)[bad[0]].tolist()}")
+
+
+@pytest.mark.parametrize("name", I_CASES)
+def test_eigh3_case_on_card(dev, name):
+    _eig3_equal(torch.tensor(eig3_case(name)["A"], device=dev), name)
+
+
+@pytest.mark.parametrize("n", I_BATCHES)
+def test_eigh3_batch_on_card(dev, n):
+    _eig3_equal(torch.tensor(eig3_case("mixed", n)["A"], device=dev), f"mixed {n}")
+
+
+def test_eigh3_real_covariances_on_card(dev):
+    """The step's two inputs of I at mm scale: the bench frame's moments
+    (kernel A) through the normals' formula, every row of bucket 16,384,
+    and its 600 keypoints' LRF covariances (SHOT's gather and einsum)."""
+    from bshot_slam_tpu_torch.config import default_config
+    from bshot_slam_tpu_torch.ops import keypoints as kp
+    from bshot_slam_tpu_torch.ops import shot
+    from bshot_slam_tpu_torch.ops.normals import moment_covariances, normals_from_moments
+    from bshot_slam_tpu_torch.tools.run_stage_bench import bench_frame
+
+    cfg = default_config()
+    kc, dc = cfg.keypoints, cfg.descriptor
+    _, pts, pmask, _, _, _ = bench_frame(cfg, 16384)
+    p, m = torch.tensor(pts, device=dev), torch.tensor(pmask, device=dev)
+    cnt, psum, outer = kp.neighborhood_moments(p, m, kc.radius_mm, 2048)
+    cov = moment_covariances(cnt, psum, outer)
+    _eig3_equal(cov, "normals' covariances")
+    scores = kp.seg_ratio_scores(p, m, kc, 2048, moments=(cnt, psum))
+    top_scores, top_idx = kp.top_k(scores, kc.top_k)
+    kps = kp.keypoints_from_scores(p, top_scores, top_idx)
+    normals = normals_from_moments(p, m, cnt, psum, outer)[0]
+    g = shot.gather_neighbors(kps.positions, kps.mask, p, m, normals,
+                              dc.shot_radius_mm, dc.max_neighbors)
+    lrf, valid = shot.lrf_covariances(g, dc.shot_radius_mm)
+    assert lrf.shape == (kc.top_k, 3, 3) and lrf.is_contiguous() and bool(valid.any())
+    _eig3_equal(lrf, "LRF covariances")
+
+
+def test_eigh3_graph_launches_and_refusals_on_card(dev):
+    """One device launch a call; captured in a CUDA graph and replayed on
+    new matrices, the plain version's outputs; refuses float64,
+    non-contiguous and non-(3, 3) inputs."""
+    from bshot_slam_tpu_torch.utils.profiling import device_profile
+
+    A = torch.tensor(eig3_case("mixed", 16391)["A"], device=dev)
+    assert device_profile(lambda: E.eigh3(A))[1] == 1
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = E.eigh3(A)
+    B = torch.tensor(eig3_case("random", 16391)["A"], device=dev)
+    A.copy_(B)
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(out, E.eigh3_plain(B)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    for bad, err in ((A.double(), TypeError), (A.transpose(-1, -2), ValueError),
+                     (A.reshape(-1, 9), ValueError)):
+        with pytest.raises(err):
+            E.eigh3(bad)
+    assert [x.shape for x in E.eigh3(A[:0])] == [(0, 3), (0, 3, 3)]

@@ -8,7 +8,8 @@ intra-op thread, as tests/test_torch_tools.py runs the CLIs:
     names and JSON keys; kernel A's tile-skip replay (`kept_tiles`) equals a
     brute-force count of the kernel's `block_box` / `separated` test;
 (b) `run_feature_profile --cpu --iters 1` prints the reference tool's
-    sub-stage names and keys, and the "sum of parts - whole" line;
+    sub-stage names and keys, then the eigen-solves alone (kernel I's rows
+    and its plain version's), and the "sum of parts - whole" line;
 (c) `run_ba_bench` builds the reference tool's arrays from the seed, and at 8
     keyframes, 256 landmarks and 64 observations a keyframe its cost
     reduction is within rtol 1e-3 of the reference tool's;
@@ -177,7 +178,8 @@ def test_feature_profile_cpu_prints_the_reference_substages(tiny):
     assert rc == 0
     names = list(res["stages_ms"])
     assert names[:2] == ["moments(kernel A sweep)", "segratio(kernel B sweep)"]
-    assert names[2:-1] == PROFILE_NAMES and names[-1] == "sum of parts - whole"
+    assert names[2:-1] == PROFILE_NAMES + list(run_feature_profile.EIG3_STAGES)
+    assert names[-1] == "sum of parts - whole"
     assert all(k in res for k in ("device", "bucket", "n_valid", "iters", "stages"))
     assert all(v > 0 for k, v in res["stages_ms"].items() if k != "sum of parts - whole")
     parts = sum(res["stages_ms"][k] for k in run_feature_profile.PARTS)

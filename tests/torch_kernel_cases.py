@@ -1,4 +1,4 @@
-"""Seeded edge cases for the port's kernels A to H, map eviction and loop
+"""Seeded edge cases for the port's kernels A to I, map eviction and loop
 verification (numpy only; `icp_trace` imports torch when it is called).
 
 `tests/test_torch_kernel_cases.py`, `tests/test_torch_backend.py` and (for
@@ -8,7 +8,9 @@ through the port's ICP loop with G's plain version, `icp_trace`);
 `tests/test_torch_cuda.py` runs the CUDA kernels (and eviction on the card)
 against the plain versions (H, SHOT's neighbour selection: `select_case` on
 the card, `select_int_case` against the reference in
-`tests/test_torch_shot_select.py`).  A case is a dict of numpy arrays and
+`tests/test_torch_shot_select.py`; I, the 3x3 eigen-solve: `eig3_case`
+through the wrapper's plain version in `tests/test_torch_eig3.py`, and on
+the card).  A case is a dict of numpy arrays and
 scalars, made from a fixed seed by name.
 """
 
@@ -911,3 +913,73 @@ def select_int_case(n: int, k: int, m: int, seed: int) -> dict:
     normals = rng.normal(size=(n, 3)).astype(np.float32)
     return dict(keypoints=kps, kp_mask=kmask, points=pts, mask=mask,
                 normals=normals, radius=25.0, max_neighbors=m)
+
+
+# Kernel I, the 3x3 symmetric eigen-solve: 600 matrices of each kind, and
+# mixed batches of every kind at sizes around one block (128 threads), a
+# ragged grid and the largest bucket.
+I_CASES = ("random", "iso", "near_iso", "plane", "line", "plane_axis",
+           "line_axis", "rank1", "zero", "neg_zero")
+I_BATCHES = (1, 600, 16391, 131072)
+
+
+def _rotations(rng, n: int) -> np.ndarray:
+    """n random rotations (float64), from QR of Gaussian matrices."""
+    q, r = np.linalg.qr(rng.normal(size=(n, 3, 3)))
+    q *= np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    return q
+
+
+def _spectral(rng, evals: np.ndarray, rotate: bool) -> np.ndarray:
+    """R diag(evals) R^T (R the identity unless `rotate`), symmetrised."""
+    n = len(evals)
+    R = _rotations(rng, n) if rotate else np.broadcast_to(np.eye(3), (n, 3, 3))
+    A = np.einsum("nij,nj,nkj->nik", R, evals, R)
+    return 0.5 * (A + np.swapaxes(A, 1, 2))
+
+
+def _eig3_kind(rng, kind: str, n: int) -> np.ndarray:
+    scale = 10.0 ** rng.uniform(-3, 7, (n, 1))  # mm^2 covariances reach ~1e7
+    if kind == "random":
+        A = rng.normal(size=(n, 3, 3)) * scale[:, :, None]
+        A = 0.5 * (A + np.swapaxes(A, 1, 2))
+    elif kind == "iso":  # s I: p2 = 0, under the guard
+        A = np.eye(3)[None] * (scale[:, :, None] * rng.choice([-1.0, 1.0], (n, 1, 1)))
+    elif kind == "near_iso":
+        # s I plus off-diagonals e: p2 ~ e^2 against the guard's
+        # 1e-10 max(s^2, 1); e from a third to three times its edge.
+        s = scale[:, 0] * rng.choice([1e-6, 1.0], n)
+        e = np.sqrt(1e-10 * np.maximum(s * s, 1.0)) * 10.0 ** rng.uniform(-0.5, 0.5, n)
+        A = np.eye(3)[None] * s[:, None, None]
+        off = e[:, None] * rng.choice([-1.0, 1.0], (n, 3))
+        A[:, 0, 1] = A[:, 1, 0] = off[:, 0]
+        A[:, 1, 2] = A[:, 2, 1] = off[:, 1]
+        A[:, 0, 2] = A[:, 2, 0] = off[:, 2]
+    elif kind in ("plane", "plane_axis", "line", "line_axis"):
+        # Two equal eigenvalues: a plane (two large, one small) or a line
+        # (one large, two small); rotated, or on the axes, where they stay
+        # equal in float32.
+        small = scale[:, 0] * 10.0 ** rng.uniform(-6, -1, n) * rng.choice([0.0, 1.0], n)
+        big = scale[:, 0]
+        ev = (np.stack([small, big, big], 1) if kind.startswith("plane")
+              else np.stack([small, small, big], 1))
+        A = _spectral(rng, rng.permuted(ev, axis=1), not kind.endswith("_axis"))
+    elif kind == "rank1":
+        v = rng.normal(size=(n, 3))
+        A = scale[:, :, None] * v[:, :, None] * v[:, None, :]
+    elif kind in ("zero", "neg_zero"):  # the padding rows' covariances
+        A = np.zeros((n, 3, 3)) * (-1.0 if kind == "neg_zero" else 1.0)
+    else:
+        raise KeyError(kind)
+    return A.astype(np.float32)
+
+
+def eig3_case(name: str, n: int = 600) -> dict:
+    """(n, 3, 3) float32 symmetric matrices of kind `name` ("mixed": every
+    kind of I_CASES in turn, shuffled)."""
+    rng = np.random.default_rng(sum(map(ord, name)) + n)
+    if name != "mixed":
+        return dict(A=_eig3_kind(rng, name, n))
+    per = -(-n // len(I_CASES))
+    A = np.concatenate([_eig3_kind(rng, k, per) for k in I_CASES])
+    return dict(A=A[rng.permutation(len(A))[:n]])
