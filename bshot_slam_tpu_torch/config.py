@@ -78,6 +78,26 @@ HDL64E_SENSOR = SensorConfig(
     n_azimuth=2176,
 )
 
+# The VLS-128's datasheet gives its envelope: 128 lasers from +15 to -25
+# deg, 0.11 deg apart at the finest.  Velodyne publishes the per-laser
+# angles (the user manual's laser table, the VLS-128 calibration file of
+# ROS's velodyne_pointcloud package), but neither is in this repository,
+# so the angles are assumed inside the envelope, in descending order: 32
+# from +15 to +3.3 deg, a central band of 64 at the 0.11 deg minimum from
+# +3.0 to -3.93 deg, and 32 from -4.3 to -25 deg.
+VLS128_SENSOR = SensorConfig(
+    name="VLS-128",
+    n_rings=128,
+    vertical_angles_deg=(
+        tuple(15.0 - i * 11.7 / 31.0 for i in range(32))
+        + tuple(3.0 - 0.11 * j for j in range(64))
+        + tuple(-4.3 - k * 20.7 / 31.0 for k in range(32))
+    ),
+    distance_scale_mm=2.0,
+    # 1800 firings a turn at 10 Hz (0.2 deg apart): fewer than the bins.
+    n_azimuth=2176,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class PreprocessConfig:
@@ -319,9 +339,10 @@ def hdl64e_config() -> SlamConfig:
     """The KITTI odometry benchmark's sensor (Geiger, Lenz and Urtasun, CVPR
     2012): a Velodyne HDL-64E S2 1.73 m above the road on a VW Passat, with
     `default_config()`'s settings at full width.  Its clouds hold up to
-    131072 kept points (kernels A and B's `MAX_ROWS`), so the cloud ladder
-    goes on past 49152 in coarse steps.  The self-car box is assumed: the
-    Passat's 4.78 x 1.82 m footprint with the sensor over its middle."""
+    131072 kept points (the most that kernels A, B and H take in their
+    narrow form), so the cloud ladder goes on past 49152 in coarse steps.
+    The self-car box is assumed: the Passat's 4.78 x 1.82 m footprint with
+    the sensor over its middle."""
     base = SlamConfig()
     return base.replace(
         sensor=HDL64E_SENSOR,
@@ -332,6 +353,32 @@ def hdl64e_config() -> SlamConfig:
         runtime=dataclasses.replace(
             base.runtime,
             cloud_buckets=base.runtime.cloud_buckets + (65536, 98304, 131072)),
+    )
+
+
+def vls128_config() -> SlamConfig:
+    """A Velodyne Alpha Prime (VLS-128) on a car roof at 10 Hz, as the
+    Boreas dataset records Toronto (Burnett et al., IJRR 2023), with
+    `default_config()`'s settings at full width.  A sweep is 128 x 1800 =
+    230400 rays, and `max_points` is all of them, so no frame is cut: the
+    cloud ladder goes on past HDL-64E's 131072 in steps of 32768 (163840,
+    196608) to 230400, each step a captured step graph and ~20% more rows
+    than a dense street's clouds need at the worst.  Past 131072 rows
+    kernels A, B and H run their wide form (`kernels/neighborhood.py`,
+    `MAX_ROWS` 262144).  Assumed, not from the source: the angle table
+    (`VLS128_SENSOR`), a roof mount 2.0 m above the road and a self-car
+    box from a sedan's ~4.9 x 1.9 m footprint with the sensor over its
+    middle."""
+    base = hdl64e_config()
+    return base.replace(
+        sensor=VLS128_SENSOR,
+        preprocess=dataclasses.replace(
+            base.preprocess, sensor_height_mm=2000.0, max_points=230400,
+            car_x_mm=(-950.0, 950.0), car_y_mm=(-2450.0, 2450.0),
+            car_z_mm=(-2000.0, 100.0)),
+        runtime=dataclasses.replace(
+            base.runtime,
+            cloud_buckets=base.runtime.cloud_buckets + (163840, 196608, 230400)),
     )
 
 

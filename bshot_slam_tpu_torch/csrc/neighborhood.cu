@@ -102,6 +102,20 @@
 //      row 0, in chunks of 256, until m are written.  Integer atomics only
 //      (shared-memory counts and appends, whose order the sort removes), so
 //      the output is the same bits on every run.
+//
+// Two forms of each kernel, picked on the host by the cloud's row count
+// (a static shape, so a captured graph holds one form).  Up to 131072 rows
+// (1024 tiles) the narrow form: A's and B's blocks list up to kMaxTiles
+// tiles, and H's key holds the row in kIdxBits = 17 bits, so a key is 31
+// bits of d2 and 17 of row, 48 in all, refined in four 12-bit digits.
+// Past it, up to 262144 rows (2048 tiles), the wide form, the same code
+// under the namespace `wide` (the profiler shows `wide::accumulate_kernel`
+// and so on): its lists hold kWideTiles tiles, and H's row takes 18 bits,
+// so a key is 49 bits and the refinement starts a fifth digit higher (bits
+// 48-59, of which only bit 48 is ever set).  The fifth digit costs a walk
+// only where the keys up to the m-th key's histogram bin overflow the 2048
+// slots after every digit above it, which repeated points alone cause:
+// the cut is the same key, so the rows are the stable sort's either way.
 #include "common.cuh"
 
 namespace {
@@ -162,7 +176,8 @@ __device__ __forceinline__ bool separated(const float* qb, const float* rb,
 // ---- What A and B share: cp.async, the tile list, the pre-pass ---------------
 
 constexpr int kStages = 3;      // shared-memory ring of candidate tiles
-constexpr int kMaxTiles = 1024;  // tiles a block can list: n <= 131072 rows
+constexpr int kMaxTiles = 1024;  // tiles a narrow block can list: n <= 131072 rows
+constexpr int kWideTiles = 2048;  // tiles a wide block can list: n <= 262144 rows
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -267,20 +282,39 @@ shot_pack_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask
   pack_tile(pts, mask, nullptr, cand, nullptr, boxes, n, 0, 0);
 }
 
+namespace wide {  // the same pre-passes under the wide form's names
+
+__global__ void __launch_bounds__(kThreads)
+pack_cloud_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
+                  const float* __restrict__ feat, float4* __restrict__ cand,
+                  float* __restrict__ featp, float* __restrict__ boxes, int n,
+                  int nf, int nfp) {
+  pack_tile(pts, mask, feat, cand, featp, boxes, n, nf, nfp);
+}
+
+__global__ void __launch_bounds__(kThreads)
+shot_pack_kernel(const float* __restrict__ pts, const uint8_t* __restrict__ mask,
+                 float4* __restrict__ cand, float* __restrict__ boxes, int n) {
+  pack_tile(pts, mask, nullptr, cand, nullptr, boxes, n, 0, 0);
+}
+
+}  // namespace wide
+
 // ---- Kernel A -------------------------------------------------------------
 
-// A, main kernel: query block blockIdx.x, split blockIdx.y of gridDim.y.
-template <int NFP>
-__global__ void __launch_bounds__(kThreads)
-accumulate_kernel(const float4* __restrict__ cand, const float* __restrict__ featp,
-                  const float* __restrict__ boxes, const float* __restrict__ r2row,
-                  float4* __restrict__ part, int* __restrict__ counters,
-                  float* __restrict__ out, int q0, int q1, int nf, int ntiles,
-                  float r2) {
+// A, main kernel: query block blockIdx.x, split blockIdx.y of gridDim.y;
+// MAXT tiles at most.
+template <int NFP, int MAXT>
+__device__ __forceinline__ void
+accumulate_body(const float4* __restrict__ cand, const float* __restrict__ featp,
+                const float* __restrict__ boxes, const float* __restrict__ r2row,
+                float4* __restrict__ part, int* __restrict__ counters,
+                float* __restrict__ out, int q0, int q1, int nf, int ntiles,
+                float r2) {
   constexpr int kF4 = NFP / 4;  // float4 chunks of a feature row
   __shared__ __align__(16) float4 sc[kStages][kTile];
   __shared__ __align__(16) float4 sf[kStages][kTile * kF4];
-  __shared__ uint16_t list[kMaxTiles];
+  __shared__ uint16_t list[MAXT];
   __shared__ int wcount[kWarps];
   __shared__ int last;
 
@@ -376,18 +410,39 @@ accumulate_kernel(const float4* __restrict__ cand, const float* __restrict__ fea
   if (tid == 0) counters[qb] = 0;  // ready for the next call on this stream
 }
 
+#define BSHOT_ACCUMULATE_ARGS                                                  \
+  const float4 *__restrict__ cand, const float *__restrict__ featp,            \
+      const float *__restrict__ boxes, const float *__restrict__ r2row,        \
+      float4 *__restrict__ part, int *__restrict__ counters,                   \
+      float *__restrict__ out, int q0, int q1, int nf, int ntiles, float r2
+#define BSHOT_ACCUMULATE_PASS \
+  cand, featp, boxes, r2row, part, counters, out, q0, q1, nf, ntiles, r2
+
+template <int NFP>
+__global__ void __launch_bounds__(kThreads) accumulate_kernel(BSHOT_ACCUMULATE_ARGS) {
+  accumulate_body<NFP, kMaxTiles>(BSHOT_ACCUMULATE_PASS);
+}
+
+namespace wide {
+template <int NFP>
+__global__ void __launch_bounds__(kThreads) accumulate_kernel(BSHOT_ACCUMULATE_ARGS) {
+  accumulate_body<NFP, kWideTiles>(BSHOT_ACCUMULATE_PASS);
+}
+}  // namespace wide
+
 // ---- Kernel B -------------------------------------------------------------
 
-// B, main kernel: query block blockIdx.x, split blockIdx.y of gridDim.y.
-// `part` holds one float4 (pos, neg, sum, 0) per split and query.
-template <bool NORMALIZED>
-__global__ void __launch_bounds__(kThreads)
-segratio_kernel(const float4* __restrict__ cand, const float* __restrict__ boxes,
-                const float* __restrict__ ctvec, const float* __restrict__ r2row,
-                float4* __restrict__ part, int* __restrict__ counters,
-                float* __restrict__ out, int q0, int q1, int ntiles, float r2) {
+// B, main kernel: query block blockIdx.x, split blockIdx.y of gridDim.y;
+// MAXT tiles at most.  `part` holds one float4 (pos, neg, sum, 0) per split
+// and query.
+template <bool NORMALIZED, int MAXT>
+__device__ __forceinline__ void
+segratio_body(const float4* __restrict__ cand, const float* __restrict__ boxes,
+              const float* __restrict__ ctvec, const float* __restrict__ r2row,
+              float4* __restrict__ part, int* __restrict__ counters,
+              float* __restrict__ out, int q0, int q1, int ntiles, float r2) {
   __shared__ __align__(16) float4 sc[kStages][kTile];
-  __shared__ uint16_t list[kMaxTiles];
+  __shared__ uint16_t list[MAXT];
   __shared__ int wcount[kWarps];
   __shared__ int last;
 
@@ -470,20 +525,49 @@ segratio_kernel(const float4* __restrict__ cand, const float* __restrict__ boxes
   if (tid == 0) counters[qb] = 0;  // ready for the next call on this stream
 }
 
+#define BSHOT_SEGRATIO_ARGS                                                    \
+  const float4 *__restrict__ cand, const float *__restrict__ boxes,            \
+      const float *__restrict__ ctvec, const float *__restrict__ r2row,        \
+      float4 *__restrict__ part, int *__restrict__ counters,                   \
+      float *__restrict__ out, int q0, int q1, int ntiles, float r2
+#define BSHOT_SEGRATIO_PASS \
+  cand, boxes, ctvec, r2row, part, counters, out, q0, q1, ntiles, r2
+
+template <bool NORMALIZED>
+__global__ void __launch_bounds__(kThreads) segratio_kernel(BSHOT_SEGRATIO_ARGS) {
+  segratio_body<NORMALIZED, kMaxTiles>(BSHOT_SEGRATIO_PASS);
+}
+
+namespace wide {
+template <bool NORMALIZED>
+__global__ void __launch_bounds__(kThreads) segratio_kernel(BSHOT_SEGRATIO_ARGS) {
+  segratio_body<NORMALIZED, kWideTiles>(BSHOT_SEGRATIO_PASS);
+}
+}  // namespace wide
+
 // ---- Kernel H --------------------------------------------------------------
 
 constexpr int kSelThreads = 256;  // H's block: one keypoint
 constexpr int kSelWarps = kSelThreads / 32;
 constexpr int kSelBins = 4096;    // the histogram's bins (12-bit digits)
 constexpr int kSelCap = 2048;     // keys a block collects and sorts
-constexpr int kIdxBits = 17;      // a row index: n <= 131072
+constexpr int kIdxBits = 17;      // a narrow row index: n <= 131072
+constexpr int kWideIdxBits = 18;  // a wide row index: n <= 262144
 constexpr int kSelUnroll = 4;     // candidate loads a thread keeps in flight
 
-// pack_key with the row in kIdxBits bits: the same order, 48 bits in all
-// (d2 > 0 has a clear sign bit), so the refinement below takes 4 digits.
+// pack_key with the row in IDX bits: the same order, 31 + IDX bits in all
+// (d2 > 0 has a clear sign bit).
+template <int IDX>
 __device__ __forceinline__ unsigned long long select_key(float d2, int j) {
-  return (static_cast<unsigned long long>(__float_as_uint(d2)) << kIdxBits) |
+  return (static_cast<unsigned long long>(__float_as_uint(d2)) << IDX) |
          static_cast<unsigned int>(j);
+}
+
+// The shift above the refinement's top 12-bit digit: the 31 + IDX bits of
+// a key rounded up to whole digits (48 narrow: 4 digits; 60 wide: 5).
+template <int IDX>
+__host__ __device__ constexpr int key_digits_shift() {
+  return 12 * ((31 + IDX + 11) / 12);
 }
 
 // (exclusive prefix of v over the block's threads in thread order, total).
@@ -533,15 +617,17 @@ __device__ __forceinline__ int2 find_bin(const unsigned* hist, int need, int* ws
 // in-radius rows ("ok": valid, 0 < d2 <= r2, the keypoint valid) by
 // ascending (d2, row), at most m of them; then the rows that are not ok by
 // ascending row until m are written.  What torch.sort(score, descending,
-// stable)[:, :m] of the plain version gives (see the header note).
-__global__ void __launch_bounds__(kSelThreads)
-shot_select_kernel(const float* __restrict__ kps, const uint8_t* __restrict__ kmask,
-                   const float4* __restrict__ cand, const float* __restrict__ boxes,
-                   long long* __restrict__ out, int n, int ntiles, int m, float r2,
-                   float scale) {
+// stable)[:, :m] of the plain version gives (see the header note).  MAXT
+// tiles at most, the row in IDX bits of a key.
+template <int MAXT, int IDX>
+__device__ __forceinline__ void
+select_body(const float* __restrict__ kps, const uint8_t* __restrict__ kmask,
+            const float4* __restrict__ cand, const float* __restrict__ boxes,
+            long long* __restrict__ out, int n, int ntiles, int m, float r2,
+            float scale) {
   __shared__ unsigned hist[kSelBins];
   __shared__ unsigned long long keys[kSelCap];
-  __shared__ uint16_t list[kMaxTiles];
+  __shared__ uint16_t list[MAXT];
   __shared__ int wsum[kSelWarps];
   __shared__ int nkeys;
   __shared__ int2 found;
@@ -609,7 +695,7 @@ shot_select_kernel(const float* __restrict__ kps, const uint8_t* __restrict__ km
     __syncthreads();
     scan([&](bool ok, int j, float d2) {
       if (ok) atomicAdd(&hist[lin_bin(d2)], 1u);
-      append(ok, ok ? select_key(d2, j) : 0ull);
+      append(ok, ok ? select_key<IDX>(d2, j) : 0ull);
     });
     __syncthreads();
     c = nkeys;
@@ -621,7 +707,7 @@ shot_select_kernel(const float* __restrict__ kps, const uint8_t* __restrict__ km
       // cut's digit prefix is `prefix` above bit `shift`.
       const int2 bb = find_bin(hist, m, wsum, &found);
       const int b = bb.x;
-      int less = bb.y, cnt = hist[b], shift = 12 * 4;
+      int less = bb.y, cnt = hist[b], shift = key_digits_shift<IDX>();
       unsigned long long prefix = 0;
       while (less + cnt > kSelCap && shift > 0) {
         __syncthreads();  // everyone has read hist
@@ -630,7 +716,7 @@ shot_select_kernel(const float* __restrict__ kps, const uint8_t* __restrict__ km
         shift -= 12;
         scan([&](bool ok, int j, float d2) {
           if (!ok || lin_bin(d2) != b) return;
-          const unsigned long long key = select_key(d2, j);
+          const unsigned long long key = select_key<IDX>(d2, j);
           if ((key >> (shift + 12)) == prefix)
             atomicAdd(&hist[(unsigned)(key >> shift) & (kSelBins - 1)], 1u);
         });
@@ -644,7 +730,7 @@ shot_select_kernel(const float* __restrict__ kps, const uint8_t* __restrict__ km
       if (tid == 0) nkeys = 0;
       __syncthreads();
       scan([&](bool ok, int j, float d2) {
-        const unsigned long long key = select_key(d2, j);
+        const unsigned long long key = select_key<IDX>(d2, j);
         int lb = ok ? lin_bin(d2) : kSelBins;
         append(ok && (lb < b || (lb == b && (key >> shift) <= prefix)), key);
       });
@@ -673,7 +759,7 @@ shot_select_kernel(const float* __restrict__ kps, const uint8_t* __restrict__ km
     }
     nsel = min(c, m);
     for (int i = tid; i < nsel; i += kSelThreads)
-      row[i] = (long long)(keys[i] & ((1ull << kIdxBits) - 1ull));
+      row[i] = (long long)(keys[i] & ((1ull << IDX) - 1ull));
   }
 
   // The rest: rows that are not ok, by ascending row, from row 0 until m
@@ -688,6 +774,23 @@ shot_select_kernel(const float* __restrict__ kps, const uint8_t* __restrict__ km
     got += sc.y;
   }
 }
+
+#define BSHOT_SELECT_ARGS                                                      \
+  const float *__restrict__ kps, const uint8_t *__restrict__ kmask,            \
+      const float4 *__restrict__ cand, const float *__restrict__ boxes,        \
+      long long *__restrict__ out, int n, int ntiles, int m, float r2,         \
+      float scale
+#define BSHOT_SELECT_PASS kps, kmask, cand, boxes, out, n, ntiles, m, r2, scale
+
+__global__ void __launch_bounds__(kSelThreads) shot_select_kernel(BSHOT_SELECT_ARGS) {
+  select_body<kMaxTiles, kIdxBits>(BSHOT_SELECT_PASS);
+}
+
+namespace wide {
+__global__ void __launch_bounds__(kSelThreads) shot_select_kernel(BSHOT_SELECT_ARGS) {
+  select_body<kWideTiles, kWideIdxBits>(BSHOT_SELECT_PASS);
+}
+}  // namespace wide
 
 // The query rows [q0, q1) of A and B: q0 a multiple of 128, q1 one or n, so
 // each query block is the block of the launch over every row and its sums
@@ -705,7 +808,8 @@ extern "C" {
 // A's scratch, allocated by the caller for ntiles = ceil(n / 128) tiles and
 // nfp = nf rounded up to a multiple of 4: cand ntiles * 128 float4, featp
 // ntiles * 128 * nfp floats, boxes ntiles * 8 floats, part nsplit * ntiles *
-// 128 * nfp floats, counters ntiles ints, zero before the first call.
+// 128 * nfp floats, counters ntiles ints, zero before the first call.  Up to
+// kMaxTiles tiles the narrow form runs, past them the wide one.
 int bshot_neighborhood_accumulate(const float* pts, const uint8_t* mask,
                                   const float* feat, const float* r2row,
                                   float* out, float* cand, float* featp,
@@ -715,18 +819,27 @@ int bshot_neighborhood_accumulate(const float* pts, const uint8_t* mask,
   if (n <= 0 || q0 == q1) return 0;
   const int ntiles = (n + kTile - 1) / kTile;
   const int nfp = (nf + 3) / 4 * 4;
-  if (nf < 1 || nfp > kMaxFeat || ntiles > kMaxTiles || nsplit < 1 ||
+  if (nf < 1 || nfp > kMaxFeat || ntiles > kWideTiles || nsplit < 1 ||
       nsplit > 65535 || bad_rows(n, q0, q1))
     return (int)cudaErrorInvalidValue;
+  const bool wide = ntiles > kMaxTiles;
   cudaStream_t st = (cudaStream_t)stream;
   float4* cand4 = reinterpret_cast<float4*>(cand);
   float4* part4 = reinterpret_cast<float4*>(part);
-  pack_cloud_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, feat, cand4, featp,
-                                                 boxes, n, nf, nfp);
+  if (wide)
+    wide::pack_cloud_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, feat, cand4,
+                                                         featp, boxes, n, nf, nfp);
+  else
+    pack_cloud_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, feat, cand4, featp,
+                                                   boxes, n, nf, nfp);
   const dim3 grid((q1 - q0 + kTile - 1) / kTile, nsplit);
 #define BSHOT_ACCUMULATE(NFP)                                                  \
-  accumulate_kernel<NFP><<<grid, kThreads, 0, st>>>(                          \
-      cand4, featp, boxes, r2row, part4, counters, out, q0, q1, nf, ntiles, r2)
+  if (wide)                                                                    \
+    wide::accumulate_kernel<NFP><<<grid, kThreads, 0, st>>>(                  \
+        cand4, featp, boxes, r2row, part4, counters, out, q0, q1, nf, ntiles, r2); \
+  else                                                                         \
+    accumulate_kernel<NFP><<<grid, kThreads, 0, st>>>(                        \
+        cand4, featp, boxes, r2row, part4, counters, out, q0, q1, nf, ntiles, r2)
   switch (nfp) {
     case 4: BSHOT_ACCUMULATE(4); break;
     case 8: BSHOT_ACCUMULATE(8); break;
@@ -739,7 +852,8 @@ int bshot_neighborhood_accumulate(const float* pts, const uint8_t* mask,
 
 // Scratch from the caller, for ntiles = ceil(n / 128) tiles: cand ntiles *
 // 128 float4, boxes ntiles * 8 floats, part nsplit * ntiles * 128 float4,
-// counters ntiles ints, zero before the first call.
+// counters ntiles ints, zero before the first call.  Up to kMaxTiles tiles
+// the narrow form runs, past them the wide one.
 int bshot_segratio_accumulate(const float* pts, const uint8_t* mask,
                               const float* ctvec, const float* r2row, float* out,
                               float* cand, float* boxes, float* part,
@@ -747,41 +861,60 @@ int bshot_segratio_accumulate(const float* pts, const uint8_t* mask,
                               float r2, int q0, int q1, void* stream) {
   if (n <= 0 || q0 == q1) return 0;
   const int ntiles = (n + kTile - 1) / kTile;
-  if (ntiles > kMaxTiles || nsplit < 1 || nsplit > 65535 || bad_rows(n, q0, q1))
+  if (ntiles > kWideTiles || nsplit < 1 || nsplit > 65535 || bad_rows(n, q0, q1))
     return (int)cudaErrorInvalidValue;
+  const bool wide = ntiles > kMaxTiles;
   cudaStream_t st = (cudaStream_t)stream;
   float4* cand4 = reinterpret_cast<float4*>(cand);
   float4* part4 = reinterpret_cast<float4*>(part);
-  pack_cloud_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, nullptr, cand4, nullptr,
-                                                 boxes, n, 0, 0);
-  const dim3 grid((q1 - q0 + kTile - 1) / kTile, nsplit);
-  if (normalized)
-    segratio_kernel<true><<<grid, kThreads, 0, st>>>(
-        cand4, boxes, ctvec, r2row, part4, counters, out, q0, q1, ntiles, r2);
+  if (wide)
+    wide::pack_cloud_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, nullptr, cand4,
+                                                         nullptr, boxes, n, 0, 0);
   else
-    segratio_kernel<false><<<grid, kThreads, 0, st>>>(
-        cand4, boxes, ctvec, r2row, part4, counters, out, q0, q1, ntiles, r2);
+    pack_cloud_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, nullptr, cand4,
+                                                   nullptr, boxes, n, 0, 0);
+  const dim3 grid((q1 - q0 + kTile - 1) / kTile, nsplit);
+#define BSHOT_SEGRATIO(NS, NORM)                                               \
+  NS segratio_kernel<NORM><<<grid, kThreads, 0, st>>>(                        \
+      cand4, boxes, ctvec, r2row, part4, counters, out, q0, q1, ntiles, r2)
+  if (wide && normalized)
+    BSHOT_SEGRATIO(wide::, true);
+  else if (wide)
+    BSHOT_SEGRATIO(wide::, false);
+  else if (normalized)
+    BSHOT_SEGRATIO(, true);
+  else
+    BSHOT_SEGRATIO(, false);
+#undef BSHOT_SEGRATIO
   return (int)cudaGetLastError();
 }
 
 // H: the wrapper allocates out (k rows of m int64, m <= n) and the scratch
 // for ntiles = ceil(n / 128) tiles: cand ntiles * 128 float4, boxes ntiles *
 // 8 floats.  Two launches: the pre-pass packs the cloud, then one block a
-// keypoint.
+// keypoint.  Up to kMaxTiles tiles the narrow form runs, past them the wide
+// one.
 int bshot_shot_neighbors(const float* kps, const uint8_t* kmask, const float* pts,
                          const uint8_t* mask, long long* out, float* cand,
                          float* boxes, int k, int n, int m, float r2, void* stream) {
   if (k <= 0 || m <= 0) return 0;
   const int ntiles = (n + kTile - 1) / kTile;
-  if (n <= 0 || m > n || m > kSelCap / 2 || ntiles > kMaxTiles || !(r2 >= 0.0f))
+  if (n <= 0 || m > n || m > kSelCap / 2 || ntiles > kWideTiles || !(r2 >= 0.0f))
     return (int)cudaErrorInvalidValue;
+  const bool wide = ntiles > kMaxTiles;
   cudaStream_t st = (cudaStream_t)stream;
   float4* cand4 = reinterpret_cast<float4*>(cand);
-  shot_pack_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, cand4, boxes, n);
   // r2 > 0: the bins span (0, r2]; r2 = 0: no row is ok and no bin is used.
   const float scale = r2 > 0.0f ? (float)kSelBins / r2 : 0.0f;
-  shot_select_kernel<<<k, kSelThreads, 0, st>>>(kps, kmask, cand4, boxes, out, n,
-                                                 ntiles, m, r2, scale);
+  if (wide) {
+    wide::shot_pack_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, cand4, boxes, n);
+    wide::shot_select_kernel<<<k, kSelThreads, 0, st>>>(kps, kmask, cand4, boxes, out,
+                                                         n, ntiles, m, r2, scale);
+  } else {
+    shot_pack_kernel<<<ntiles, kThreads, 0, st>>>(pts, mask, cand4, boxes, n);
+    shot_select_kernel<<<k, kSelThreads, 0, st>>>(kps, kmask, cand4, boxes, out, n,
+                                                   ntiles, m, r2, scale);
+  }
   return (int)cudaGetLastError();
 }
 

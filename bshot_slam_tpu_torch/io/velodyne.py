@@ -34,6 +34,13 @@ SENSOR_VLP16 = 0x22
 HDL64E_REFUSAL = ("decoding HDL-64E packets needs the unit's per-laser "
                   "calibration (db.xml), which the port does not read; "
                   "only the 16- and 32-ring sensors decode")
+# The VLS-128 (Alpha Prime) sends its own packet format: 128 lasers in
+# blocks of 32 told apart by the block id's upper and lower bank bits, its
+# azimuths offset per laser.  The decoders here read the 32-laser blocks of
+# the VLP-16 and the HDL-32E only.
+VLS128_REFUSAL = ("the port has no VLS-128 (Alpha Prime) packet decoder: its "
+                  "packets carry 128 lasers in banked blocks, while the decoders "
+                  "read the 32-laser blocks of the 16- and 32-ring sensors only")
 
 
 def sensor_type(sensor: SensorConfig) -> int:
@@ -43,7 +50,8 @@ def sensor_type(sensor: SensorConfig) -> int:
         return SENSOR_VLP16
     if sensor.n_rings == 32:
         return SENSOR_HDL32E
-    raise ValueError(f"{sensor.name} ({sensor.n_rings} rings): {HDL64E_REFUSAL}")
+    why = VLS128_REFUSAL if sensor.n_rings == 128 else HDL64E_REFUSAL
+    raise ValueError(f"{sensor.name} ({sensor.n_rings} rings): {why}")
 
 # One firing block: u16 block id, u16 azimuth (0.01 deg), 32 x (u16 dist, u8 int)
 _FIRING_DTYPE = np.dtype(

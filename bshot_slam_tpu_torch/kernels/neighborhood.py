@@ -52,6 +52,13 @@ bit for bit (the same d2 rounding; integers out).  Two launches, the
 cloud's packing and one block a keypoint (csrc/neighborhood.cu says how a
 block selects); the scratch (`_select_scratch`: ~2.1 MB at 131072 rows)
 is kept per device, stream and shape.
+
+A, B and H take up to `MAX_ROWS` (262144) rows in two forms, which the
+library picks by the cloud's row count (a static shape, so one form is
+captured in a graph): up to `NARROW_ROWS` (131072, 1024 tiles) the narrow
+form, past it the wide one, whose blocks list up to 2048 tiles and whose
+H keys hold an 18-bit row.  The wide kernels carry the namespace `wide`
+in the profiler's names (`wide::accumulate_kernel`, ...).
 """
 
 from __future__ import annotations
@@ -65,7 +72,8 @@ from bshot_slam_tpu_torch.kernels import (
 )
 
 MAX_FEAT = 16  # feature columns the CUDA kernel accumulates in registers
-MAX_ROWS = 131072  # rows the CUDA kernels take: a block lists at most 1024 tiles
+MAX_ROWS = 262144  # rows the CUDA kernels take: a wide block lists up to 2048 tiles
+NARROW_ROWS = 131072  # rows the narrow form takes (1024 tiles); past it the wide
 TILE = 128  # queries per block and candidates per tile of the CUDA kernels
 # Kernels A and B deal a query block's kept tiles in turn to SPLITS blocks
 # at every cloud size, so a row's sum is the same at any padded size that

@@ -174,9 +174,10 @@ def iss_keypoints(points: torch.Tensor, mask: torch.Tensor, cfg: KeypointConfig,
     minimum neighbours; then non-max suppression on l3 within the non-max
     radius, and the `max_out` largest, ties to the lowest index.
 
-    Kernel A takes at most `kernels.neighborhood.MAX_ROWS` (131072) rows
-    (the reference has no such limit); the clouds here hold at most the
-    configuration's `max_points` rows, which is at most `MAX_ROWS`."""
+    Kernel A takes at most `kernels.neighborhood.MAX_ROWS` (262144) rows
+    (the reference has no such limit; past 131072 in its wide form); the
+    clouds here hold at most the configuration's `max_points` rows, which
+    is at most `MAX_ROWS` (230400 for the VLS-128 preset)."""
     cnt, psum, outer = neighborhood_moments(points, mask, cfg.iss_salient_radius_mm,
                                             tile)
     safe = torch.clamp(cnt, min=1.0)

@@ -17,6 +17,9 @@ neither `--udp`, `--live`, `--step` nor `--profile`.  `--sensor hdl64e`
 runs `config.hdl64e_config()` (the KITTI odometry benchmark's HDL-64E S2)
 on `--synthetic` input only: its packets need the unit's calibration file,
 which the decoders do not read, so it refuses a PCAP or `--udp` (exit 2).
+`--sensor vls128` runs `config.vls128_config()` (a Velodyne Alpha Prime,
+VLS-128, as the Boreas dataset carries it) likewise on `--synthetic` input
+only: the port has no decoder for its packets.
 
 Examples:
   python3 bshot_slam_tpu_torch/tools/run_odometry.py capture.pcap --skip 686 --out traj.txt
@@ -67,9 +70,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("pcap", nargs="?", help="Velodyne PCAP capture")
     ap.add_argument("--synthetic", type=int, default=0, metavar="N",
                     help="run on N synthetic frames instead of a PCAP")
-    ap.add_argument("--sensor", choices=["hdl32e", "vlp16", "hdl64e"], default="hdl32e",
+    ap.add_argument("--sensor", choices=["hdl32e", "vlp16", "hdl64e", "vls128"],
+                    default="hdl32e",
                     help="hdl64e: the KITTI odometry benchmark's HDL-64E S2 "
-                         "(`config.hdl64e_config`), synthetic input only")
+                         "(`config.hdl64e_config`); vls128: a Velodyne Alpha "
+                         "Prime (`config.vls128_config`); both synthetic input only")
     ap.add_argument("--skip", type=int, default=0,
                     help="skip initial sweeps (reference Start_Frame)")
     ap.add_argument("--frames", type=int, default=0, help="max frames (0 = all)")
@@ -184,9 +189,12 @@ def _run(args, ap, mesh=None) -> int:
     import numpy as np
     import torch
 
-    from bshot_slam_tpu_torch.config import VLP16_SENSOR, default_config, hdl64e_config
+    from bshot_slam_tpu_torch.config import (
+        VLP16_SENSOR, default_config, hdl64e_config, vls128_config,
+    )
     from bshot_slam_tpu_torch.io import pcap as pcap_io
     from bshot_slam_tpu_torch.io import synthetic, velodyne
+    from bshot_slam_tpu_torch.kernels.neighborhood import NARROW_ROWS
     from bshot_slam_tpu_torch.odometry.engine import SlamEngine
     from bshot_slam_tpu_torch.utils import trajectory as traj_io
     from bshot_slam_tpu_torch.utils.metrics import ate_rmse
@@ -196,12 +204,13 @@ def _run(args, ap, mesh=None) -> int:
     cfg = default_config()
     if args.sensor == "vlp16":
         cfg = dataclasses.replace(cfg, sensor=VLP16_SENSOR)
-    elif args.sensor == "hdl64e":
+    elif args.sensor in ("hdl64e", "vls128"):
         if args.udp or (args.pcap and not args.synthetic):
-            print(f"--sensor hdl64e: {velodyne.HDL64E_REFUSAL}; use --synthetic N",
-                  file=sys.stderr)
+            why = (velodyne.HDL64E_REFUSAL if args.sensor == "hdl64e"
+                   else velodyne.VLS128_REFUSAL)
+            print(f"--sensor {args.sensor}: {why}; use --synthetic N", file=sys.stderr)
             return 2
-        cfg = hdl64e_config()
+        cfg = hdl64e_config() if args.sensor == "hdl64e" else vls128_config()
     if args.n_azimuth:
         cfg = dataclasses.replace(
             cfg, sensor=dataclasses.replace(cfg.sensor, n_azimuth=args.n_azimuth)
@@ -345,7 +354,7 @@ def _run(args, ap, mesh=None) -> int:
         live.update(eng, gold_traj)
     if args.profile:
         print(f"profiler trace -> {args.profile}")
-        st = frame_stats(RECORDER.records())
+        st = frame_stats(RECORDER.records(), wide_rows=NARROW_ROWS)
         RECORDER.clear()
         if st is not None:
             def ms(v):
@@ -356,7 +365,9 @@ def _run(args, ap, mesh=None) -> int:
                   f"on the device {ms(st['step_device_ms'])} ms, device gaps "
                   f"{ms(st['device_gap_pct'])} %")
             print(f"clouds: padded {ms(st['padded_pct'])} % of the buckets' rows, "
-                  f"{st['truncated_frames']} frames truncated at max_points; "
+                  f"{st['truncated_frames']} frames truncated at max_points, "
+                  f"{st['wide_frames']} past {NARROW_ROWS} rows (kernels A, B and H "
+                  "in their wide form); "
                   + ", ".join(f"{k} {v}" for k, v in sorted(st["cloud_counts"].items())))
     n = len(eng.records)
     print(f"{n} frames in {total:.1f}s ({n / total:.2f} fps incl. first-use builds)")

@@ -407,7 +407,7 @@ def _innermost(spans: list, starts: list, t: int) -> str:
     return "host"
 
 
-def frame_stats(records: dict, serials=None) -> dict | None:
+def frame_stats(records: dict, serials=None, wide_rows: int | None = None) -> dict | None:
     """What `records` (`Recorder.records()`) say of the frames of the
     engines `serials` (the first part of each frame id; None: every
     engine), per frame (its `slam.frame` span): host ms in
@@ -420,8 +420,9 @@ def frame_stats(records: dict, serials=None) -> dict | None:
     last `replay_end`) that lies outside those intervals, %, and the
     seconds of those gaps by the innermost span open when each began; from
     the host ingest's `cloud.*` counts, the share of the buckets' rows that
-    is padding, % (None without counts), the frames cut at `max_points`
-    and each counter's sum.  The device numbers are None without marks
+    is padding, % (None without counts), the frames cut at `max_points`,
+    the frames whose bucket passes `wide_rows` (None without it) and each
+    counter's sum.  The device numbers are None without marks
     (the CPU); the whole is None without frames."""
     spans = records["spans"]
 
@@ -448,12 +449,15 @@ def frame_stats(records: dict, serials=None) -> dict | None:
     syncs = sum(c["n"] for c in records["counts"]
                 if c["name"].startswith("host_syncs") and mine(c["frame"]))
     cloud = collections.Counter()
-    truncated = set()
+    truncated, wide = set(), set()
     for c in records["counts"]:
         if c["name"].startswith("cloud.") and mine(c["frame"]):
             cloud[c["name"]] += c["n"]
             if c["name"] == "cloud.truncated_rows" and c["n"] > 0:
                 truncated.add(c["frame"])
+            if (c["name"] == "cloud.bucket_rows" and wide_rows is not None
+                    and c["n"] > wide_rows):
+                wide.add(c["frame"])
     marks = collections.defaultdict(dict)  # frame -> mark name -> host ns
     for m in records["marks"]:
         if mine(m["frame"]):
@@ -487,6 +491,7 @@ def frame_stats(records: dict, serials=None) -> dict | None:
         "padded_pct": ((1.0 - cloud["cloud.rows"] / cloud["cloud.bucket_rows"]) * 100.0
                        if cloud["cloud.bucket_rows"] else None),
         "truncated_frames": len(truncated),
+        "wide_frames": None if wide_rows is None else len(wide),
         "cloud_counts": dict(cloud),
         "gaps": dict(gaps),
         "self_ms": {k: v / n * 1e-6 for k, v in self_ns.items()},

@@ -5,9 +5,11 @@
 
 Phases, one line each:
   1. the card (nvidia-smi name and power limit) and the kernel build;
-  2. the first 24 frames of the benchmark drive (synthetic HDL-32E), and
+  2. the first 24 frames of the benchmark drive (synthetic HDL-32E),
      four frames of the same drive through the HDL-64E preset, whose
-     largest kept cloud [3] gives kernel H;
+     largest kept cloud [3] gives kernel H, and the lap of the benchmark's
+     `vls128.replay` cell (a VLS-128 in a dense street), whose largest kept
+     cloud [3] gives A, B and H in their wide form;
   3. each CUDA kernel A-E and G-I at the main path's shapes against its plain
      PyTorch version (G, the ICP update: one update after D at [3]'s D
      inputs, pair count exact, transform and rmse within the stated
@@ -25,7 +27,12 @@ Phases, one line each:
      same card tensors, where the CPU's libm may round otherwise) on the
      bench frame's normals' and LRF covariances and on the HDL-64E cloud's
      normals' covariances at those three sizes, with the plain version's
-     device time and launches;
+     device time and launches; A, B and H in their wide form (past
+     `NARROW_ROWS`, the `wide::` kernels) on the VLS-128 cloud cut to
+     131,200 and 196,608 rows and padded to 230,400: A's and B's counts
+     exactly, their sums within the stated tolerance of, and H's rows
+     equal to the plain version on the same card tensors, each twice
+     alike, with the profiler's kernel names, times, launches and bound;
   4. `SlamEngine.process_sweep` end to end over the 24 frames, with the
      map prefilled to 65,536 far-away landmarks: frames/s (also over the
      frames that captured no CUDA graph), ATE against
@@ -251,6 +258,10 @@ GOLDEN_MM, GOLDEN_PATH_SHARE = 60.0, 0.08
 # of these frames of the drive through the HDL-64E preset.
 SELECT_ROWS = (16384, 49152, 131072)
 SELECT_FRAMES = (44, 50, 56, 62)
+# Kernels A, B and H in their wide form are checked and timed at these cloud
+# rows ([3]), on the largest kept cloud of the `vls128.replay` cell's lap:
+# cut to the first two, padded to the last (the VLS-128 preset's max_points).
+WIDE_ROWS = (131200, 196608, 230400)
 # The bound of A and B counts the radius tests that a box prune at this
 # grain (query rows x candidate rows) leaves: a property of the cloud, fixed
 # here so that a kernel's own tiling cannot move its own bound.
@@ -385,6 +396,29 @@ def hdl64e_cloud(frames=SELECT_FRAMES):
     return cfg, points, nv
 
 
+def vls128_cloud(dev):
+    """(the VLS-128 preset, points (bucket, 3), n_valid) of the largest kept
+    cloud of the benchmark's `vls128.replay` lap, rendered on `dev` as its
+    runs render it (`slambench/harness.drive`)."""
+    from slambench import cell as cell_mod
+    from slambench import harness
+
+    cell = cell_mod.load("vls128.replay")
+    cfg = cell_mod.slam_config(cell.config)
+    sweeps = harness.drive(cell, dev, {"start": 0})
+    points, nv = max((frame_cloud(cfg, sw) for sw in sweeps), key=lambda c: c[1])
+    return cfg, points, nv
+
+
+def cut_to(points_np, nv: int, n: int):
+    """(points (n, 3) float32, valid rows): the first rows of a cloud cut
+    to n rows or padded with zero rows."""
+    k = min(nv, n)
+    pts = np.zeros((n, 3), np.float32)
+    pts[:k] = points_np[:k]
+    return pts, k
+
+
 def frame_cloud(cfg, sweep):
     """The engine's host preprocess of one sweep: (points (bucket, 3),
     n_valid)."""
@@ -427,6 +461,106 @@ def prefilled_map(cfg, device, n: int | None = None, far=(1.9e6, 2.1e6)):
 
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
+
+
+def kernel_names(fn) -> list:
+    """The names of the device kernels one call of fn() runs, as
+    `torch.profiler` gives them."""
+    from bshot_slam_tpu_torch.utils.profiling import profiled
+
+    return sorted(e.key for e in profiled(fn, fn))
+
+
+def wide_form(names: list, rows: int) -> bool:
+    """True when the port's kernels among `names` are the wide ones
+    (`wide::`) exactly when `rows` passes `NARROW_ROWS`."""
+    from bshot_slam_tpu_torch.kernels.neighborhood import NARROW_ROWS
+
+    own = [k for k in names if any(p in k for p in PORT_KERNELS)]
+    return bool(own) and all(("wide::" in k) == (rows > NARROW_ROWS) for k in own)
+
+
+def timed(fn, rows: int) -> dict:
+    """The columns of a wide row's kernel: CUDA-event ms, device ms and
+    launches, the kernels' names and whether they are the form `rows`
+    takes."""
+    from bshot_slam_tpu_torch.utils.profiling import device_profile
+
+    device_ms, launches = device_profile(fn)
+    names = kernel_names(fn)
+    return dict(ms=time_ms(fn), device_ms=device_ms, device_launches_per_call=launches,
+                kernels=names, wide_form=wide_form(names, rows))
+
+
+def check_wide_neighborhood(cfg, points_np, nv, dev):
+    """Kernels A and B in their wide form on `points_np` cut or padded to
+    each of WIDE_ROWS rows: {rows: A's row}, {rows: B's row}, against the
+    plain versions on the same card tensors."""
+    import torch
+
+    from bshot_slam_tpu_torch.kernels import neighborhood as K
+
+    r = cfg.keypoints.radius_mm
+    by_a, by_b = {}, {}
+    for n in WIDE_ROWS:
+        pts_np, k = cut_to(points_np, nv, n)
+        pts = torch.as_tensor(pts_np, device=dev)
+        mask = torch.arange(n, device=dev) < k
+        x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
+        feat = torch.stack([torch.ones_like(x), x, y, z, x * x, x * y, x * z,
+                            y * y, y * z, z * z], dim=-1).contiguous()
+        tests = radius_tests(pts_np, np.arange(n) < k, r)
+        nf = feat.shape[1]
+
+        out = K.neighborhood_accumulate(pts, mask, feat, r)
+        again = K.neighborhood_accumulate(pts, mask, feat, r)
+        ref = K.neighborhood_accumulate_plain(pts, mask, feat, r)
+        cnt = ref[:, 0]
+        scale = cnt[:, None] * feat.abs().max(dim=0).values[None, :]
+        atol = torch.tensor([0.0, 1e-2, 1e-2, 1e-2] + [100.0] * 6, device=dev)
+        err = (out - ref).abs()
+        within = float(cnt.sum())
+        b_ms, b_by = bound(n * (12 + 1 + 4 * nf + 4 * nf),
+                           {"f32": tests * K.RADIUS_TEST_F32 + within * nf})
+        by_a[n] = dict(
+            n_valid=k, radius_tests=tests, in_radius=within,
+            card_plain_rows_differ=int_mismatch(out[:, 0], cnt),
+            float_out_of_tol=int((err > 1e-5 * scale + atol).any(dim=1).sum()),
+            max_abs_err=float(err[:, 1:].max()), deterministic=same_bits([out], [again]),
+            **timed(lambda: K.neighborhood_accumulate(pts, mask, feat, r), n),
+            bound_ms=b_ms, bound_by=b_by)
+
+        ctvec = (pts - ref[:, 1:4] / torch.clamp(cnt, min=1.0)[:, None]).contiguous()
+        outb = K.segratio_accumulate(pts, mask, ctvec, r)
+        againb = K.segratio_accumulate(pts, mask, ctvec, r)
+        refb = K.segratio_accumulate_plain(pts, mask, ctvec, r)
+        errb = (outb[:, 2] - refb[:, 2]).abs()
+        scale_b = cnt * torch.linalg.norm(ctvec, dim=-1) * r
+        b_ms, b_by = bound(n * (12 + 1 + 12 + 12),
+                           {"f32": tests * K.RADIUS_TEST_F32
+                            + within * K.SEGRATIO_IN_RADIUS_F32})
+        by_b[n] = dict(
+            n_valid=k, radius_tests=tests, in_radius=within,
+            card_plain_rows_differ=int(((outb[:, :2] != refb[:, :2]).any(dim=1)).sum()),
+            float_out_of_tol=int((errb > 1e-5 * scale_b + 1e-2).sum()),
+            max_abs_err=float(errb.max()), deterministic=same_bits([outb], [againb]),
+            **timed(lambda: K.segratio_accumulate(pts, mask, ctvec, r), n),
+            bound_ms=b_ms, bound_by=b_by)
+    return by_a, by_b
+
+
+def with_rows(row: dict, by_rows: dict, what: str) -> dict:
+    """`row` with `by_rows` (rows -> a size's row) beside it, their
+    failures counted in its own columns."""
+    row = dict(row, by_rows={**row.get("by_rows", {}), **by_rows})
+    row["shapes"] += f"; {what}"
+    for b in by_rows.values():
+        row["card_plain_rows_differ"] += b["card_plain_rows_differ"]
+        row["float_out_of_tol"] += b.get("float_out_of_tol", 0)
+        row["max_abs_err"] = max(row["max_abs_err"], b.get("max_abs_err", 0.0))
+        row["deterministic"] = row["deterministic"] and b["deterministic"]
+        row["wide_form"] = row.get("wide_form", True) and b["wide_form"]
+    return row
 
 
 def check_neighborhood(cfg, points_np, nv, dev):
@@ -511,9 +645,10 @@ def check_neighborhood(cfg, points_np, nv, dev):
     return rows
 
 
-def check_shot_select(cfg, points_np, nv, dev):
-    """Kernel H on `points_np` cut to each of SELECT_ROWS rows, with the
-    configuration's keypoints (saliency top-k on the card) and neighbours."""
+def check_shot_select(cfg, clouds, dev):
+    """Kernel H on each (name, points, n_valid, rows) of `clouds`, the
+    cloud cut or padded to each of its rows, with the configuration's
+    keypoints (saliency top-k on the card) and neighbours."""
     import torch
 
     from bshot_slam_tpu_torch.kernels import neighborhood as K
@@ -522,37 +657,42 @@ def check_shot_select(cfg, points_np, nv, dev):
 
     radius, M = cfg.descriptor.shot_radius_mm, cfg.descriptor.max_neighbors
     by_rows = {}
-    for n in SELECT_ROWS:
-        k = min(nv, n)
-        pts = np.zeros((n, 3), np.float32)
-        pts[:k] = points_np[:k]
-        p = torch.as_tensor(pts, device=dev)
-        m = torch.arange(n, device=dev) < k
-        kps = extract_keypoints(p, m, cfg.keypoints)
-        args = (kps.positions, kps.mask, p, m, radius, M)
-        got, again = K.shot_neighbors(*args), K.shot_neighbors(*args)
-        c = cpu(*args[:4])
-        want = K.shot_neighbors_plain(*c, radius, M)
-        on_card = K.shot_neighbors_plain(*args)
-        sel = selection(*c, radius, M)
-        nk = sel["keypoints"]
-        b_ms, b_by = bound(nk * 13 + k * 13 + nk * min(M, n) * 8,
-                           {"f32": nk * k * K.RADIUS_TEST_F32})
-        by_rows[n] = dict(
-            n_valid=k, int_mismatch=int_mismatch(got, want),
-            card_plain_rows_differ=int((got != on_card).any(dim=1).sum()),
-            deterministic=torch.equal(got, again), **sel,
-            **measure(lambda: K.shot_neighbors(*args),
-                      lambda: K.shot_neighbors_plain(*args)),
-            bound_ms=b_ms, bound_by=b_by)
-    first = by_rows[SELECT_ROWS[0]]
+    for cloud, points_np, nv, sizes in clouds:
+        for n in sizes:
+            pts, k = cut_to(points_np, nv, n)
+            p = torch.as_tensor(pts, device=dev)
+            m = torch.arange(n, device=dev) < k
+            kps = extract_keypoints(p, m, cfg.keypoints)
+            args = (kps.positions, kps.mask, p, m, radius, M)
+            got, again = K.shot_neighbors(*args), K.shot_neighbors(*args)
+            c = cpu(*args[:4])
+            want = K.shot_neighbors_plain(*c, radius, M)
+            on_card = K.shot_neighbors_plain(*args)
+            sel = selection(*c, radius, M)
+            nk = sel["keypoints"]
+            names = kernel_names(lambda: K.shot_neighbors(*args))
+            b_ms, b_by = bound(nk * 13 + k * 13 + nk * min(M, n) * 8,
+                               {"f32": nk * k * K.RADIUS_TEST_F32})
+            by_rows[n] = dict(
+                cloud=cloud, n_valid=k, int_mismatch=int_mismatch(got, want),
+                card_plain_rows_differ=int((got != on_card).any(dim=1).sum()),
+                deterministic=torch.equal(got, again), **sel,
+                **measure(lambda: K.shot_neighbors(*args),
+                          lambda: K.shot_neighbors_plain(*args)),
+                kernels=names, wide_form=wide_form(names, n),
+                bound_ms=b_ms, bound_by=b_by)
+    first_rows = clouds[0][3][0]
+    first = by_rows[first_rows]
     cols = ("ms", "plain_ms", "device_ms", "device_launches_per_call",
             "host_us_per_call", "bound_ms", "bound_by")
     return dict(
         name="shot_neighbors",
         shapes=f"keypoints ({first['keypoints']} valid of {cfg.keypoints.top_k}), "
-               f"{M} neighbours, radius {radius:.0f} mm, HDL-64E cloud of {nv} kept "
-               f"points cut to {SELECT_ROWS[0]} rows (times at this size)",
+               f"{M} neighbours, radius {radius:.0f} mm, "
+               + ", ".join(f"{cloud} of {nv} kept points cut or padded to "
+                           f"{', '.join(map(str, sizes))} rows"
+                           for cloud, _, nv, sizes in clouds)
+               + f" (times at {first_rows})",
         source="bshot_slam_tpu_torch/csrc/neighborhood.cu",
         replaces="none: bshot_slam_tpu/ops/shot.py:102-111 (the (K, N) scores and "
                  "lax.top_k)",
@@ -560,6 +700,7 @@ def check_shot_select(cfg, points_np, nv, dev):
         float_out_of_tol=0, max_abs_err=0.0,
         card_plain_rows_differ=sum(r["card_plain_rows_differ"] for r in by_rows.values()),
         deterministic=all(r["deterministic"] for r in by_rows.values()),
+        wide_form=all(r["wide_form"] for r in by_rows.values()),
         **{c: first[c] for c in cols}, library_ms=None,
         tolerance="rows exact (the plain version's stable sort) at every size",
         by_rows=by_rows,
@@ -2489,6 +2630,60 @@ def tools_phase(work: pathlib.Path) -> dict:
     return out
 
 
+def report_rows(rows: list, max_neighbors: int) -> list:
+    """Print phase [3]'s lines of `rows`; the names of the kernels that
+    disagree with their plain versions or themselves, or ran the other
+    form than their rows take."""
+    failed = []
+    for r in rows:
+        print(f"[3] {r['name']}: {r['shapes']}; int mismatches vs CPU plain "
+              f"{r['int_mismatch']}, float out of tolerance {r['float_out_of_tol']}, "
+              f"max abs err {r['max_abs_err']:.6g}, rows differing from the plain "
+              f"version on the card {r['card_plain_rows_differ']}"
+              + ("" if "deterministic" not in r else
+                 f", two runs bit-identical: {r['deterministic']}")
+              + f"; kernel {r['ms']:.4f} ms (device only {r['device_ms']:.4f} ms in "
+              f"{r['device_launches_per_call']:.0f} launches, host "
+              f"{r['host_us_per_call']:.1f} us per call), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); {r['tolerance']}", flush=True)
+        for n, b in r.get("by_rows", {}).items():
+            if "keypoints" in b:  # H
+                about = (f"{b['cloud']}, {b['n_valid']} valid, {b['keypoints']} keypoints; "
+                         f"over {max_neighbors} in radius: "
+                         f"{b['saturated_pct']:.2f}%, mean {b['mean_in_radius']:.1f}, max "
+                         f"{b['max_in_radius']:.0f}): mismatches vs CPU plain "
+                         f"{b['int_mismatch']}")
+                plain = (f", host {b['host_us_per_call']:.1f} us), plain "
+                         f"{b['plain_ms']:.4f} ms")
+            else:  # A and B, against the plain version on the card
+                about = (f"{b['n_valid']} valid, {b['radius_tests']:.0f} radius tests, "
+                         f"{b['in_radius']:.0f} pairs in radius): float out of tolerance "
+                         f"{b['float_out_of_tol']}, max abs err {b['max_abs_err']:.6g}")
+                plain = ")"
+            print(f"[3] {r['name']} at {n} rows ({about}, rows differing from the plain "
+                  f"version on the card {b['card_plain_rows_differ']}, two runs "
+                  f"bit-identical {b['deterministic']}; kernel {b['ms']:.4f} ms (device "
+                  f"{b['device_ms']:.4f} ms in {b['device_launches_per_call']:.0f} "
+                  f"launches{plain}, bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+                  f"kernels {b['kernels']}, the form {n} rows take: {b['wide_form']}",
+                  flush=True)
+        for what, b in r.get("by_input", {}).items():
+            print(f"[3] {r['name']} on the {what}: matrices differing from the plain "
+                  f"version on the card {b['card_plain_rows_differ']}, two runs "
+                  f"bit-identical {b['deterministic']}; kernel {b['ms']:.4f} ms (device "
+                  f"{b['device_ms']:.4f} ms in {b['device_launches_per_call']:.0f} "
+                  f"launches, host {b['host_us_per_call']:.1f} us), plain "
+                  f"{b['plain_ms']:.4f} ms (device {b['plain_device_ms']:.4f} ms in "
+                  f"{b['plain_launches']:.0f} launches), bound {b['bound_ms']:.6f} ms "
+                  f"({b['bound_by']})", flush=True)
+        if (r["int_mismatch"] or r["float_out_of_tol"]
+                or r["card_plain_rows_differ"] or not r.get("deterministic", True)
+                or not r.get("wide_form", True)):
+            failed.append(r["name"])
+    return failed
+
+
 def main() -> int:
     try:
         import torch
@@ -2532,54 +2727,32 @@ def main() -> int:
     cfg64, points64, nv64 = hdl64e_cloud()
     print(f"[2] HDL-64E frames {SELECT_FRAMES} rendered in {time.perf_counter() - t0:.1f} "
           f"s; the largest keeps {nv64} points", flush=True)
+    t0 = time.perf_counter()
+    cfg128, points128, nv128 = vls128_cloud(dev)
+    print(f"[2] the vls128.replay lap rendered and ingested in "
+          f"{time.perf_counter() - t0:.1f} s; the largest keeps {nv128} points", flush=True)
 
     points, nv = frame_cloud(cfg, sweeps[3])
     assert points.shape[0] == pick_bucket(nv, cfg)
-    rows = (check_neighborhood(cfg, points, nv, dev) + check_mapops(cfg, dev)
-            + [check_shot_select(cfg64, points64, nv64, dev),
+    wide_a, wide_b = check_wide_neighborhood(cfg128, points128, nv128, dev)
+    what = f"wide: the VLS-128 cloud of {nv128} kept points at {WIDE_ROWS} rows"
+    a_row, b_row = check_neighborhood(cfg, points, nv, dev)
+    rows = ([with_rows(a_row, wide_a, what), with_rows(b_row, wide_b, what)]
+            + check_mapops(cfg, dev)
+            + [check_shot_select(cfg64, [("HDL-64E cloud", points64, nv64, SELECT_ROWS),
+                                         ("VLS-128 cloud", points128, nv128, WIDE_ROWS)],
+                                 dev),
                check_eig3(cfg, points, nv, cfg64, points64, nv64, dev)])
     torch.cuda.synchronize()
-    failed = []
-    for r in rows:
-        print(f"[3] {r['name']}: {r['shapes']}; int mismatches vs CPU plain "
-              f"{r['int_mismatch']}, float out of tolerance {r['float_out_of_tol']}, "
-              f"max abs err {r['max_abs_err']:.6g}, rows differing from the plain "
-              f"version on the card {r['card_plain_rows_differ']}"
-              + ("" if "deterministic" not in r else
-                 f", two runs bit-identical: {r['deterministic']}")
-              + f"; kernel {r['ms']:.4f} ms (device only {r['device_ms']:.4f} ms in "
-              f"{r['device_launches_per_call']:.0f} launches, host "
-              f"{r['host_us_per_call']:.1f} us per call), plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}); {r['tolerance']}", flush=True)
-        for n, b in r.get("by_rows", {}).items():
-            print(f"[3] {r['name']} at {n} rows ({b['n_valid']} valid, {b['keypoints']} "
-                  f"keypoints; over {cfg.descriptor.max_neighbors} in radius: "
-                  f"{b['saturated_pct']:.2f}%, mean {b['mean_in_radius']:.1f}, max "
-                  f"{b['max_in_radius']:.0f}): mismatches {b['int_mismatch']}, rows "
-                  f"differing on the card {b['card_plain_rows_differ']}, two runs "
-                  f"bit-identical {b['deterministic']}; kernel {b['ms']:.4f} ms (device "
-                  f"{b['device_ms']:.4f} ms in {b['device_launches_per_call']:.0f} "
-                  f"launches, host {b['host_us_per_call']:.1f} us), plain "
-                  f"{b['plain_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})",
-                  flush=True)
-        for what, b in r.get("by_input", {}).items():
-            print(f"[3] {r['name']} on the {what}: matrices differing from the plain "
-                  f"version on the card {b['card_plain_rows_differ']}, two runs "
-                  f"bit-identical {b['deterministic']}; kernel {b['ms']:.4f} ms (device "
-                  f"{b['device_ms']:.4f} ms in {b['device_launches_per_call']:.0f} "
-                  f"launches, host {b['host_us_per_call']:.1f} us), plain "
-                  f"{b['plain_ms']:.4f} ms (device {b['plain_device_ms']:.4f} ms in "
-                  f"{b['plain_launches']:.0f} launches), bound {b['bound_ms']:.6f} ms "
-                  f"({b['bound_by']})", flush=True)
-        if (r["int_mismatch"] or r["float_out_of_tol"]
-                or r["card_plain_rows_differ"] or not r.get("deterministic", True)):
-            failed.append(r["name"])
+    failed = report_rows(rows, cfg.descriptor.max_neighbors)
     if failed:
         raise SmokeError("kernels disagree with their plain versions, or with "
-                         f"themselves over two runs: {failed}")
-    wide = {r["name"]: r["device_launches_per_call"] for r in rows
-            if r["device_launches_per_call"] > MAX_DEVICE_LAUNCHES.get(r["name"], 99)}
+                         "themselves over two runs, or ran the other form than "
+                         f"their rows take: {failed}")
+    wide = {r["name"] if n is None else f"{r['name']} at {n} rows":
+            b["device_launches_per_call"]
+            for r in rows for n, b in [(None, r), *r.get("by_rows", {}).items()]
+            if b["device_launches_per_call"] > MAX_DEVICE_LAUNCHES.get(r["name"], 99)}
     if wide:  # a trace can lose records, not add them
         raise SmokeError(f"more device launches per call than allowed: {wide}")
 
@@ -3116,6 +3289,8 @@ def main() -> int:
     kernels = []
     for r in rows + [wr]:
         k = {key: r[key] for key in keys}
+        if "by_rows" in r:  # each size's columns (A, B and H's wide form among them)
+            k["by_rows"] = r["by_rows"]
         # over the whole engine run of its main path: [4] for A-E, [7]'s
         # synchronous fused run for F
         n = fu["launches"]["ground_walk"] if r is wr else res["launches"][r["name"]]

@@ -14,9 +14,12 @@ engine with the device preprocess equals the synchronous one through a
 bucket overflow; the evaluation ops (ISS through kernel A, repeatability,
 the voxel grid, `mutual_nn(use_matmul=True)`) agree with the CPU.  A and B
 over a TILE-aligned range of query rows equal the launch over every row,
-bit for bit; at `MAX_ROWS` rows (every query block listing all 1024 tiles,
-and a wide cloud) they agree with their plain versions at the start, the
-middle and the end of the cloud.  The engine through its CUDA graphs (`odometry.graphs`:
+bit for bit; at `NARROW_ROWS` rows (every query block listing all 1024
+tiles, and a wide cloud) they agree with their plain versions at the start,
+the middle and the end of the cloud, and so they do in their wide form at
+131,200, 196,608 and 230,400 rows (all 1,800 tiles listed), twice alike; a
+graphed frame of the VLS-128 cell at a wide bucket gives the eager frame's
+record and launches as many kernels as one at 131,072.  The engine through its CUDA graphs (`odometry.graphs`:
 synchronous and pipelined, host and device preprocess, through a window
 overflow, with the backend's pair verification) equals `graphs=False` bit
 for bit and counts the same kernel launches; through a window overflow the
@@ -43,7 +46,9 @@ tie of the expanded d2, the final poses then within a stated gap
 (`icp_traces_agree`), 21 launches an ICP of 10 iterations; a graphed frame advances `icp_update.launches` by the
 iterations + 1.  Kernel H (SHOT's neighbour selection) on each case of
 `H_CASES` (2048 to 131072 rows, 64 and 600 keypoints, 64 and 384
-neighbours, and fewer rows than neighbours; keypoints with 0, m // 2, m,
+neighbours, and fewer rows than neighbours) and `H_WIDE_CASES` (its wide
+form at 131,200 to 230,400 rows, the keypoints' rows past row 2^17;
+keypoints with 0, m // 2, m,
 m + 1 and over 10 m rows in radius, ties at the cut and over a whole
 histogram bin, rows at d2 = r2 and d2 = 0, masked rows and keypoints)
 equals its plain version on CPU copies bit for bit, and itself over two
@@ -77,7 +82,8 @@ from bshot_slam_tpu_torch.odometry import mapstore as tmap
 from bshot_slam_tpu_torch.odometry.engine import SlamEngine
 from tests.torch_kernel_cases import (
     A_CASES, B_CASES, C_CASES, D_CASES, DEDUP_RADIUS, E_ARGS, E_CASES,
-    EVICT_CASES, F_CASES, G_CASES, H_CASES, I_BATCHES, I_CASES, accumulate_case,
+    EVICT_CASES, F_CASES, G_CASES, H_CASES, H_WIDE_CASES, I_BATCHES, I_CASES,
+    accumulate_case,
     dedup_case, eig3_case, euclid_case, evict_case, hamming_case, icp_case, icp_trace,
     icp_traces_agree, iss_corners, keyframe_pair, moment_features, overflow_sequence,
     segratio_case, select_case, walk_case,
@@ -268,11 +274,10 @@ def test_neighborhood_query_range_on_card(dev, rows):
         assert torch.equal(got.view(torch.int32), whole[q0:q1].view(torch.int32))
 
 
-def _max_rows_cloud(kind: str):
-    """A cloud of `K.MAX_ROWS` rows: "ball", every point within half the
-    radius of the origin, so each query block lists all 1024 candidate
-    tiles; "spread", a wide cloud whose last rows are masked."""
-    n = K.MAX_ROWS
+def _max_rows_cloud(kind: str, n: int = K.NARROW_ROWS):
+    """A cloud of n rows: "ball", every point within half the radius of the
+    origin, so each query block lists every candidate tile (1024 at
+    `K.NARROW_ROWS`); "spread", a wide cloud whose last rows are masked."""
     rng = np.random.default_rng(64)
     if kind == "ball":
         pts = rng.uniform(-860.0, 860.0, (n, 3)).astype(np.float32)
@@ -284,32 +289,45 @@ def _max_rows_cloud(kind: str):
     return torch.tensor(pts), torch.arange(n) < nv
 
 
-MAX_ROWS_QUERIES = [(0, 1024), (65536, 66560), (130048, 131072)]
+def _max_rows_queries(n: int) -> list:
+    """Query blocks of 1024 rows at the start, the middle and the end of n
+    rows (TILE-aligned starts)."""
+    mid = n // 2 // K.TILE * K.TILE
+    end = (n - 1024) // K.TILE * K.TILE
+    return [(0, 1024), (mid, mid + 1024), (end, n)]
 
 
-@pytest.mark.parametrize("kind", ["ball", "spread"])
-def test_neighborhood_kernels_at_max_rows(dev, kind):
-    """A and B over `K.MAX_ROWS` rows (the HDL-64E preset's `max_points`,
-    A/B's limit of 1024 listed tiles), one launch each over every row,
+MAX_ROWS_QUERIES = _max_rows_queries(K.NARROW_ROWS)
+
+
+def _neighborhood_kernels_at(dev, kind: str, n: int):
+    """A and B over n rows, one launch each over every row and twice alike,
     against their plain versions on CPU copies over query blocks at the
     start, the middle and the end: counts exact, sums within the case
     tolerances above."""
-    pts, mask = _max_rows_cloud(kind)
+    pts, mask = _max_rows_cloud(kind, n)
     feat = torch.tensor(moment_features(pts.numpy()))
     d = [t.to(dev) for t in (pts, mask, feat)]
-    got = K.neighborhood_accumulate(d[0], d[1], d[2], 3000.0).cpu()
+    got = K.neighborhood_accumulate(d[0], d[1], d[2], 3000.0)
+    again = K.neighborhood_accumulate(d[0], d[1], d[2], 3000.0)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    got = got.cpu()
     top = feat[mask].abs().max(dim=0).values
-    for rows in MAX_ROWS_QUERIES:
+    queries = _max_rows_queries(n)
+    for rows in queries:
         want = K.neighborhood_accumulate_plain(pts, mask, feat, 3000.0, rows=rows)
         part = got[rows[0]:rows[1]]
         torch.testing.assert_close(part[:, 0], want[:, 0], rtol=0, atol=0)
         assert ((part - want).abs() <= 1e-5 * want[:, :1] * top[None, :]).all()
     if kind == "ball":
-        assert (got[:, 0] == K.MAX_ROWS).all()
+        assert (got[:, 0] == n).all()
     ctvec = (pts - got[:, 1:4] / got[:, :1].clamp(min=1.0)).contiguous()
     for normalized in (False, True):
-        gb = K.segratio_accumulate(d[0], d[1], ctvec.to(dev), 3000.0, normalized).cpu()
-        for rows in MAX_ROWS_QUERIES:
+        gb = K.segratio_accumulate(d[0], d[1], ctvec.to(dev), 3000.0, normalized)
+        gb2 = K.segratio_accumulate(d[0], d[1], ctvec.to(dev), 3000.0, normalized)
+        assert torch.equal(gb.view(torch.int32), gb2.view(torch.int32))
+        gb = gb.cpu()
+        for rows in queries:
             q0, q1 = rows
             want = K.segratio_accumulate_plain(pts, mask, ctvec[q0:q1].contiguous(),
                                                3000.0, normalized, rows=rows)
@@ -318,6 +336,13 @@ def test_neighborhood_kernels_at_max_rows(dev, kind):
             tol = (1e-5 * cnt + 1e-3 if normalized else
                    1e-5 * cnt * torch.linalg.norm(ctvec[q0:q1], dim=-1) * 3000.0 + 1e-2)
             assert ((gb[q0:q1, 2] - want[:, 2]).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("kind", ["ball", "spread"])
+def test_neighborhood_kernels_at_max_rows(dev, kind):
+    """A and B over `K.NARROW_ROWS` rows (the HDL-64E preset's
+    `max_points`, the narrow form's limit of 1024 listed tiles)."""
+    _neighborhood_kernels_at(dev, kind, K.NARROW_ROWS)
 
 
 @pytest.mark.parametrize("tail", [-1, 1500])
@@ -1119,3 +1144,103 @@ def test_eigh3_graph_launches_and_refusals_on_card(dev):
         with pytest.raises(err):
             E.eigh3(bad)
     assert [x.shape for x in E.eigh3(A[:0])] == [(0, 3), (0, 3, 3)]
+
+
+# -- kernels A, B and H in their wide form (last: they are long) ----------------
+
+
+@pytest.mark.parametrize("n,k,m,balls_last", H_WIDE_CASES)
+def test_shot_neighbors_wide_case_on_card(dev, n, k, m, balls_last):
+    """H in its wide form: its rows, past row 2^17 among them, equal the
+    plain version's on CPU copies bit for bit, and itself over two runs."""
+    c = select_case(n, k, m, balls_last)
+    want = K.shot_neighbors_plain(*_select_args(c))
+    got = K.shot_neighbors(*_select_args(c, dev))
+    again = K.shot_neighbors(*_select_args(c, dev))
+    assert got.dtype == torch.int64 and got.shape == want.shape == (k, m)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(again, got)
+    if balls_last:
+        assert bool((want >= K.NARROW_ROWS).any())  # 18-bit rows selected
+
+
+@pytest.mark.parametrize("n", [131200, 196608, 230400])
+@pytest.mark.parametrize("kind", ["ball", "spread"])
+def test_neighborhood_kernels_wide(dev, kind, n):
+    """A and B in their wide form, past `K.NARROW_ROWS` up to the VLS-128
+    preset's 230,400 rows (1,800 tiles, all listed by every query block of
+    the ball)."""
+    _neighborhood_kernels_at(dev, kind, n)
+
+
+def _vls128_frames(dev):
+    """(config, two consecutive sweeps of the VLS-128 cell's lap whose
+    clouds take bucket 131072, two whose clouds take a wide bucket)."""
+    from bshot_slam_tpu_torch.odometry.engine import host_cloud, pick_bucket
+    from bshot_slam_tpu_torch.ops.rangeimage import build_range_image
+    from slambench import cell as cell_mod
+    from slambench import harness
+
+    cell = cell_mod.load("vls128.replay")
+    cfg = cell_mod.slam_config(cell.config)
+    sweeps = harness.drive(cell, dev, {"start": 0})
+    buckets = []
+    for sw in sweeps:
+        ri = build_range_image(sw, cfg.sensor)
+        buckets.append(pick_bucket(host_cloud(ri.range_mm, ri.azimuth_rad, ri.vert_rad,
+                                              None, cfg)[1], cfg))
+    pairs = {}
+    for i in range(len(sweeps) - 1):
+        b = buckets[i]
+        key = "narrow" if b == K.NARROW_ROWS else "wide" if b > K.NARROW_ROWS else None
+        if key and buckets[i + 1] == b:
+            pairs.setdefault(key, (sweeps[i], sweeps[i + 1]))
+    return cfg, pairs["narrow"], pairs["wide"]
+
+
+def _replayed_launches(cfg, pair, dev, graphs=True):
+    """(engine, device launches of its second frame): a fresh engine takes
+    the pair's first sweep (capturing the step at its bucket), then the
+    second, replayed, under the profiler."""
+    from bshot_slam_tpu_torch.utils.profiling import profiled
+
+    eng = SlamEngine(cfg, seed=0, device=dev, graphs=graphs)
+    eng.process_sweep(pair[0])
+    on_card = profiled(torch.cuda.synchronize, lambda: eng.process_sweep(pair[1]))
+    torch.cuda.synchronize()
+    return eng, sum(e.count for e in on_card)
+
+
+# Counted in a fresh process: `torch.profiler` loses the edges of short
+# windows late in a process.
+WIDE_LAUNCHES = """
+import json, sys
+sys.path.insert(0, %r)
+import torch
+from tests.test_torch_cuda import _replayed_launches, _vls128_frames
+dev = torch.device("cuda")
+cfg, narrow, wide = _vls128_frames(dev)
+print(json.dumps([_replayed_launches(cfg, p, dev)[1] for p in (narrow, wide)]))
+"""
+
+
+def test_graphed_frame_at_a_wide_bucket_on_card(dev):
+    """Two frames of the VLS-128 cell at a wide bucket (kernels A, B and H
+    in their wide form): the graphed engine's records are the eager one's
+    bit for bit, and its second frame, replayed, launches as many kernels
+    as the second of two frames at bucket 131072."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    cfg, _, wide = _vls128_frames(dev)
+    g, e = (_replayed_launches(cfg, wide, dev, graphs)[0] for graphs in (True, False))
+    assert e.graphs.eager and g.graphs.captures >= 1
+    assert _record_bits(g) == _record_bits(e) and len(g.records) == 2
+    root = pathlib.Path(__file__).resolve().parents[1]
+    p = subprocess.run([sys.executable, "-c", WIDE_LAUNCHES % str(root)],
+                       capture_output=True, text=True, timeout=600, cwd=root)
+    assert p.returncode == 0, p.stderr[-2000:]
+    narrow_launches, wide_launches = json.loads(p.stdout.strip().splitlines()[-1])
+    assert wide_launches == narrow_launches > 1000

@@ -55,6 +55,11 @@ H_CASES = ((2048, 64, 64), (2048, 64, 384), (2048, 600, 64), (2048, 600, 384),
            (16384, 64, 64), (16384, 64, 384), (16384, 600, 64), (16384, 600, 384),
            (131072, 64, 64), (131072, 64, 384), (131072, 600, 64),
            (131072, 600, 384), (300, 64, 384))
+# Past 131072 rows H runs its wide form (an 18-bit row in its keys):
+# (rows, keypoints, neighbours, balls_last) of each case on the card;
+# `balls_last` puts the keypoints' rows at the cloud's end, past row 2^17.
+H_WIDE_CASES = ((131200, 600, 384, True), (196608, 64, 384, True),
+                (230400, 600, 384, True), (230400, 64, 64, False))
 H_RADIUS = 1000.0
 # Integer clouds whose every d2 is exact in float32 (the selection against
 # the reference on the CPU): (rows, keypoints, neighbours, seed).
@@ -795,7 +800,7 @@ def _ball(rng, centre, t, radius):
     return centre + d * (radius * rng.uniform(0.05, 1.0, (t, 1)) ** (1 / 3))
 
 
-def select_case(n: int, k: int, m: int) -> dict:
+def select_case(n: int, k: int, m: int, balls_last: bool = False) -> dict:
     """Inputs of `shot_neighbors` (keypoints, kp_mask, points, mask, radius,
     max_neighbors) and `counts`, each keypoint's in-radius rows by design
     (-1 where the rounding decides them).  Keypoints lie 2.5 radii apart;
@@ -815,7 +820,8 @@ def select_case(n: int, k: int, m: int) -> dict:
          radius (the expanded d2's rounding decides);
     then 0 to m // 3 rows each; every 17th keypoint after 9 is masked.
     Masked rows keep their coordinates.  The balls' rows come first,
-    shuffled, then the far rows sorted along x (whole tiles out of reach)."""
+    shuffled, then the far rows sorted along x (whole tiles out of reach);
+    with `balls_last` the far rows come first."""
     rng = np.random.default_rng(n + 7 * k + 13 * m)
     mm = min(m, n)
     R = H_RADIUS
@@ -890,7 +896,8 @@ def select_case(n: int, k: int, m: int) -> dict:
     mask = ~np.concatenate(masked)
     mask[len(pts) - len(far):] = rng.random(len(far)) > 0.05
     nb = n - len(far)
-    order = np.concatenate([rng.permutation(nb), nb + np.argsort(far[:, 0])])
+    parts = [rng.permutation(nb), nb + np.argsort(far[:, 0])]
+    order = np.concatenate(parts[::-1] if balls_last else parts)
     return dict(keypoints=kps.astype(np.float32), kp_mask=kmask,
                 points=pts[order], mask=mask[order], radius=R, max_neighbors=m,
                 counts=counts)
